@@ -15,17 +15,23 @@ Phases, each printed with its elapsed seconds as it starts:
    phase lines, the median CUDA-event time around single calls, which
    includes the host's launch time), beside each kernel's bound (the larger
    of its bytes over 3.35 TB/s and the operations of a minimal form of its
-   function over 67e12 per second) and the plain version's time. The ROIAlign entry of the report
-   sums its three stage calls, one batch's pooling. No single PyTorch call computes
-   either function (torchvision is absent), so there is no library time;
+   function over the card's rate for them: 67e12 fp32 operations per second
+   for ROIAlign, 66.9e12 two-input min/max for the clean) and the plain
+   version's time, with each kernel's launch plan. The ROIAlign entry of the
+   report sums its three stage calls, one batch's pooling. No single PyTorch
+   call computes either function (torchvision is absent), so there is no
+   library time;
 4. the main path: ``Predictor.from_model_dir`` on the committed fast160
    model (R50-FPN, full width, weights read from its npz), a chunk of 64
    sentinel-encoded 424x512 frames made from ``--seed``, and
    ``extract.process_chunk`` with both kernels' launch counts set to 0 just
-   before and read just after; then 5 timed chunks (median wall time of
+   before and read just after (and whether the FPN levels reach the pool
+   as NHWC bf16, which decides whether its NHWC view copies); then 5 timed
+   chunks (median wall time of
    each stage and of the chunk, host clock, each stage ended by a
    synchronize) and one chunk under ``torch.profiler`` (the device's busy
-   share of its wall time and the top kernels by device time); then the
+   share of its wall time, the copy kernels and the top kernels by device
+   time); then the
    same 4-frame input through the port on the card and on the CPU (plain
    versions, f32 model) as a reference check;
 5. a JSON line of the kernels, then the result line.
@@ -47,11 +53,15 @@ T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = 'moseq2_detectron_extract_tpu_torch'
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-# H100 SXM fp32 rate outside the tensor cores (an FMA counts 2). The clean's
-# bound counts a min or max as one operation at this rate too: a scalar
-# int32 min/max issues at a quarter of it (64 per SM per clock), so the
-# bound is one no form of the function can beat.
+# H100 SXM fp32 rate outside the tensor cores (an FMA counts 2): ROIAlign.
 FP32_OPS_PER_S = 67e12
+# Two-input min/max per second for the clean: the card's widest min/max is
+# VIMNMX3.U16x2 (cuobjdump of csrc/clean.cu's build), two 16-bit lanes of a
+# three-input min or max, i.e. 4 two-input min/max, taken to issue at the
+# 32-bit integer min/max rate of 64 per SM per clock: 4 * 64 * 132 SMs *
+# 1.98 GHz. (Not measured on the card; a kernel faster than this bound
+# would say the rate is higher.)
+MINMAX_PER_S = 4 * 64 * 132 * 1.98e9
 BF16_TOL = 2.0 ** -6               # 2 bf16 ulps, relative and absolute
 # At most 16 taps per output element (4 samples x 4 bilinear taps, the
 # weights per ROI and shared by the channels): 16 multiply-adds.
@@ -142,7 +152,8 @@ def roi_inputs(rng, batch: int, k: int, canvas: int = 160, c: int = 256, device=
 
 def roi_bound(levels, boxes, out: int):
     '''(bytes, ops) the function needs on these inputs: the distinct taps it
-    reads (per image), the boxes, the output; 41 fp32 ops per output.'''
+    reads (per image), the boxes, the output; ROI_OPS_PER_OUTPUT (32) fp32
+    operations per output element.'''
     import torch
     from moseq2_detectron_extract_tpu_torch.ops.roi_align import (_roi_sample_coords,
                                                                   assign_fpn_levels)
@@ -179,9 +190,9 @@ def roi_bound(levels, boxes, out: int):
     return nbytes, out_elems * ROI_OPS_PER_OUTPUT
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
@@ -211,6 +222,10 @@ def check_kernels(rng, reps: int, card: str):
         wall, plain_wall = wall_ms(kernel, reps), wall_ms(plain, reps)
         nbytes, ops = roi_bound(levels, boxes, out)
         b_ms, by = bound_ms(nbytes, ops)
+        plan = roi_align_kernel.launch_plan(16 * k, 256, out, 8)
+        phase(f'roi_align {stage} plan: {16 * k * plan.slices} blocks of '
+              f'{plan.lanes * plan.vec} channels, {plan.cap_rows} x {plan.cap_cols} taps '
+              f'staged at a time, {plan.smem_bytes} B shared memory')
         phase(f'roi_align {stage} (B=16, K={k}, out={out}, C=256): max_abs_err '
               f'{float(err.max()):.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); device ms: kernel '
               f'{ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by} ({nbytes} B, '
@@ -235,7 +250,10 @@ def check_kernels(rng, reps: int, card: str):
     wall, plain_wall = wall_ms(kernel, reps), wall_ms(plain, reps)
     nbytes = 2 * frames.numel()
     ops = CLEAN_OPS_PER_PIXEL * frames.numel()
-    b_ms, by = bound_ms(nbytes, ops)
+    b_ms, by = bound_ms(nbytes, ops, MINMAX_PER_S)
+    plan = clean_kernel.tile_plan(*frames.shape)
+    phase(f'clean plan: {plan.tile_h} x {plan.tile_w} tiles, {plan.blocks} blocks of two '
+          f'frames, {plan.smem_bytes} B shared memory')
     phase(f'clean (64, 160, 160) uint8: bit-exact; device ms: kernel {ms:.4f}, plain '
           f'{plain_ms:.4f}, bound {b_ms:.4f} by {by} ({nbytes} B, {ops} ops); wall ms per '
           f'call: kernel {wall:.4f}, plain {plain_wall:.4f} [{card}]')
@@ -290,6 +308,9 @@ def profile_chunk(chunk, predictor, config, tracker, card: str) -> None:
     phase(f'profiled chunk: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
           f'({100 * busy_us / 1e3 / (wall * 1e3):.1f}%), {len(kernels)} kernel names, '
           f'{sum(e.count for e in kernels)} launches [{card}]')
+    copies = [e for e in kernels if 'copy' in e.key.lower()]
+    phase(f'profiled chunk: copy kernels {sum(e.device_time_total for e in copies) / 1e3:.3f} '
+          f'ms in {sum(e.count for e in copies)} launches [{card}]')
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP_KERNELS]:
         print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}', flush=True)
 
@@ -374,6 +395,7 @@ def main() -> int:
     phase('4/5 main path: Predictor.from_model_dir + process_chunk')
     from moseq2_detectron_extract_tpu_torch.extract import make_tracker, process_chunk
     from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+    from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
     from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
     from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk
     t = time.perf_counter()
@@ -386,10 +408,27 @@ def main() -> int:
     chunk = make_sentinel_chunk(FRAMES, 424, 512, seed=args.seed)
     tracker = make_tracker()
 
+    level_formats = []
+    pool_levels = MaskKeypointRCNN.pool_levels
+
+    def spy(fpn_feats):
+        level_formats.append([(str(f.dtype), f.is_contiguous(memory_format=torch.channels_last))
+                              for f in fpn_feats[:4]])
+        return pool_levels(fpn_feats)
+
+    MaskKeypointRCNN.pool_levels = staticmethod(spy)
     roi_align_kernel.launch_count = 0
     clean_kernel.launch_count = 0
-    out = process_chunk(chunk, predictor, config, tracker=tracker)
-    torch.cuda.synchronize()
+    try:
+        out = process_chunk(chunk, predictor, config, tracker=tracker)
+        torch.cuda.synchronize()
+    finally:
+        MaskKeypointRCNN.pool_levels = staticmethod(pool_levels)
+    nhwc = all(dt == 'torch.bfloat16' and cl for fmt in level_formats for dt, cl in fmt)
+    phase(f'FPN levels reaching the pool (dtype, channels_last) per batch: {level_formats[0]} '
+          f'... ({len(level_formats)} batches): '
+          + ('NHWC bf16 already, the NHWC view copies nothing' if nhwc else
+             'not NHWC bf16: pool_levels copies each level once per batch'))
     launches = {'roi_align': roi_align_kernel.launch_count,
                 'clean': clean_kernel.launch_count}
     phase(f'main path launches: {launches}')

@@ -6,8 +6,7 @@
 // ROI of the box, mask and keypoint heads (models/rcnn.py:_pool). It computes
 // the same function, not the TPU's blocking: the TPU kernel writes the
 // bilinear taps as two small matmuls (Wy @ F_stack, then a contraction with
-// Wx over W) because its matrix unit is idle otherwise. Here each output is a
-// direct bilinear gather.
+// Wx over W) because its matrix unit is idle otherwise.
 //
 // Function. Each ROI (x1, y1, x2, y2) takes the FPN level
 //   clamp(floor(4 + log2(sqrt(area) / 224 + 1e-8)), min_level, max_level),
@@ -16,39 +15,65 @@
 // clamped into [0, size - 1] (clamped, not zeroed), interpolated
 // bilinearly, and each 2x2 group of samples is averaged into one output.
 //
-// Layout. The four levels P2..P5 are read through four pointers, each NHWC
-// (B, H_l, W_l, C) bf16 and contiguous; boxes (B, K, 4) f32; the output is
-// (B, K, out, out, C) bf16. Taps are read as bf16 pairs and converted to
-// fp32; all sums are fp32; the result is rounded to bf16 once.
+// Layout. Four levels P2..P5, each an NHWC (B, H_l, W_l, C) bf16 view with
+// its own batch, row and column strides and channel stride 1 (a
+// channels_last NCHW tensor permuted to NHWC is such a view); boxes
+// (B, K, 4) f32; the output (B, K, out, out, C) bf16. Sums are f32; the
+// result is rounded to bf16 once.
 //
-// What bounds it on an H100. The work is a gather: at most 16 taps per
-// output element (4 samples x 4 bilinear taps, weights per ROI and shared by
-// the channels), so 16 fp32 multiply-adds (32 operations) per element against
-// 2 bytes written per element and the taps read.
-// At the main-path shapes (C = 256, out = 7 with K = 16, out = 14 and 7 with
-// K = 1, batch 16) the bytes (taps touched + output, over 3.35 TB/s) bound it,
-// not the operations (over the 67 TFLOP/s fp32 rate).
+// What bounds it on an H100. The function moves bytes: 16 multiply-adds
+// (32 operations) per output element against 2 bytes written per element
+// and the taps read. Its M is out = 7 or 14 rows, far below the 64 rows of
+// a wgmma tile: a tensor-core form would pad M 5-9x and still have to
+// build the interpolation matrices per ROI (benchmarks/roi_stage2_exp.py
+// fought this M = 7 problem on the TPU's matrix unit). So the design aims
+// at bytes and occupancy: read each ROI's footprint once, with 16-byte
+// loads, and keep every SM busy in the small stages.
 //
-// Design. One block per (ROI, output row): the block computes the ROI's
-// level and its sample coordinates itself, once, into shared memory; its
-// threads then run over (output column, channel pair), so neighbouring
-// threads read neighbouring channels of one NHWC tap row: a warp reads
-// 128 contiguous bytes per tap. Splitting a ROI over its output rows gives
-// B*K*out blocks, enough to spread the K = 1 stages over the card's 132 SMs.
-// Coordinates use round-to-nearest intrinsics (no fused multiply-add) so they
-// are bit-identical to the plain PyTorch version's.
+// What the first design lost. One block per (ROI, output row) gathered all
+// 16 taps of every output element with 4-byte bf16x2 loads: 16 * 16 * 49 *
+// 16 * 512 B = 103 MB of L1/L2 traffic in the box stage (B 16, K 16, out 7,
+// C 256) for about 17 MB of distinct taps, each tap read about 6 times; the
+// K = 1 stages ran 112-224 blocks close to the cost of a launch.
+//
+// Design. One block per (ROI, slice of `lanes` x V channels); V = 8 (one
+// 16-byte load of 8 bf16 per thread) where the channels and strides allow
+// it, else V = 1. The wrapper (ops/roi_align_kernel.py:launch_plan) picks
+// the slice so that even the K = 1 stages (16 ROIs a batch) launch at least
+// one block per SM: 8 lanes (64 channels, 1,024 blocks) for the box stage,
+// 2 lanes (16 channels, 256 blocks) for the mask and keypoint stages.
+// 1. The block computes its ROI's level and sample coordinates once into
+//    shared memory, bit-identical to the plain version (round-to-nearest
+//    intrinsics, no fused multiply-add, the plain version's order). The
+//    coordinates are monotone in the sample index, so the footprint is the
+//    box [y0 of the first sample, y1 of the last] x [the same in x].
+// 2. It stages the footprint's taps for its channel slice into shared
+//    memory, each tap once, neighbouring threads on neighbouring channels.
+// 3. Along y: for each output row and footprint column, the two samples'
+//    two rows each give Ty[oy][x] = 0.5 * sum (1 - fy) f[y0] + fy f[y1] (f32,
+//    shared memory). 4. Along x: each output sums 0.5 * ((1 - fx) Ty[x0] +
+//    fx Ty[x1]) over its two x samples in f32 registers.
+// A footprint larger than the staged capacity (rows x cols taps, set by the
+// wrapper) is walked in chunks inside the kernel: row chunks accumulate into
+// Ty, column chunks into the output registers. No ROI leaves the kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxOut = 32;     // output_size limit: 2*out samples per axis
-constexpr int kThreads = 256;   // >= 2 + 2*kMaxOut coordinate threads
+constexpr int kThreads = 256;   // >= 2 * 2*kMaxOut coordinate threads
+constexpr int kMaxItems = 4;    // outputs (of V channels) a thread accumulates
+
+struct Level {
+  const __nv_bfloat16* base;
+  int height, width;
+  long long sb, sy, sx;          // strides in elements; the channel stride is 1
+};
 
 struct Pyramid {
-  const __nv_bfloat162* level[4];
-  int height[4];
-  int width[4];
+  Level level[4];
 };
 
 // One sample coordinate along an axis, as ops/roi_align.py computes it.
@@ -66,106 +91,313 @@ __device__ __forceinline__ void sample_coord(float lo, float hi, int i, int s,
   *c1 = min(*c0 + 1, size - 1);
 }
 
+__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* global_ptr) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(global_ptr));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// V bf16 channels <-> shared memory and f32.
+template <int V>
+struct Chan;
+
+template <>
+struct Chan<8> {
+  using Raw = uint4;
+  // an asynchronous 16-byte copy: every load of a chunk is in flight at once
+  static __device__ __forceinline__ void stage(Raw* dst, const __nv_bfloat16* src) {
+    cp_async16(dst, src);
+  }
+  static __device__ __forceinline__ Raw zero() { return make_uint4(0, 0, 0, 0); }
+  static __device__ __forceinline__ void to_float(Raw r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  // Ty holds a cell's channels as two float4 planes, [cell][2][lanes], so
+  // the lanes of a quarter-warp touch 128 contiguous bytes (no bank conflicts)
+  static __device__ __forceinline__ void ty_read(const float* ty, int cell, int lane,
+                                                 int lanes, float* f) {
+    const float4* p = reinterpret_cast<const float4*>(ty) + 2 * cell * lanes + lane;
+    const float4 a = p[0], b = p[lanes];
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+  static __device__ __forceinline__ void ty_write(float* ty, int cell, int lane, int lanes,
+                                                  const float* f) {
+    float4* p = reinterpret_cast<float4*>(ty) + 2 * cell * lanes + lane;
+    p[0] = make_float4(f[0], f[1], f[2], f[3]);
+    p[lanes] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* f) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+template <>
+struct Chan<1> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ void stage(Raw* dst, const __nv_bfloat16* src) { *dst = *src; }
+  static __device__ __forceinline__ Raw zero() { return __float2bfloat16(0.0f); }
+  static __device__ __forceinline__ void to_float(Raw r, float* f) { f[0] = __bfloat162float(r); }
+  static __device__ __forceinline__ void ty_read(const float* ty, int cell, int lane,
+                                                 int lanes, float* f) {
+    f[0] = ty[cell * lanes + lane];
+  }
+  static __device__ __forceinline__ void ty_write(float* ty, int cell, int lane, int lanes,
+                                                  const float* f) {
+    ty[cell * lanes + lane] = f[0];
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* f) {
+    *p = __float2bfloat16_rn(f[0]);
+  }
+};
+
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 roi_align_kernel(Pyramid pyr, int n_levels, int min_level,
-                 const float* __restrict__ boxes,
-                 __nv_bfloat162* __restrict__ out, int K, int C2, int out_size) {
+                 const float* __restrict__ boxes, __nv_bfloat16* __restrict__ out,
+                 int K, int C, int out_size, int lane_bits, int cap_rows, int col_bits) {
+  using Raw = typename Chan<V>::Raw;
+  const int lanes = 1 << lane_bits;
+  const int cap_cols = 1 << col_bits;
   const int roi = blockIdx.x;   // b * K + k
-  const int oy = blockIdx.y;    // output row
+  const int c_first = blockIdx.y * lanes * V;
   const int b = roi / K;
   const int s = 2 * out_size;
-
-  __shared__ int s_y0[2], s_y1[2];
-  __shared__ float s_fy[2];
-  __shared__ int s_x0[2 * kMaxOut], s_x1[2 * kMaxOut];
-  __shared__ float s_fx[2 * kMaxOut];
-
-  const float bx1 = boxes[roi * 4 + 0];
-  const float by1 = boxes[roi * 4 + 1];
-  const float bx2 = boxes[roi * 4 + 2];
-  const float by2 = boxes[roi * 4 + 3];
-
-  // FPN level (ops/roi_align.py:assign_fpn_levels)
-  const float area = __fmul_rn(fmaxf(__fsub_rn(bx2, bx1), 0.0f),
-                               fmaxf(__fsub_rn(by2, by1), 0.0f));
-  const float sqrt_area = sqrtf(fmaxf(area, 1e-6f));
-  float lvl = floorf(__fadd_rn(
-      4.0f, log2f(__fadd_rn(__fdiv_rn(sqrt_area, 224.0f), 1e-8f))));
-  lvl = fminf(fmaxf(lvl, static_cast<float>(min_level)),
-              static_cast<float>(min_level + n_levels - 1));
-  const int level = static_cast<int>(lvl);
-  const int li = level - min_level;
-  const float stride = static_cast<float>(1 << level);
-  const int H = pyr.height[li];
-  const int W = pyr.width[li];
-
   const int t = threadIdx.x;
-  if (t < 2) {
-    sample_coord(by1, by2, 2 * oy + t, s, stride, H, &s_y0[t], &s_y1[t], &s_fy[t]);
-  } else if (t - 2 < s) {
-    const int i = t - 2;
-    sample_coord(bx1, bx2, i, s, stride, W, &s_x0[i], &s_x1[i], &s_fx[i]);
-  }
-  __syncthreads();
 
-  const __nv_bfloat162* feat = pyr.level[li] + static_cast<size_t>(b) * H * W * C2;
-  __nv_bfloat162* dst = out + (static_cast<size_t>(roi) * out_size + oy) * out_size * C2;
-  const int work = out_size * C2;
-  for (int idx = t; idx < work; idx += blockDim.x) {
-    const int ox = idx / C2;
-    const int c = idx - ox * C2;
-    float ax = 0.0f, ay = 0.0f;
-#pragma unroll
-    for (int sy = 0; sy < 2; ++sy) {
-      const float fy = s_fy[sy];
-      const __nv_bfloat162* r0 = feat + static_cast<size_t>(s_y0[sy]) * W * C2 + c;
-      const __nv_bfloat162* r1 = feat + static_cast<size_t>(s_y1[sy]) * W * C2 + c;
-#pragma unroll
-      for (int sx = 0; sx < 2; ++sx) {
-        const int i = 2 * ox + sx;
-        const float fx = s_fx[i];
-        const int x0 = s_x0[i] * C2;
-        const int x1 = s_x1[i] * C2;
-        const float2 v00 = __bfloat1622float2(r0[x0]);
-        const float2 v01 = __bfloat1622float2(r0[x1]);
-        const float2 v10 = __bfloat1622float2(r1[x0]);
-        const float2 v11 = __bfloat1622float2(r1[x1]);
-        ax += (v00.x * (1.0f - fx) + v01.x * fx) * (1.0f - fy) +
-              (v10.x * (1.0f - fx) + v11.x * fx) * fy;
-        ay += (v00.y * (1.0f - fx) + v01.y * fx) * (1.0f - fy) +
-              (v10.y * (1.0f - fx) + v11.y * fx) * fy;
+  __shared__ int s_y0[2 * kMaxOut], s_y1[2 * kMaxOut], s_x0[2 * kMaxOut], s_x1[2 * kMaxOut];
+  __shared__ float s_fy[2 * kMaxOut], s_fx[2 * kMaxOut];
+  extern __shared__ uint4 smem[];
+  Raw* raw = reinterpret_cast<Raw*>(smem);      // [cap_rows][cap_cols][lanes]
+  const int raw_bytes = ((cap_rows << (col_bits + lane_bits)) * static_cast<int>(sizeof(Raw)) + 15) & ~15;
+  float* ty = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + raw_bytes);
+  //                                              [out][cap_cols][lanes][V]
+
+  // Warp 0 computes the ROI's level, its sample coordinates and its
+  // footprint once; the other warps wait at the barrier below.
+  __shared__ int s_level, s_y_lo, s_y_hi, s_x_lo, s_x_hi;
+  if (t < 32) {
+    const float bx1 = boxes[roi * 4 + 0];
+    const float by1 = boxes[roi * 4 + 1];
+    const float bx2 = boxes[roi * 4 + 2];
+    const float by2 = boxes[roi * 4 + 3];
+    // FPN level (ops/roi_align.py:assign_fpn_levels)
+    const float area = __fmul_rn(fmaxf(__fsub_rn(bx2, bx1), 0.0f),
+                                 fmaxf(__fsub_rn(by2, by1), 0.0f));
+    const float sqrt_area = sqrtf(fmaxf(area, 1e-6f));
+    float lvl = floorf(__fadd_rn(
+        4.0f, log2f(__fadd_rn(__fdiv_rn(sqrt_area, 224.0f), 1e-8f))));
+    lvl = fminf(fmaxf(lvl, static_cast<float>(min_level)),
+                static_cast<float>(min_level + n_levels - 1));
+    const int level = static_cast<int>(lvl);
+    const Level& L = pyr.level[level - min_level];
+    const float stride = static_cast<float>(1 << level);
+    for (int i = t; i < 2 * s; i += 32) {
+      if (i < s) {
+        sample_coord(by1, by2, i, s, stride, L.height, &s_y0[i], &s_y1[i], &s_fy[i]);
+      } else {
+        sample_coord(bx1, bx2, i - s, s, stride, L.width, &s_x0[i - s], &s_x1[i - s],
+                     &s_fx[i - s]);
       }
     }
-    dst[ox * C2 + c] = __floats2bfloat162_rn(ax * 0.25f, ay * 0.25f);
+    __syncwarp();
+    if (t == 0) {
+      // the coordinates are monotone in the sample index: the first and
+      // last samples of each axis bound the footprint
+      s_level = level - min_level;
+      s_y_lo = min(s_y0[0], s_y0[s - 1]);
+      s_y_hi = max(s_y1[0], s_y1[s - 1]);
+      s_x_lo = min(s_x0[0], s_x0[s - 1]);
+      s_x_hi = max(s_x1[0], s_x1[s - 1]);
+    }
   }
+  __syncthreads();
+  const Level& L = pyr.level[s_level];
+  const int y_lo = s_y_lo, y_hi = s_y_hi, x_lo = s_x_lo, x_hi = s_x_hi;
+
+  // this thread's outputs: (oy, ox, lane) of items t, t + kThreads, ...
+  const int n_out = (out_size * out_size) << lane_bits;
+  int item_px[kMaxItems], item_lane[kMaxItems];   // oy * out + ox, lane
+#pragma unroll
+  for (int k = 0; k < kMaxItems; ++k) {
+    const int it = t + k * kThreads;
+    item_lane[k] = it & (lanes - 1);
+    item_px[k] = it >> lane_bits;
+  }
+  float acc[kMaxItems][V];
+#pragma unroll
+  for (int k = 0; k < kMaxItems; ++k) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[k][v] = 0.0f;
+  }
+
+  const __nv_bfloat16* feat = L.base + b * L.sb + c_first;
+  const int col_lane_bits = col_bits + lane_bits;
+
+  for (int xa = x_lo; xa <= x_hi; xa += cap_cols) {
+    const int xn = min(cap_cols, x_hi + 1 - xa);
+    for (int ya = y_lo; ya <= y_hi; ya += cap_rows) {
+      const int yn = min(cap_rows, y_hi + 1 - ya);
+      // stage the chunk's taps, each once: item = (row, column, lane)
+      for (int it = t; it < (yn << col_lane_bits); it += kThreads) {
+        const int lane = it & (lanes - 1);
+        const int x = (it >> lane_bits) & (cap_cols - 1);
+        const int r = it >> col_lane_bits;
+        if (x < xn) {
+          if (c_first + lane * V < C) {
+            Chan<V>::stage(raw + it, feat + (ya + r) * L.sy + (xa + x) * L.sx + lane * V);
+          } else {
+            raw[it] = Chan<V>::zero();
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      // along y: Ty[oy][x] over this chunk's rows; item = (oy, column, lane)
+      for (int it = t; it < (out_size << col_lane_bits); it += kThreads) {
+        const int lane = it & (lanes - 1);
+        const int x = (it >> lane_bits) & (cap_cols - 1);
+        const int oy = it >> col_lane_bits;
+        if (x >= xn) continue;
+        float sum[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) sum[v] = 0.0f;
+#pragma unroll
+        for (int sy = 0; sy < 2; ++sy) {
+          const int i = 2 * oy + sy;
+          const float fy = s_fy[i];
+          const int rows[2] = {s_y0[i] - ya, s_y1[i] - ya};
+          const float w[2] = {1.0f - fy, fy};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (rows[e] >= 0 && rows[e] < yn) {
+              float f[V];
+              Chan<V>::to_float(raw[(rows[e] << col_lane_bits) + (x << lane_bits) + lane], f);
+#pragma unroll
+              for (int v = 0; v < V; ++v) sum[v] += w[e] * f[v];
+            }
+          }
+        }
+        const int cell = it >> lane_bits;   // oy * cap_cols + x
+        float ty_v[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) ty_v[v] = 0.0f;
+        if (ya != y_lo) Chan<V>::ty_read(ty, cell, lane, lanes, ty_v);   // earlier row chunks
+#pragma unroll
+        for (int v = 0; v < V; ++v) ty_v[v] += 0.5f * sum[v];
+        Chan<V>::ty_write(ty, cell, lane, lanes, ty_v);
+      }
+      __syncthreads();
+    }
+    // along x: each output's two x samples within this column chunk
+#pragma unroll
+    for (int k = 0; k < kMaxItems; ++k) {
+      if (t + k * kThreads < n_out) {
+        const int oy = item_px[k] / out_size;
+        const int ox = item_px[k] - oy * out_size;
+#pragma unroll
+        for (int sx = 0; sx < 2; ++sx) {
+          const int j = 2 * ox + sx;
+          const float fx = s_fx[j];
+          const int cols[2] = {s_x0[j] - xa, s_x1[j] - xa};
+          const float w[2] = {1.0f - fx, fx};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (cols[e] >= 0 && cols[e] < xn) {
+              float f[V];
+              Chan<V>::ty_read(ty, (oy << col_bits) + cols[e], item_lane[k], lanes, f);
+#pragma unroll
+              for (int v = 0; v < V; ++v) acc[k][v] += 0.5f * w[e] * f[v];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int k = 0; k < kMaxItems; ++k) {
+    const int c = c_first + item_lane[k] * V;
+    if (t + k * kThreads < n_out && c < C) {
+      Chan<V>::store(
+          out + (static_cast<size_t>(roi) * out_size * out_size + item_px[k]) * C + c, acc[k]);
+    }
+  }
+}
+
+int smem_bytes(int vec, int lanes, int cap_rows, int cap_cols, int out_size) {
+  const int raw = cap_rows * cap_cols * lanes * vec * 2;
+  return ((raw + 15) & ~15) + out_size * cap_cols * lanes * vec * 4;
+}
+
+int log2_exact(int v) {
+  int bits = 0;
+  while ((1 << bits) < v) ++bits;
+  return (1 << bits) == v ? bits : -1;
 }
 
 }  // namespace
 
-extern "C" int m2de_roi_align_bf16(const void* p2, const void* p3, const void* p4,
-                                   const void* p5, int h2, int h3, int h4, int h5,
-                                   int w2, int w3, int w4, int w5, int n_levels,
-                                   int min_level, const void* boxes, void* out,
-                                   int B, int K, int C, int out_size, void* stream) {
-  if (n_levels < 1 || n_levels > 4 || out_size < 1 || out_size > kMaxOut ||
-      C < 2 || (C & 1) || B < 0 || K < 0 || min_level < 0 ||
-      min_level + n_levels > 30) {
+extern "C" int m2de_roi_align_smem_bytes(int vec, int lanes, int cap_rows, int cap_cols,
+                                         int out_size) {
+  return smem_bytes(vec, lanes, cap_rows, cap_cols, out_size);
+}
+
+// levels: n_levels device pointers; meta: per level height, width, and the
+// batch, row and column strides in elements. lanes and cap_cols are powers
+// of two.
+extern "C" int m2de_roi_align_bf16(const void* const* levels, const long long* meta,
+                                   int n_levels, int min_level, const void* boxes,
+                                   void* out, int B, int K, int C, int out_size, int vec,
+                                   int lanes, int cap_rows, int cap_cols, void* stream) {
+  const int lane_bits = log2_exact(lanes);
+  const int col_bits = log2_exact(cap_cols);
+  if (n_levels < 1 || n_levels > 4 || out_size < 1 || out_size > kMaxOut || C < 1 ||
+      B < 0 || K < 0 || min_level < 0 || min_level + n_levels > 30 ||
+      (vec != 1 && vec != 8) || C % vec || lane_bits < 0 || col_bits < 1 || cap_rows < 2 ||
+      out_size * out_size * lanes > kThreads * kMaxItems) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || K == 0) return 0;
   Pyramid pyr;
-  const void* ptrs[4] = {p2, p3, p4, p5};
-  const int hs[4] = {h2, h3, h4, h5};
-  const int ws[4] = {w2, w3, w4, w5};
   for (int i = 0; i < 4; ++i) {
-    pyr.level[i] = static_cast<const __nv_bfloat162*>(ptrs[i]);
-    pyr.height[i] = hs[i];
-    pyr.width[i] = ws[i];
+    const int l = i < n_levels ? i : 0;
+    pyr.level[i].base = static_cast<const __nv_bfloat16*>(levels[l]);
+    pyr.level[i].height = static_cast<int>(meta[5 * l + 0]);
+    pyr.level[i].width = static_cast<int>(meta[5 * l + 1]);
+    pyr.level[i].sb = meta[5 * l + 2];
+    pyr.level[i].sy = meta[5 * l + 3];
+    pyr.level[i].sx = meta[5 * l + 4];
   }
-  const dim3 grid(static_cast<unsigned>(B * K), static_cast<unsigned>(out_size));
-  roi_align_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      pyr, n_levels, min_level, static_cast<const float*>(boxes),
-      static_cast<__nv_bfloat162*>(out), K, C / 2, out_size);
+  const int smem = smem_bytes(vec, lanes, cap_rows, cap_cols, out_size);
+  const int vecs = C / vec;
+  const dim3 grid(static_cast<unsigned>(B * K), static_cast<unsigned>((vecs + lanes - 1) / lanes));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = vec == 8 ? roi_align_kernel<8> : roi_align_kernel<1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, st>>>(pyr, n_levels, min_level,
+                                       static_cast<const float*>(boxes),
+                                       static_cast<__nv_bfloat16*>(out), K, C, out_size,
+                                       lane_bits, cap_rows, col_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

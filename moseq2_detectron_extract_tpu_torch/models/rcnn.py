@@ -70,10 +70,16 @@ class MaskKeypointRCNN(nn.Module):
             shapes, FPN_STRIDES, self.cfg.anchor_sizes, self.cfg.anchor_aspect_ratios)]
 
     @staticmethod
-    def _pool(fpn_feats, boxes, resolution: int):
-        '''ROIAlign of (B, K, 4) boxes over P2..P5 -> (B, K, r, r, C) bf16.'''
-        levels = [f.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-                  for f in fpn_feats[:4]]
+    def pool_levels(fpn_feats):
+        '''P2..P5 as the NHWC bf16 views the three pool calls share. A
+        channels_last level is NHWC in memory, and ``contiguous`` then
+        copies nothing; any other level is copied once here, not per call.'''
+        return [f.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+                for f in fpn_feats[:4]]
+
+    @staticmethod
+    def _pool(levels, boxes, resolution: int):
+        '''ROIAlign of (B, K, 4) boxes over NHWC P2..P5 -> (B, K, r, r, C) bf16.'''
         return roi_align(levels, boxes, resolution)
 
     @torch.no_grad()
@@ -104,7 +110,8 @@ class MaskKeypointRCNN(nn.Module):
             global_cap=cfg.rpn_nms_global_cap or None)
 
         p = proposals.shape[1]
-        pooled = self._pool(fpn_feats, proposals, cfg.box_pooler_resolution)
+        levels = self.pool_levels(fpn_feats)
+        pooled = self._pool(levels, proposals, cfg.box_pooler_resolution)
         cls_logits, box_deltas = self.box_head(pooled.reshape(b * p, *pooled.shape[2:]))
         cls_logits = cls_logits.reshape(b, p, -1).float()
         box_deltas = box_deltas.reshape(b, p, 4).float()
@@ -132,7 +139,7 @@ class MaskKeypointRCNN(nn.Module):
         d = det_boxes.shape[1]
 
         if cfg.mask_on:
-            mask_pooled = self._pool(fpn_feats, det_boxes, cfg.mask_pooler_resolution)
+            mask_pooled = self._pool(levels, det_boxes, cfg.mask_pooler_resolution)
             mask_logits = self.mask_head(mask_pooled.reshape(b * d, *mask_pooled.shape[2:]))
             mask_logits = mask_logits[..., 0].reshape(b, d, cfg.mask_resolution,
                                                       cfg.mask_resolution)
@@ -142,7 +149,7 @@ class MaskKeypointRCNN(nn.Module):
             out['masks'] = masks.reshape(b, d, *canvas) & det_valid[..., None, None]
 
         if cfg.keypoint_on:
-            kp_pooled = self._pool(fpn_feats, det_boxes, cfg.keypoint_pooler_resolution)
+            kp_pooled = self._pool(levels, det_boxes, cfg.keypoint_pooler_resolution)
             kp_logits = self.keypoint_head(kp_pooled.reshape(b * d, *kp_pooled.shape[2:]))
             s = kp_logits.shape[1]
             out['keypoint_heatmaps'] = kp_logits.reshape(

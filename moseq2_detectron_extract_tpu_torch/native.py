@@ -108,15 +108,17 @@ def build_library() -> str:
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.m2de_roi_align_bf16.argtypes = [p, p, p, p,       # level pointers
-                                        i, i, i, i,       # level heights
-                                        i, i, i, i,       # level widths
+    lib.m2de_roi_align_bf16.argtypes = [ctypes.POINTER(p),              # level pointers
+                                        ctypes.POINTER(ctypes.c_longlong),  # level H, W, strides
                                         i, i,             # n_levels, min_level
                                         p, p,             # boxes, out
                                         i, i, i, i,       # B, K, C, out_size
+                                        i, i, i, i,       # vec, lanes, cap rows, cap cols
                                         p]                # stream
     lib.m2de_roi_align_bf16.restype = i
-    lib.m2de_clean_u8.argtypes = [p, p, i, i, i, i, p]    # in, out, N, H, W, tile_h, stream
+    lib.m2de_roi_align_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.m2de_roi_align_smem_bytes.restype = i
+    lib.m2de_clean_u8.argtypes = [p, p, i, i, i, i, i, p]  # in, out, N, H, W, tile_h, tile_w, stream
     lib.m2de_clean_u8.restype = i
     lib.m2de_clean_smem_bytes.argtypes = [i, i]
     lib.m2de_clean_smem_bytes.restype = i

@@ -1,29 +1,104 @@
-'''Fused multilevel ROIAlign: the CUDA kernel (``csrc/roi_align.cu``) and
-its dispatching entry.
+'''Fused multilevel ROIAlign: the CUDA kernel (``csrc/roi_align.cu``), its
+launch plan and footprint, and its dispatching entry.
 
 Replaces ``moseq2_detectron_extract_tpu/ops/pallas_roi_align.py`` (Pallas
 TPU kernel ``_kernel``, entry ``pallas_separable_roi_align``). On a CUDA
 tensor :func:`roi_align` launches the kernel or raises; on a CPU tensor it
 runs the plain version, ``roi_align.separable_batched_roi_align``.
 '''
-from typing import Sequence
+import ctypes
+from typing import NamedTuple, Sequence
 
 import torch
 
 from moseq2_detectron_extract_tpu_torch import native
-from moseq2_detectron_extract_tpu_torch.ops.roi_align import \
-    separable_batched_roi_align
+from moseq2_detectron_extract_tpu_torch.ops.roi_align import (_roi_sample_coords,
+                                                              assign_fpn_levels,
+                                                              separable_batched_roi_align)
 
 MAX_OUTPUT_SIZE = 32
+THREADS = 256             # threads per block (csrc/roi_align.cu:kThreads)
+MAX_ITEMS = 4             # outputs a thread accumulates (kMaxItems)
+MAX_LANES = 8             # channel vectors per block: 64 channels at V = 8
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+CAP_ROWS = 16             # footprint taps a block stages at a time:
+CAP_COLS = 16             # rows x columns (a power of two) of its level
 
 # launches of the CUDA kernel since the count was last set to 0
 launch_count = 0
 
 
+class RoiPlan(NamedTuple):
+    '''How the kernel splits the work: one block per (ROI, slice of
+    ``lanes`` x ``vec`` channels); ``smem_bytes`` of dynamic shared memory
+    for a chunk of ``cap_rows`` x ``cap_cols`` footprint taps and its
+    y-interpolated rows.'''
+    vec: int
+    lanes: int
+    slices: int
+    cap_rows: int
+    cap_cols: int
+    smem_bytes: int
+
+
+def smem_bytes(vec: int, lanes: int, cap_rows: int, cap_cols: int, output_size: int) -> int:
+    '''As ``csrc/roi_align.cu:smem_bytes``: the staged taps (bf16, padded to
+    16 bytes), then Ty (f32, out x cap_cols x channels).'''
+    raw = cap_rows * cap_cols * lanes * vec * 2
+    return (raw + 15) // 16 * 16 + output_size * cap_cols * lanes * vec * 4
+
+
+def launch_plan(rois: int, channels: int, output_size: int, vec: int) -> RoiPlan:
+    '''The widest channel slice (a power of two of at most MAX_LANES
+    vectors, and no more outputs than the block's threads hold) that still
+    gives at least one block per SM, so the K = 1 stages spread over the
+    card.'''
+    vecs = channels // vec
+    cap = max(1, min(MAX_LANES, vecs, THREADS * MAX_ITEMS // output_size ** 2))
+    lanes = 1 << (cap.bit_length() - 1)
+    while lanes > 1 and rois * -(-vecs // lanes) < SMS:
+        lanes //= 2
+    return RoiPlan(vec, lanes, -(-vecs // lanes), CAP_ROWS, CAP_COLS,
+                   smem_bytes(vec, lanes, CAP_ROWS, CAP_COLS, output_size))
+
+
+def footprints(boxes: torch.Tensor, sizes: Sequence[Sequence[int]], output_size: int,
+               min_level: int = 2) -> torch.Tensor:
+    '''(N, 5) int64 per (N, 4) ROI: its level index, then the first and last
+    row and column of its level that its samples touch, as the kernel
+    derives them (the sample coordinates are monotone in the sample index,
+    so the ends bound them).'''
+    n_levels = len(sizes)
+    lvl = assign_fpn_levels(boxes, min_level, min_level + n_levels - 1).long() - min_level
+    strides = (2.0 ** (lvl + min_level)).float()
+    ys, xs = _roi_sample_coords(boxes.float(), output_size, strides)
+    hs = torch.tensor([s[0] for s in sizes], dtype=torch.int64, device=boxes.device)[lvl]
+    ws = torch.tensor([s[1] for s in sizes], dtype=torch.int64, device=boxes.device)[lvl]
+
+    def ends(coords, size):
+        c0 = torch.minimum(coords.clamp(min=0.0), (size - 1).float()[:, None]).floor().long()
+        c1 = torch.minimum(c0 + 1, (size - 1)[:, None])
+        return (torch.minimum(c0[:, 0], c0[:, -1]), torch.maximum(c1[:, 0], c1[:, -1]))
+
+    y_lo, y_hi = ends(ys, hs)
+    x_lo, x_hi = ends(xs, ws)
+    return torch.stack([lvl, y_lo, y_hi, x_lo, x_hi], dim=1)
+
+
+def _vector_width(features: Sequence[torch.Tensor], channels: int) -> int:
+    '''8 (16-byte loads) where the channels, strides and addresses allow
+    it, else 1.'''
+    ok = channels % 8 == 0 and all(
+        f.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in f.stride()[:3])
+        for f in features)
+    return 8 if ok else 1
+
+
 def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                    output_size: int, min_level: int = 2) -> torch.Tensor:
-    '''Launch the kernel: NHWC bf16 levels (B, H_l, W_l, C), boxes (B, K, 4)
-    f32 -> (B, K, out, out, C) bf16, on the current stream.'''
+    '''Launch the kernel: NHWC bf16 levels (B, H_l, W_l, C), any batch, row
+    and column strides with channel stride 1; boxes (B, K, 4) f32 ->
+    (B, K, out, out, C) bf16, on the current stream.'''
     global launch_count
     if not 1 <= len(features) <= 4:
         raise ValueError(f'1 to 4 pyramid levels supported, got {len(features)}')
@@ -39,24 +114,24 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     c = features[0].shape[-1]
     for f in features:
         if f.device != device or f.dtype != torch.bfloat16 or f.dim() != 4 \
-                or not f.is_contiguous() or f.shape[0] != b or f.shape[3] != c:
-            raise ValueError('levels must be contiguous NHWC bfloat16 tensors '
+                or f.stride(3) != 1 or f.shape[0] != b or f.shape[3] != c:
+            raise ValueError('levels must be NHWC bfloat16 tensors with channel stride 1 '
                              f'(B={b}, H, W, C={c}) on {device}')
-    if c % 2:
-        raise ValueError(f'channel count must be even, got {c}')
     out = torch.empty((b, k, output_size, output_size, c), dtype=torch.bfloat16,
                       device=device)
-    if b * k == 0:
+    if b * k == 0 or c == 0:
         return out
-    ptrs = [f.data_ptr() for f in features] + [None] * (4 - len(features))
-    hs = [f.shape[1] for f in features] + [0] * (4 - len(features))
-    ws = [f.shape[2] for f in features] + [0] * (4 - len(features))
+    plan = launch_plan(b * k, c, output_size, _vector_width(features, c))
+    ptrs = (ctypes.c_void_p * len(features))(*[f.data_ptr() for f in features])
+    meta = (ctypes.c_longlong * (5 * len(features)))(
+        *[v for f in features for v in (f.shape[1], f.shape[2], *f.stride()[:3])])
     lib = native.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.m2de_roi_align_bf16(*ptrs, *hs, *ws, len(features), min_level,
-                                     boxes.data_ptr(), out.data_ptr(),
-                                     b, k, c, output_size, stream)
+        rc = lib.m2de_roi_align_bf16(ptrs, meta, len(features), min_level,
+                                     boxes.data_ptr(), out.data_ptr(), b, k, c,
+                                     output_size, plan.vec, plan.lanes, plan.cap_rows,
+                                     plan.cap_cols, stream)
     native.check(rc, 'roi_align kernel launch')
     launch_count += 1
     return out
@@ -67,11 +142,13 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     '''Multilevel ROIAlignV2 of (B, K, 4) boxes over NHWC levels
     (B, H_l, W_l, C) -> (B, K, out, out, C) bf16.
 
-    CUDA tensors go to the kernel (levels are cast to bf16 first); CPU
-    tensors to the plain version, computed in f32 and rounded to bf16.
+    CUDA tensors go to the kernel: a level that is not bf16 with channel
+    stride 1 is converted first (a copy; the main path's levels need none).
+    CPU tensors go to the plain version, computed in f32 and rounded to bf16.
     '''
     if boxes.is_cuda:
-        levels = [f.to(torch.bfloat16).contiguous() for f in features]
+        levels = [f if f.dtype == torch.bfloat16 and f.stride(3) == 1
+                  else f.to(torch.bfloat16).contiguous() for f in features]
         return roi_align_cuda(levels, boxes.float().contiguous(), output_size,
                               min_level)
     return separable_batched_roi_align(features, boxes, output_size, min_level,

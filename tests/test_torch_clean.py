@@ -164,3 +164,149 @@ def test_median_matches_jax():
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         clean_kernel.clean_frames_cuda(torch.zeros((1, 8, 8), dtype=torch.uint8))
+
+
+# The CUDA kernel's geometry and arithmetic (csrc/clean.cu), mirrored in
+# numpy: frames packed in pairs into the two 16-bit lanes of uint32 words,
+# the tiles of clean_kernel.tile_plan, the seven passes over their shrinking
+# margins in groups of 4 words and segments of 16 rows, three-input lane-wise
+# min/max and the median of three as the sum less min and max.
+
+KERNEL_SHAPES = [(64, 160, 160), (3, 77, 101), (2, 424, 512)]
+
+
+def _blocks(plan, n, h, w):
+    '''(n0, has_second, r0, c0, th, tw) of each block, as the kernel derives
+    them from blockIdx.x.'''
+    for blk in range(plan.blocks):
+        tx = blk % plan.tiles_x
+        rest = blk // plan.tiles_x
+        ty = rest % plan.tiles_y
+        n0 = 2 * (rest // plan.tiles_y)
+        r0, c0 = ty * plan.tile_h, tx * plan.tile_w
+        yield n0, n0 + 1 < n, r0, c0, min(plan.tile_h, h - r0), min(plan.tile_w, w - c0)
+
+
+@pytest.mark.parametrize('shape', KERNEL_SHAPES)
+def test_clean_tile_plan_covers_each_pixel_once(shape):
+    n, h, w = shape
+    plan = clean_kernel.tile_plan(n, h, w)
+    assert plan.smem_bytes == clean_kernel.smem_bytes(plan.tile_h, plan.tile_w)
+    assert plan.smem_bytes == 2 * (plan.tile_h + 50) * (plan.tile_w + 64) * 4
+    assert plan.smem_bytes <= clean_kernel.MAX_SMEM == 232448
+    assert plan.tile_w % 16 == 0 and clean_kernel.PAD_COLS >= clean_kernel.HALO == 25
+    assert plan.blocks == plan.pairs * plan.tiles_y * plan.tiles_x
+    assert plan.pairs == (n + 1) // 2
+    count = np.zeros(shape, np.int32)
+    for n0, second, r0, c0, th, tw in _blocks(plan, n, h, w):
+        assert th >= 1 and tw >= 1
+        count[n0, r0:r0 + th, c0:c0 + tw] += 1
+        if second:
+            count[n0 + 1, r0:r0 + th, c0:c0 + tw] += 1
+    assert (count == 1).all()
+    if shape == (64, 160, 160):
+        # the main path's plan, as the kernel's source note states it
+        assert (plan.tile_h, plan.tile_w, plan.blocks) == (80, 80, 128)
+
+
+def _lanes(op):
+    def f(a, b, c):
+        lo = op(op(a & 0xFFFF, b & 0xFFFF), c & 0xFFFF)
+        hi = op(op(a >> 16, b >> 16), c >> 16)
+        return (lo | (hi << 16)).astype(np.uint32)
+    return f
+
+
+_vmin3, _vmax3 = _lanes(np.minimum), _lanes(np.maximum)
+
+
+def _med3(a, b, c):
+    return (a + b + c - _vmin3(a, b, c) - _vmax3(a, b, c)).astype(np.uint32)
+
+
+def _median_region(src, r_lo, r_hi, c_lo, c_hi):
+    '''median_pass: vertical triples sorted per column, then med3 of the
+    max3 of lows, med3 of mids and min3 of highs across 3 columns.'''
+    rows = [src[r_lo + d:r_hi + d, c_lo - 1:c_hi + 1] for d in (-1, 0, 1)]
+    lo, hi = _vmin3(*rows), _vmax3(*rows)
+    md = (rows[0] + rows[1] + rows[2] - lo - hi).astype(np.uint32)
+    cols = lambda a: (a[:, :-2], a[:, 1:-1], a[:, 2:])
+    return _med3(_vmax3(*cols(lo)), _med3(*cols(md)), _vmin3(*cols(hi)))
+
+
+def _morph_region(src, r_lo, r_hi, c_lo, c_hi, op3):
+    '''morph_pass: row extrema of widths 1, 7, 9, then the ellipse's rows
+    h1, h7, h7, h9, h9, h9, h7, h7, h1 in the kernel's grouping.'''
+    band = src[r_lo - 4:r_hi + 4]
+    s = {d: band[:, c_lo + d:c_hi + d] for d in range(-4, 5)}
+    h1 = s[0]
+    h7 = op3(op3(s[-3], s[-2], s[-1]), s[0], op3(s[1], s[2], s[3]))
+    h9 = op3(h7, s[-4], s[4])
+    n = r_hi - r_lo
+    row = lambda a, d: a[4 + d:4 + d + n]
+    return op3(op3(row(h1, -4), row(h1, 4), row(h7, -3)),
+               op3(row(h7, -2), row(h7, 2), row(h7, 3)),
+               op3(row(h9, -1), row(h9, 0), row(h9, 1)))
+
+
+def _kernel_mirror(frames, plan, rng):
+    n, h, w = frames.shape
+    out = np.zeros_like(frames)
+    pitch = plan.tile_w + 64
+    for n0, second, r0, c0, th, tw in _blocks(plan, n, h, w):
+        # unstaged words hold whatever shared memory held: any 32-bit value
+        a = rng.integers(0, 2 ** 32, (plan.tile_h + 50, pitch), dtype=np.uint32)
+        b = rng.integers(0, 2 ** 32, a.shape, dtype=np.uint32)
+        padded = np.zeros((2, h + 50, w + 64 + pitch), np.uint32)
+        padded[0, 25:25 + h, 32:32 + w] = frames[n0]
+        if second:
+            padded[1, 25:25 + h, 32:32 + w] = frames[n0 + 1]
+        rows = th + 50
+        win = padded[:, r0:r0 + rows, c0:c0 + pitch]
+        a[:rows] = win[0] | (win[1] << 16)
+        bufs = [a, b]
+        for k, m in enumerate(clean_kernel.MARGINS):
+            src, dst = bufs[k % 2], bufs[(k + 1) % 2]
+            r_lo, r_hi = 25 - m, 25 + th + m
+            c_lo = 32 - m
+            c_hi = c_lo + -(-(tw + 2 * m) // 4) * 4
+            if k == 0:
+                res = _median_region(src, r_lo, r_hi, c_lo, c_hi)
+            else:
+                res = _morph_region(src, r_lo, r_hi, c_lo, c_hi, _vmin3 if k <= 3 else _vmax3)
+            dst[r_lo:r_hi, c_lo:c_hi] = res
+        res = dst[25:25 + th, 32:32 + tw]
+        out[n0, r0:r0 + th, c0:c0 + tw] = res & 0xFF
+        if second:
+            out[n0 + 1, r0:r0 + th, c0:c0 + tw] = res >> 16
+    return out
+
+
+@pytest.mark.parametrize('shape,plan_shape', [
+    ((4, 160, 160), (64, 160, 160)),      # the main path's tiles, on 4 frames
+    ((3, 77, 101), (3, 77, 101)),         # an odd frame count, ragged tiles
+    ((2, 45, 61), (2, 45, 61)),
+])
+def test_packed_kernel_mirror_bit_exact_vs_plain(shape, plan_shape):
+    rng = np.random.default_rng(sum(shape))
+    frames = rng.integers(0, 256, shape).astype('uint8')
+    frames[0, :3] = 255                       # a bright border
+    plan = clean_kernel.tile_plan(*plan_shape)
+    got = _kernel_mirror(frames, plan._replace(
+        pairs=(shape[0] + 1) // 2, blocks=(shape[0] + 1) // 2 * plan.tiles_y * plan.tiles_x),
+        rng)
+    ref = clean_kernel.clean_frames_plain(torch.from_numpy(frames)).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_packed_lane_median_never_carries():
+    '''med3 as the sum less min3 and max3 is exact lane by lane for every
+    pair of 8-bit values in the two 16-bit lanes.'''
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.integers(0, 256, (3, 4096)).astype(np.uint32) for _ in range(3))
+    words = [x[0] | (x[1] << 16) for x in (a, b, c)]
+    words = [np.concatenate([w, np.array([255 | 255 << 16, 0, 255], np.uint32)]) for w in words]
+    got = _med3(*words)
+    for lane in (0, 16):
+        vals = np.stack([(w >> lane) & 0xFFFF for w in words])
+        np.testing.assert_array_equal((got >> lane) & 0xFFFF, np.median(vals, axis=0))

@@ -19,7 +19,8 @@ from moseq2_detectron_extract_tpu.ops.pallas_roi_align import pallas_separable_r
 from moseq2_detectron_extract_tpu.ops.roi_align import (assign_fpn_levels as jax_levels,
                                                         separable_batched_roi_align as jax_sep)
 from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel
-from moseq2_detectron_extract_tpu_torch.ops.roi_align import (assign_fpn_levels,
+from moseq2_detectron_extract_tpu_torch.ops.roi_align import (_roi_sample_coords,
+                                                              assign_fpn_levels,
                                                               separable_batched_roi_align)
 
 BF16_TOL = 2.0 ** -6
@@ -98,3 +99,135 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         roi_align_kernel.roi_align_cuda(
             [torch.from_numpy(f).to(torch.bfloat16) for f in feats],
             torch.from_numpy(boxes), 7)
+
+
+# The CUDA kernel's geometry (csrc/roi_align.cu), mirrored: each ROI's
+# footprint, the launch plan, and the footprint-staged separable form with
+# its chunk loops, held against the plain version.
+
+def whole_level_case(level, c=8, seed=0):
+    '''A pyramid whose canvas makes the full-canvas box fall on ``level``,
+    with that box, one past the canvas on every side and a small one.'''
+    canvas = 100 * 2 ** (level - 2)
+    rng = np.random.default_rng(seed + level)
+    feats = [rng.normal(0, 1, (1, canvas // 2 ** l, canvas // 2 ** l, c)).astype('float32')
+             for l in (2, 3, 4, 5)]
+    boxes = np.array([[[0, 0, canvas, canvas],
+                       [-canvas / 8, -canvas / 10, canvas * 1.1, canvas * 1.05],
+                       [canvas / 3, canvas / 4, canvas / 3 + 9, canvas / 4 + 13]]], 'float32')
+    return feats, boxes
+
+
+def _sample_taps(boxes, sizes, out):
+    '''Per ROI: the level, and c0, c1, frac of every y and x sample, as
+    sample_coord computes them.'''
+    lvl = assign_fpn_levels(boxes).long() - 2
+    ys, xs = _roi_sample_coords(boxes, out, (2.0 ** (lvl + 2)).float())
+    taps = []
+    for coords, axis in ((ys, 0), (xs, 1)):
+        size = torch.tensor([sizes[l][axis] for l in lvl.tolist()])[:, None]
+        cs = torch.minimum(coords.clamp(min=0.0), (size - 1).float())
+        c0 = cs.floor()
+        taps.append((c0.long(), torch.minimum(c0.long() + 1, size - 1), cs - c0))
+    return lvl, taps
+
+
+def _pyramid_cases():
+    feats, boxes = random_pyramid(b=2, k=9, c=8, seed=21)
+    yield feats, boxes
+    for level in (2, 3, 4, 5):
+        yield whole_level_case(level)
+
+
+@pytest.mark.parametrize('out', [7, 14])
+def test_roi_footprint_is_the_span_of_the_taps(out):
+    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import (CAP_COLS, CAP_ROWS,
+                                                                         footprints)
+    seen_levels = set()
+    for feats, boxes in _pyramid_cases():
+        sizes = [f.shape[1:3] for f in feats]
+        flat = torch.from_numpy(boxes).reshape(-1, 4)
+        fp = footprints(flat, sizes, out)
+        lvl, ((y0, y1, _), (x0, x1, _)) = _sample_taps(flat, sizes, out)
+        np.testing.assert_array_equal(fp[:, 0].numpy(), lvl.numpy())
+        for col, lo, hi in ((1, y0, y1), (3, x0, x1)):
+            np.testing.assert_array_equal(fp[:, col].numpy(), lo.min(1).values.numpy())
+            np.testing.assert_array_equal(fp[:, col + 1].numpy(), hi.max(1).values.numpy())
+            for i in range(flat.shape[0]):      # distinct rows (columns) it touches
+                touched = set(lo[i].tolist()) | set(hi[i].tolist())
+                span = int(fp[i, col + 1] - fp[i, col]) + 1
+                assert len(touched) <= min(span, 4 * out)
+        seen_levels |= set(lvl.tolist())
+        if boxes.shape[1] == 3 and boxes[0, 0, 2] > 0:
+            # the full-canvas box touches its whole level: row and column 0
+            # to the last, in ceil(size / capacity) chunks along each axis
+            h, w = sizes[int(lvl[0])]
+            assert fp[0, 1:].tolist() == [0, h - 1, 0, w - 1]
+            chunks = -(-h // CAP_ROWS) * -(-w // CAP_COLS)
+            assert chunks == (1 if h <= 16 else 4)
+    assert seen_levels == {0, 1, 2, 3}
+
+
+def _staged_mirror(feats, boxes, out, cap_rows, cap_cols):
+    '''The kernel's form: per ROI, the footprint in chunks of cap_rows x
+    cap_cols taps; along y into Ty (0.5 * each sample's two rows), row
+    chunks accumulating; then along x (0.5 * each sample's two columns),
+    column chunks accumulating; f32 throughout.'''
+    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import footprints
+    b, k = boxes.shape[:2]
+    sizes = [f.shape[1:3] for f in feats]
+    flat = torch.from_numpy(boxes).reshape(-1, 4)
+    fp = footprints(flat, sizes, out).tolist()
+    _, ((y0, y1, fy), (x0, x1, fx)) = _sample_taps(flat, sizes, out)
+    res = np.zeros((b * k, out, out, feats[0].shape[-1]), np.float32)
+    for r, (lvl, y_lo, y_hi, x_lo, x_hi) in enumerate(fp):
+        level = feats[lvl][r // k]
+        for xa in range(x_lo, x_hi + 1, cap_cols):
+            xn = min(cap_cols, x_hi + 1 - xa)
+            ty = np.zeros((out, xn, level.shape[-1]), np.float32)
+            for ya in range(y_lo, y_hi + 1, cap_rows):
+                yn = min(cap_rows, y_hi + 1 - ya)
+                raw = level[ya:ya + yn, xa:xa + xn]
+                for oy in range(out):
+                    for i in (2 * oy, 2 * oy + 1):
+                        f = np.float32(fy[r, i])
+                        for row, w in ((y0[r, i] - ya, 1 - f), (y1[r, i] - ya, f)):
+                            if 0 <= row < yn:
+                                ty[oy] += np.float32(0.5) * w * raw[row]
+            for ox in range(out):
+                for j in (2 * ox, 2 * ox + 1):
+                    f = np.float32(fx[r, j])
+                    for col, w in ((x0[r, j] - xa, 1 - f), (x1[r, j] - xa, f)):
+                        if 0 <= col < xn:
+                            res[r, :, ox] += np.float32(0.5) * w * ty[:, col]
+    return res.reshape(b, k, out, out, -1)
+
+
+@pytest.mark.parametrize('out', [7, 14])
+@pytest.mark.parametrize('cap', [(16, 16), (3, 5)])
+def test_footprint_staged_separable_matches_plain(out, cap):
+    '''(3, 5) forces the chunk loops on nearly every ROI. f32 against f32:
+    the same sums in another order, 1e-5 on unit-scale features.'''
+    for feats, boxes in _pyramid_cases():
+        got = _staged_mirror(feats, boxes, out, *cap)
+        ref = separable_batched_roi_align([torch.from_numpy(f) for f in feats],
+                                          torch.from_numpy(boxes), out)
+        np.testing.assert_allclose(got, ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize('rois,c,out,vec,lanes,blocks', [
+    (256, 256, 7, 8, 8, 1024),     # box stage: B 16, K 16, 64 channels a block
+    (16, 256, 14, 8, 2, 256),      # mask stage: B 16, K 1, 16 channels a block
+    (16, 256, 7, 8, 2, 256),       # keypoint stage
+    (12, 6, 5, 1, 1, 72),          # C = 6: one channel a block
+    (4, 16, 32, 8, 1, 8),          # the largest output: 4 outputs a thread
+])
+def test_roi_launch_plan(rois, c, out, vec, lanes, blocks):
+    from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel as rk
+    plan = rk.launch_plan(rois, c, out, vec)
+    assert (plan.vec, plan.lanes, rois * plan.slices) == (vec, lanes, blocks)
+    assert plan.slices * plan.lanes * plan.vec >= c
+    assert out * out * plan.lanes <= rk.THREADS * rk.MAX_ITEMS
+    assert 2 * (2 * out) <= rk.THREADS               # one thread per sample coordinate
+    assert plan.smem_bytes == rk.smem_bytes(vec, lanes, rk.CAP_ROWS, rk.CAP_COLS, out)
+    assert plan.smem_bytes <= 232448
