@@ -223,9 +223,8 @@ def check_kernels(rng, reps: int, card: str):
         nbytes, ops = roi_bound(levels, boxes, out)
         b_ms, by = bound_ms(nbytes, ops)
         plan = roi_align_kernel.launch_plan(16 * k, 256, out, 8)
-        phase(f'roi_align {stage} plan: {16 * k * plan.slices} blocks of '
-              f'{plan.lanes * plan.vec} channels, {plan.cap_rows} x {plan.cap_cols} taps '
-              f'staged at a time, {plan.smem_bytes} B shared memory')
+        phase(f'roi_align {stage} plan: {plan.warps} warps, one per (ROI, output row, '
+              f'segment of {-(-out // plan.segs)} columns), {plan.vec} channels a lane')
         phase(f'roi_align {stage} (B=16, K={k}, out={out}, C=256): max_abs_err '
               f'{float(err.max()):.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); device ms: kernel '
               f'{ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by} ({nbytes} B, '

@@ -47,8 +47,8 @@
 // words, then runs the seven passes between two buffers, each computing only
 // the margin the later passes still need (24, 20, ..., 4, 0: the TPU
 // kernel's shrinking margins). The last pass writes the tile to device
-// memory. A thread takes 4 neighbouring words (one 16-byte shared load per
-// row and group) and walks down 16 rows:
+// memory. 512 threads; a thread takes 4 neighbouring words (one 16-byte
+// shared load per row and group) and walks down 8 rows:
 //   median   per row, sort each column's vertical triple once (min3, max3,
 //            and the sum less both for the middle) for the 6 columns its 4
 //            outputs touch; then med3(max3 of the lows, med3 of the mids,
@@ -57,9 +57,12 @@
 //   erode    per row, the row extrema of widths 7 and 9 (h7, h9; width 1 is
 //   dilate   the word itself) with 4 three-input ops per word; the ellipse's
 //            9 rows then combine from registers with 4 more: 8 VIMNMX3 per
-//            word and pass, the minimal form's 24 two-input ops per 2 pixels.
-// Each thread item reloads 8 rows above its 16 (2 for the median); that and
-// the halo are the recomputation. ops/clean_kernel.py:tile_plan chooses the
+//            word and pass, 4 instructions per pixel, where the minimal
+//            form's 12 two-input min/max would take 6 VIMNMX.U16x2.
+// A thread's walk reads 8 rows more than the 8 it writes (2 for the median),
+// which doubles the row-extrema work; with 16 rows a thread the kernel needs
+// more registers and runs slower on the card. That and the halo are the
+// recomputation. ops/clean_kernel.py:tile_plan chooses the
 // tile; for the main path's (64, 160, 160) it takes 80 x 80 tiles, 128
 // blocks for 132 SMs, whose passes compute 1.73x the tile's words
 // (the sum over the seven margins m of (80 + 2m)^2, over 7 * 80^2), against
@@ -67,8 +70,9 @@
 // half the SMs idle (64 blocks) and need 2 x 210 x 224 x 4 B of shared
 // memory for two frames, over the 227 KB limit.
 // Staging reads 16 bytes of each frame per load where the frame's width is
-// a multiple of 16, and single bytes elsewhere; the last pass stores 4
-// bytes of each frame per word group where the width is a multiple of 4.
+// a multiple of 16 (three chunks' loads in flight a thread), and single
+// bytes elsewhere; the last pass stores 4 bytes of each frame per word
+// group where the width is a multiple of 4.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

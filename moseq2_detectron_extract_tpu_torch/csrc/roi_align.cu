@@ -24,11 +24,10 @@
 // What bounds it on an H100. The function moves bytes: 16 multiply-adds
 // (32 operations) per output element against 2 bytes written per element
 // and the taps read. Its M is out = 7 or 14 rows, far below the 64 rows of
-// a wgmma tile: a tensor-core form would pad M 5-9x and still have to
-// build the interpolation matrices per ROI (benchmarks/roi_stage2_exp.py
-// fought this M = 7 problem on the TPU's matrix unit). So the design aims
-// at bytes and occupancy: read each ROI's footprint once, with 16-byte
-// loads, and keep every SM busy in the small stages.
+// a wgmma tile: a tensor-core form would pad M 5-9x, round the
+// interpolation weights to bf16 and still build them per ROI
+// (benchmarks/roi_stage2_exp.py fought this M = 7 problem on the TPU's
+// matrix unit). So the design aims at bytes, instructions and occupancy.
 //
 // What the first design lost. One block per (ROI, output row) gathered all
 // 16 taps of every output element with 4-byte bf16x2 loads: 16 * 16 * 49 *
@@ -36,35 +35,44 @@
 // C 256) for about 17 MB of distinct taps, each tap read about 6 times; the
 // K = 1 stages ran 112-224 blocks close to the cost of a launch.
 //
-// Design. One block per (ROI, slice of `lanes` x V channels); V = 8 (one
-// 16-byte load of 8 bf16 per thread) where the channels and strides allow
-// it, else V = 1. The wrapper (ops/roi_align_kernel.py:launch_plan) picks
-// the slice so that even the K = 1 stages (16 ROIs a batch) launch at least
-// one block per SM: 8 lanes (64 channels, 1,024 blocks) for the box stage,
-// 2 lanes (16 channels, 256 blocks) for the mask and keypoint stages.
-// 1. The block computes its ROI's level and sample coordinates once into
-//    shared memory, bit-identical to the plain version (round-to-nearest
-//    intrinsics, no fused multiply-add, the plain version's order). The
-//    coordinates are monotone in the sample index, so the footprint is the
-//    box [y0 of the first sample, y1 of the last] x [the same in x].
-// 2. It stages the footprint's taps for its channel slice into shared
-//    memory, each tap once, neighbouring threads on neighbouring channels.
-// 3. Along y: for each output row and footprint column, the two samples'
-//    two rows each give Ty[oy][x] = 0.5 * sum (1 - fy) f[y0] + fy f[y1] (f32,
-//    shared memory). 4. Along x: each output sums 0.5 * ((1 - fx) Ty[x0] +
-//    fx Ty[x1]) over its two x samples in f32 registers.
-// A footprint larger than the staged capacity (rows x cols taps, set by the
-// wrapper) is walked in chunks inside the kernel: row chunks accumulate into
-// Ty, column chunks into the output registers. No ROI leaves the kernel.
+// What a shared-memory design lost. Staging each ROI's footprint for a
+// 64-channel slice into shared memory (cp.async), then interpolating along
+// y into shared memory and along x into registers, read each tap once, but
+// its four barrier-separated phases and its index arithmetic per staged
+// tap made it slower than the first design in the box stage (PERF.md,
+// PR 5).
+//
+// Design. A warp owns one output row oy of one ROI (or a segment of that
+// row's columns), and its 32 lanes own 8 consecutive channels each (V = 8,
+// one 16-byte load per tap: a warp reads a tap's 256 channels as 512
+// contiguous bytes), or one channel each (V = 1) where the channels or the
+// strides do not allow 16-byte loads. The warps are independent: no shared
+// memory, no barrier.
+// 1. Each lane computes the ROI's level and the row's two y samples
+//    (rows y0, y1 and weights of each) itself, and lane j the j-th x sample
+//    of the segment; the coordinates are bit-identical to the plain
+//    version's (round-to-nearest intrinsics, no fused multiply-add, the
+//    plain version's order).
+// 2. Walking the x samples in order, the warp computes the y-interpolated
+//    column Ty[x] = sum over the 4 (row, weight) pairs of w * f[row][x] (four
+//    16-byte loads, f32) for each column a sample touches, keeping the last
+//    two columns in registers: samples advance monotonically along x, so each
+//    column of the footprint is loaded and interpolated once per row oy.
+// 3. Each output is 0.5 * ((1 - fx) Ty[x0] + fx Ty[x1]) summed over its two
+//    x samples in f32 registers, rounded to bf16 and stored as 16 bytes per
+//    lane.
+// Footprints of any size take the same walk: there is no staged capacity.
+// The wrapper (ops/roi_align_kernel.py:launch_plan) splits each row into
+// segments of columns when the ROIs are few, so the K = 1 stages (16 ROIs a
+// batch) still put several warps on every SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxOut = 32;     // output_size limit: 2*out samples per axis
-constexpr int kThreads = 256;   // >= 2 * 2*kMaxOut coordinate threads
-constexpr int kMaxItems = 4;    // outputs (of V channels) a thread accumulates
+constexpr int kMaxOut = 32;     // output_size limit: 2*out <= 64 x samples, 2 per lane
+constexpr int kWarps = 4;       // warps per block
 
 struct Level {
   const __nv_bfloat16* base;
@@ -76,14 +84,16 @@ struct Pyramid {
   Level level[4];
 };
 
-// One sample coordinate along an axis, as ops/roi_align.py computes it.
+// One sample coordinate along an axis, as ops/roi_align.py computes it
+// (img / stride there; inv_stride = 1 / stride is a power of two, so the
+// product is the same float).
 __device__ __forceinline__ void sample_coord(float lo, float hi, int i, int s,
-                                             float stride, int size, int* c0,
+                                             float inv_stride, int size, int* c0,
                                              int* c1, float* frac) {
   const float f = __fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f),
                             static_cast<float>(s));
   const float img = __fadd_rn(lo, __fmul_rn(__fsub_rn(hi, lo), f));
-  float c = __fsub_rn(__fdiv_rn(img, stride), 0.5f);
+  float c = __fsub_rn(__fmul_rn(img, inv_stride), 0.5f);
   c = fminf(fmaxf(c, 0.0f), static_cast<float>(size - 1));
   const float fl = floorf(c);
   *frac = __fsub_rn(c, fl);
@@ -91,49 +101,20 @@ __device__ __forceinline__ void sample_coord(float lo, float hi, int i, int s,
   *c1 = min(*c0 + 1, size - 1);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* global_ptr) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(global_ptr));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// V bf16 channels <-> shared memory and f32.
+// V bf16 channels of one tap: load as f32, store from f32.
 template <int V>
 struct Chan;
 
 template <>
 struct Chan<8> {
-  using Raw = uint4;
-  // an asynchronous 16-byte copy: every load of a chunk is in flight at once
-  static __device__ __forceinline__ void stage(Raw* dst, const __nv_bfloat16* src) {
-    cp_async16(dst, src);
-  }
-  static __device__ __forceinline__ Raw zero() { return make_uint4(0, 0, 0, 0); }
-  static __device__ __forceinline__ void to_float(Raw r, float* f) {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* f) {
+    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
     const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       f[2 * i] = __uint_as_float(w[i] << 16);
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
-  }
-  // Ty holds a cell's channels as two float4 planes, [cell][2][lanes], so
-  // the lanes of a quarter-warp touch 128 contiguous bytes (no bank conflicts)
-  static __device__ __forceinline__ void ty_read(const float* ty, int cell, int lane,
-                                                 int lanes, float* f) {
-    const float4* p = reinterpret_cast<const float4*>(ty) + 2 * cell * lanes + lane;
-    const float4 a = p[0], b = p[lanes];
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  }
-  static __device__ __forceinline__ void ty_write(float* ty, int cell, int lane, int lanes,
-                                                  const float* f) {
-    float4* p = reinterpret_cast<float4*>(ty) + 2 * cell * lanes + lane;
-    p[0] = make_float4(f[0], f[1], f[2], f[3]);
-    p[lanes] = make_float4(f[4], f[5], f[6], f[7]);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* f) {
     uint32_t w[4];
@@ -148,229 +129,148 @@ struct Chan<8> {
 
 template <>
 struct Chan<1> {
-  using Raw = __nv_bfloat16;
-  static __device__ __forceinline__ void stage(Raw* dst, const __nv_bfloat16* src) { *dst = *src; }
-  static __device__ __forceinline__ Raw zero() { return __float2bfloat16(0.0f); }
-  static __device__ __forceinline__ void to_float(Raw r, float* f) { f[0] = __bfloat162float(r); }
-  static __device__ __forceinline__ void ty_read(const float* ty, int cell, int lane,
-                                                 int lanes, float* f) {
-    f[0] = ty[cell * lanes + lane];
-  }
-  static __device__ __forceinline__ void ty_write(float* ty, int cell, int lane, int lanes,
-                                                  const float* f) {
-    ty[cell * lanes + lane] = f[0];
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* f) {
+    f[0] = __bfloat162float(p[0]);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* f) {
     *p = __float2bfloat16_rn(f[0]);
   }
 };
 
+// grid (B*K ROIs, channel groups of 32*V, ceil(out_size * segs / kWarps));
+// the ROI's warp w = (output row w / segs, column segment w % segs).
 template <int V>
-__global__ void __launch_bounds__(kThreads)
-roi_align_kernel(Pyramid pyr, int n_levels, int min_level,
-                 const float* __restrict__ boxes, __nv_bfloat16* __restrict__ out,
-                 int K, int C, int out_size, int lane_bits, int cap_rows, int col_bits) {
-  using Raw = typename Chan<V>::Raw;
-  const int lanes = 1 << lane_bits;
-  const int cap_cols = 1 << col_bits;
+__global__ void __launch_bounds__(32 * kWarps) roi_align_kernel(Pyramid pyr, int n_levels, int min_level,
+                                 const float* __restrict__ boxes,
+                                 __nv_bfloat16* __restrict__ out, int K, int C,
+                                 int out_size, int segs) {
   const int roi = blockIdx.x;   // b * K + k
-  const int c_first = blockIdx.y * lanes * V;
-  const int b = roi / K;
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.z * kWarps + (threadIdx.x >> 5);
+  if (warp >= out_size * segs) return;   // the whole warp: no barrier follows
+  const int oy = warp / segs;
+  const int per_seg = (out_size + segs - 1) / segs;
+  const int ox_begin = (warp - oy * segs) * per_seg;
+  const int ox_end = min(out_size, ox_begin + per_seg);
+  if (ox_begin >= ox_end) return;   // the whole warp: no barrier follows
+  const int c = (blockIdx.y * 32 + lane) * V;
+  const bool live = c < C;
   const int s = 2 * out_size;
-  const int t = threadIdx.x;
 
-  __shared__ int s_y0[2 * kMaxOut], s_y1[2 * kMaxOut], s_x0[2 * kMaxOut], s_x1[2 * kMaxOut];
-  __shared__ float s_fy[2 * kMaxOut], s_fx[2 * kMaxOut];
-  extern __shared__ uint4 smem[];
-  Raw* raw = reinterpret_cast<Raw*>(smem);      // [cap_rows][cap_cols][lanes]
-  const int raw_bytes = ((cap_rows << (col_bits + lane_bits)) * static_cast<int>(sizeof(Raw)) + 15) & ~15;
-  float* ty = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + raw_bytes);
-  //                                              [out][cap_cols][lanes][V]
+  const float bx1 = boxes[roi * 4 + 0];
+  const float by1 = boxes[roi * 4 + 1];
+  const float bx2 = boxes[roi * 4 + 2];
+  const float by2 = boxes[roi * 4 + 3];
 
-  // Warp 0 computes the ROI's level, its sample coordinates and its
-  // footprint once; the other warps wait at the barrier below.
-  __shared__ int s_level, s_y_lo, s_y_hi, s_x_lo, s_x_hi;
-  if (t < 32) {
-    const float bx1 = boxes[roi * 4 + 0];
-    const float by1 = boxes[roi * 4 + 1];
-    const float bx2 = boxes[roi * 4 + 2];
-    const float by2 = boxes[roi * 4 + 3];
-    // FPN level (ops/roi_align.py:assign_fpn_levels)
-    const float area = __fmul_rn(fmaxf(__fsub_rn(bx2, bx1), 0.0f),
-                                 fmaxf(__fsub_rn(by2, by1), 0.0f));
-    const float sqrt_area = sqrtf(fmaxf(area, 1e-6f));
-    float lvl = floorf(__fadd_rn(
-        4.0f, log2f(__fadd_rn(__fdiv_rn(sqrt_area, 224.0f), 1e-8f))));
-    lvl = fminf(fmaxf(lvl, static_cast<float>(min_level)),
-                static_cast<float>(min_level + n_levels - 1));
-    const int level = static_cast<int>(lvl);
-    const Level& L = pyr.level[level - min_level];
-    const float stride = static_cast<float>(1 << level);
-    for (int i = t; i < 2 * s; i += 32) {
-      if (i < s) {
-        sample_coord(by1, by2, i, s, stride, L.height, &s_y0[i], &s_y1[i], &s_fy[i]);
-      } else {
-        sample_coord(bx1, bx2, i - s, s, stride, L.width, &s_x0[i - s], &s_x1[i - s],
-                     &s_fx[i - s]);
+  // FPN level (ops/roi_align.py:assign_fpn_levels)
+  const float area = __fmul_rn(fmaxf(__fsub_rn(bx2, bx1), 0.0f),
+                               fmaxf(__fsub_rn(by2, by1), 0.0f));
+  const float sqrt_area = sqrtf(fmaxf(area, 1e-6f));
+  float lvl = floorf(__fadd_rn(
+      4.0f, log2f(__fadd_rn(__fdiv_rn(sqrt_area, 224.0f), 1e-8f))));
+  lvl = fminf(fmaxf(lvl, static_cast<float>(min_level)),
+              static_cast<float>(min_level + n_levels - 1));
+  const int level = static_cast<int>(lvl);
+  const Level& L = pyr.level[level - min_level];
+  const float inv_stride = 1.0f / static_cast<float>(1 << level);
+
+  // this row's two y samples: 4 (row, weight) pairs, the weights halved
+  long long row_off[4];
+  float wy[4];
+#pragma unroll
+  for (int sy = 0; sy < 2; ++sy) {
+    int y0, y1;
+    float fy;
+    sample_coord(by1, by2, 2 * oy + sy, s, inv_stride, L.height, &y0, &y1, &fy);
+    row_off[2 * sy] = y0 * L.sy;
+    row_off[2 * sy + 1] = y1 * L.sy;
+    wy[2 * sy] = 0.5f * (1.0f - fy);
+    wy[2 * sy + 1] = 0.5f * fy;
+  }
+  // the segment's x samples, lane j holding samples j and j + 32
+  const int j_begin = 2 * ox_begin;
+  int xs0[2], xs1[2];
+  float xf[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    xs0[h] = xs1[h] = 0;
+    xf[h] = 0.0f;
+    const int j = j_begin + lane + 32 * h;
+    if (j < s) sample_coord(bx1, bx2, j, s, inv_stride, L.width, &xs0[h], &xs1[h], &xf[h]);
+  }
+
+  const __nv_bfloat16* feat = L.base + (roi / K) * L.sb + c;
+  // Ty of column x: the y interpolation of the row's 4 taps in that column
+  auto column = [&](int x, float* t) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) t[v] = 0.0f;
+    if (!live) return;
+    float f[4][V];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) Chan<V>::load(feat + row_off[e] + x * L.sx, f[e]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) t[v] += wy[e] * f[e][v];
+    }
+  };
+  // the last two columns computed (the walk along x is monotone)
+  float t_old[V], t_new[V];
+  int x_old = -1, x_new = -1;
+  auto get = [&](int x, float* t) {
+    if (x == x_new) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) t[v] = t_new[v];
+    } else if (x == x_old) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) t[v] = t_old[v];
+    } else {
+      column(x, t);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        t_old[v] = t_new[v];
+        t_new[v] = t[v];
       }
+      x_old = x_new;
+      x_new = x;
     }
-    __syncwarp();
-    if (t == 0) {
-      // the coordinates are monotone in the sample index: the first and
-      // last samples of each axis bound the footprint
-      s_level = level - min_level;
-      s_y_lo = min(s_y0[0], s_y0[s - 1]);
-      s_y_hi = max(s_y1[0], s_y1[s - 1]);
-      s_x_lo = min(s_x0[0], s_x0[s - 1]);
-      s_x_hi = max(s_x1[0], s_x1[s - 1]);
+  };
+
+  __nv_bfloat16* dst = out + (static_cast<size_t>(roi) * out_size + oy) * out_size * C + c;
+  for (int ox = ox_begin; ox < ox_end; ++ox) {
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+#pragma unroll
+    for (int sx = 0; sx < 2; ++sx) {
+      const int jj = 2 * (ox - ox_begin) + sx;   // the sample's index in the segment
+      const int src = jj & 31;
+      const bool high = jj >= 32;
+      const int x0 = __shfl_sync(0xffffffffu, high ? xs0[1] : xs0[0], src);
+      const int x1 = __shfl_sync(0xffffffffu, high ? xs1[1] : xs1[0], src);
+      const float fx = __shfl_sync(0xffffffffu, high ? xf[1] : xf[0], src);
+      float t0[V], t1[V];
+      get(x0, t0);
+      get(x1, t1);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] += 0.5f * ((1.0f - fx) * t0[v] + fx * t1[v]);
     }
+    if (live) Chan<V>::store(dst + static_cast<size_t>(ox) * C, acc);
   }
-  __syncthreads();
-  const Level& L = pyr.level[s_level];
-  const int y_lo = s_y_lo, y_hi = s_y_hi, x_lo = s_x_lo, x_hi = s_x_hi;
-
-  // this thread's outputs: (oy, ox, lane) of items t, t + kThreads, ...
-  const int n_out = (out_size * out_size) << lane_bits;
-  int item_px[kMaxItems], item_lane[kMaxItems];   // oy * out + ox, lane
-#pragma unroll
-  for (int k = 0; k < kMaxItems; ++k) {
-    const int it = t + k * kThreads;
-    item_lane[k] = it & (lanes - 1);
-    item_px[k] = it >> lane_bits;
-  }
-  float acc[kMaxItems][V];
-#pragma unroll
-  for (int k = 0; k < kMaxItems; ++k) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[k][v] = 0.0f;
-  }
-
-  const __nv_bfloat16* feat = L.base + b * L.sb + c_first;
-  const int col_lane_bits = col_bits + lane_bits;
-
-  for (int xa = x_lo; xa <= x_hi; xa += cap_cols) {
-    const int xn = min(cap_cols, x_hi + 1 - xa);
-    for (int ya = y_lo; ya <= y_hi; ya += cap_rows) {
-      const int yn = min(cap_rows, y_hi + 1 - ya);
-      // stage the chunk's taps, each once: item = (row, column, lane)
-      for (int it = t; it < (yn << col_lane_bits); it += kThreads) {
-        const int lane = it & (lanes - 1);
-        const int x = (it >> lane_bits) & (cap_cols - 1);
-        const int r = it >> col_lane_bits;
-        if (x < xn) {
-          if (c_first + lane * V < C) {
-            Chan<V>::stage(raw + it, feat + (ya + r) * L.sy + (xa + x) * L.sx + lane * V);
-          } else {
-            raw[it] = Chan<V>::zero();
-          }
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      // along y: Ty[oy][x] over this chunk's rows; item = (oy, column, lane)
-      for (int it = t; it < (out_size << col_lane_bits); it += kThreads) {
-        const int lane = it & (lanes - 1);
-        const int x = (it >> lane_bits) & (cap_cols - 1);
-        const int oy = it >> col_lane_bits;
-        if (x >= xn) continue;
-        float sum[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) sum[v] = 0.0f;
-#pragma unroll
-        for (int sy = 0; sy < 2; ++sy) {
-          const int i = 2 * oy + sy;
-          const float fy = s_fy[i];
-          const int rows[2] = {s_y0[i] - ya, s_y1[i] - ya};
-          const float w[2] = {1.0f - fy, fy};
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (rows[e] >= 0 && rows[e] < yn) {
-              float f[V];
-              Chan<V>::to_float(raw[(rows[e] << col_lane_bits) + (x << lane_bits) + lane], f);
-#pragma unroll
-              for (int v = 0; v < V; ++v) sum[v] += w[e] * f[v];
-            }
-          }
-        }
-        const int cell = it >> lane_bits;   // oy * cap_cols + x
-        float ty_v[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) ty_v[v] = 0.0f;
-        if (ya != y_lo) Chan<V>::ty_read(ty, cell, lane, lanes, ty_v);   // earlier row chunks
-#pragma unroll
-        for (int v = 0; v < V; ++v) ty_v[v] += 0.5f * sum[v];
-        Chan<V>::ty_write(ty, cell, lane, lanes, ty_v);
-      }
-      __syncthreads();
-    }
-    // along x: each output's two x samples within this column chunk
-#pragma unroll
-    for (int k = 0; k < kMaxItems; ++k) {
-      if (t + k * kThreads < n_out) {
-        const int oy = item_px[k] / out_size;
-        const int ox = item_px[k] - oy * out_size;
-#pragma unroll
-        for (int sx = 0; sx < 2; ++sx) {
-          const int j = 2 * ox + sx;
-          const float fx = s_fx[j];
-          const int cols[2] = {s_x0[j] - xa, s_x1[j] - xa};
-          const float w[2] = {1.0f - fx, fx};
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (cols[e] >= 0 && cols[e] < xn) {
-              float f[V];
-              Chan<V>::ty_read(ty, (oy << col_bits) + cols[e], item_lane[k], lanes, f);
-#pragma unroll
-              for (int v = 0; v < V; ++v) acc[k][v] += 0.5f * w[e] * f[v];
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxItems; ++k) {
-    const int c = c_first + item_lane[k] * V;
-    if (t + k * kThreads < n_out && c < C) {
-      Chan<V>::store(
-          out + (static_cast<size_t>(roi) * out_size * out_size + item_px[k]) * C + c, acc[k]);
-    }
-  }
-}
-
-int smem_bytes(int vec, int lanes, int cap_rows, int cap_cols, int out_size) {
-  const int raw = cap_rows * cap_cols * lanes * vec * 2;
-  return ((raw + 15) & ~15) + out_size * cap_cols * lanes * vec * 4;
-}
-
-int log2_exact(int v) {
-  int bits = 0;
-  while ((1 << bits) < v) ++bits;
-  return (1 << bits) == v ? bits : -1;
 }
 
 }  // namespace
 
-extern "C" int m2de_roi_align_smem_bytes(int vec, int lanes, int cap_rows, int cap_cols,
-                                         int out_size) {
-  return smem_bytes(vec, lanes, cap_rows, cap_cols, out_size);
-}
-
 // levels: n_levels device pointers; meta: per level height, width, and the
-// batch, row and column strides in elements. lanes and cap_cols are powers
-// of two.
+// batch, row and column strides in elements. segs: column segments per
+// output row (one warp each).
 extern "C" int m2de_roi_align_bf16(const void* const* levels, const long long* meta,
                                    int n_levels, int min_level, const void* boxes,
                                    void* out, int B, int K, int C, int out_size, int vec,
-                                   int lanes, int cap_rows, int cap_cols, void* stream) {
-  const int lane_bits = log2_exact(lanes);
-  const int col_bits = log2_exact(cap_cols);
+                                   int segs, void* stream) {
   if (n_levels < 1 || n_levels > 4 || out_size < 1 || out_size > kMaxOut || C < 1 ||
       B < 0 || K < 0 || min_level < 0 || min_level + n_levels > 30 ||
-      (vec != 1 && vec != 8) || C % vec || lane_bits < 0 || col_bits < 1 || cap_rows < 2 ||
-      out_size * out_size * lanes > kThreads * kMaxItems) {
+      (vec != 1 && vec != 8) || C % vec || segs < 1 || segs > out_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || K == 0) return 0;
@@ -384,20 +284,22 @@ extern "C" int m2de_roi_align_bf16(const void* const* levels, const long long* m
     pyr.level[i].sy = meta[5 * l + 3];
     pyr.level[i].sx = meta[5 * l + 4];
   }
-  const int smem = smem_bytes(vec, lanes, cap_rows, cap_cols, out_size);
-  const int vecs = C / vec;
-  const dim3 grid(static_cast<unsigned>(B * K), static_cast<unsigned>((vecs + lanes - 1) / lanes));
+  const int warps = out_size * segs;
+  const dim3 grid(static_cast<unsigned>(B * K), static_cast<unsigned>((C + 32 * vec - 1) / (32 * vec)),
+                  static_cast<unsigned>((warps + kWarps - 1) / kWarps));
+  const dim3 block(static_cast<unsigned>(32 * min(warps, kWarps)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = vec == 8 ? roi_align_kernel<8> : roi_align_kernel<1>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (vec == 8) {
+    roi_align_kernel<8><<<grid, block, 0, st>>>(pyr, n_levels, min_level,
+                                                static_cast<const float*>(boxes),
+                                                static_cast<__nv_bfloat16*>(out), K, C,
+                                                out_size, segs);
+  } else {
+    roi_align_kernel<1><<<grid, block, 0, st>>>(pyr, n_levels, min_level,
+                                                static_cast<const float*>(boxes),
+                                                static_cast<__nv_bfloat16*>(out), K, C,
+                                                out_size, segs);
   }
-  kernel<<<grid, kThreads, smem, st>>>(pyr, n_levels, min_level,
-                                       static_cast<const float*>(boxes),
-                                       static_cast<__nv_bfloat16*>(out), K, C, out_size,
-                                       lane_bits, cap_rows, col_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -113,11 +113,9 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         i, i,             # n_levels, min_level
                                         p, p,             # boxes, out
                                         i, i, i, i,       # B, K, C, out_size
-                                        i, i, i, i,       # vec, lanes, cap rows, cap cols
+                                        i, i,             # vec, column segments
                                         p]                # stream
     lib.m2de_roi_align_bf16.restype = i
-    lib.m2de_roi_align_smem_bytes.argtypes = [i, i, i, i, i]
-    lib.m2de_roi_align_smem_bytes.restype = i
     lib.m2de_clean_u8.argtypes = [p, p, i, i, i, i, i, p]  # in, out, N, H, W, tile_h, tile_w, stream
     lib.m2de_clean_u8.restype = i
     lib.m2de_clean_smem_bytes.argtypes = [i, i]

@@ -1,5 +1,5 @@
 '''Fused multilevel ROIAlign: the CUDA kernel (``csrc/roi_align.cu``), its
-launch plan and footprint, and its dispatching entry.
+launch plan, and its dispatching entry.
 
 Replaces ``moseq2_detectron_extract_tpu/ops/pallas_roi_align.py`` (Pallas
 TPU kernel ``_kernel``, entry ``pallas_separable_roi_align``). On a CUDA
@@ -12,77 +12,41 @@ from typing import NamedTuple, Sequence
 import torch
 
 from moseq2_detectron_extract_tpu_torch import native
-from moseq2_detectron_extract_tpu_torch.ops.roi_align import (_roi_sample_coords,
-                                                              assign_fpn_levels,
-                                                              separable_batched_roi_align)
+from moseq2_detectron_extract_tpu_torch.ops.roi_align import separable_batched_roi_align
 
 MAX_OUTPUT_SIZE = 32
-THREADS = 256             # threads per block (csrc/roi_align.cu:kThreads)
-MAX_ITEMS = 4             # outputs a thread accumulates (kMaxItems)
-MAX_LANES = 8             # channel vectors per block: 64 channels at V = 8
 SMS = 132                 # streaming multiprocessors of an H100 SXM
-CAP_ROWS = 16             # footprint taps a block stages at a time:
-CAP_COLS = 16             # rows x columns (a power of two) of its level
+WARPS_PER_SM = 8          # warps the plan aims to put on each SM
 
 # launches of the CUDA kernel since the count was last set to 0
 launch_count = 0
 
 
 class RoiPlan(NamedTuple):
-    '''How the kernel splits the work: one block per (ROI, slice of
-    ``lanes`` x ``vec`` channels); ``smem_bytes`` of dynamic shared memory
-    for a chunk of ``cap_rows`` x ``cap_cols`` footprint taps and its
-    y-interpolated rows.'''
+    '''How the kernel splits the work: one block per (ROI, group of 32 x
+    ``vec`` channels), one warp per (output row, segment of its columns).'''
     vec: int
-    lanes: int
-    slices: int
-    cap_rows: int
-    cap_cols: int
-    smem_bytes: int
-
-
-def smem_bytes(vec: int, lanes: int, cap_rows: int, cap_cols: int, output_size: int) -> int:
-    '''As ``csrc/roi_align.cu:smem_bytes``: the staged taps (bf16, padded to
-    16 bytes), then Ty (f32, out x cap_cols x channels).'''
-    raw = cap_rows * cap_cols * lanes * vec * 2
-    return (raw + 15) // 16 * 16 + output_size * cap_cols * lanes * vec * 4
+    segs: int
+    groups: int
+    warps: int           # in the whole launch
 
 
 def launch_plan(rois: int, channels: int, output_size: int, vec: int) -> RoiPlan:
-    '''The widest channel slice (a power of two of at most MAX_LANES
-    vectors, and no more outputs than the block's threads hold) that still
-    gives at least one block per SM, so the K = 1 stages spread over the
-    card.'''
-    vecs = channels // vec
-    cap = max(1, min(MAX_LANES, vecs, THREADS * MAX_ITEMS // output_size ** 2))
-    lanes = 1 << (cap.bit_length() - 1)
-    while lanes > 1 and rois * -(-vecs // lanes) < SMS:
-        lanes //= 2
-    return RoiPlan(vec, lanes, -(-vecs // lanes), CAP_ROWS, CAP_COLS,
-                   smem_bytes(vec, lanes, CAP_ROWS, CAP_COLS, output_size))
+    '''The fewest column segments per output row (at most one per column)
+    that put WARPS_PER_SM warps on every SM: the box stage (256 ROIs x 7
+    rows) needs none, the K = 1 stages (16 ROIs) split their rows so they
+    still spread over the card.'''
+    groups = -(-channels // (32 * vec))
+    rows = rois * output_size * groups
+    segs = max(1, min(-(-SMS * WARPS_PER_SM // rows), output_size))
+    return RoiPlan(vec, segs, groups, rows * segs)
 
 
-def footprints(boxes: torch.Tensor, sizes: Sequence[Sequence[int]], output_size: int,
-               min_level: int = 2) -> torch.Tensor:
-    '''(N, 5) int64 per (N, 4) ROI: its level index, then the first and last
-    row and column of its level that its samples touch, as the kernel
-    derives them (the sample coordinates are monotone in the sample index,
-    so the ends bound them).'''
-    n_levels = len(sizes)
-    lvl = assign_fpn_levels(boxes, min_level, min_level + n_levels - 1).long() - min_level
-    strides = (2.0 ** (lvl + min_level)).float()
-    ys, xs = _roi_sample_coords(boxes.float(), output_size, strides)
-    hs = torch.tensor([s[0] for s in sizes], dtype=torch.int64, device=boxes.device)[lvl]
-    ws = torch.tensor([s[1] for s in sizes], dtype=torch.int64, device=boxes.device)[lvl]
-
-    def ends(coords, size):
-        c0 = torch.minimum(coords.clamp(min=0.0), (size - 1).float()[:, None]).floor().long()
-        c1 = torch.minimum(c0 + 1, (size - 1)[:, None])
-        return (torch.minimum(c0[:, 0], c0[:, -1]), torch.maximum(c1[:, 0], c1[:, -1]))
-
-    y_lo, y_hi = ends(ys, hs)
-    x_lo, x_hi = ends(xs, ws)
-    return torch.stack([lvl, y_lo, y_hi, x_lo, x_hi], dim=1)
+def segments(output_size: int, segs: int):
+    '''The [begin, end) output columns of each segment, as the kernel cuts
+    a row; empty segments (their warps return at once) are left out.'''
+    per = -(-output_size // segs)
+    return [(b, min(output_size, b + per)) for b in range(0, output_size, per)]
 
 
 def _vector_width(features: Sequence[torch.Tensor], channels: int) -> int:
@@ -130,8 +94,7 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.m2de_roi_align_bf16(ptrs, meta, len(features), min_level,
                                      boxes.data_ptr(), out.data_ptr(), b, k, c,
-                                     output_size, plan.vec, plan.lanes, plan.cap_rows,
-                                     plan.cap_cols, stream)
+                                     output_size, plan.vec, plan.segs, stream)
     native.check(rc, 'roi_align kernel launch')
     launch_count += 1
     return out

@@ -101,9 +101,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             torch.from_numpy(boxes), 7)
 
 
-# The CUDA kernel's geometry (csrc/roi_align.cu), mirrored: each ROI's
-# footprint, the launch plan, and the footprint-staged separable form with
-# its chunk loops, held against the plain version.
+# The CUDA kernel's geometry (csrc/roi_align.cu), mirrored: one warp per
+# (ROI, output row, segment of its columns), the row's two y samples as 4
+# (row, weight) pairs, and a walk along the x samples that interpolates
+# each column it touches along y once, keeping the last two columns.
 
 def whole_level_case(level, c=8, seed=0):
     '''A pyramid whose canvas makes the full-canvas box fall on ``level``,
@@ -139,95 +140,96 @@ def _pyramid_cases():
         yield whole_level_case(level)
 
 
-@pytest.mark.parametrize('out', [7, 14])
-def test_roi_footprint_is_the_span_of_the_taps(out):
-    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import (CAP_COLS, CAP_ROWS,
-                                                                         footprints)
-    seen_levels = set()
-    for feats, boxes in _pyramid_cases():
-        sizes = [f.shape[1:3] for f in feats]
-        flat = torch.from_numpy(boxes).reshape(-1, 4)
-        fp = footprints(flat, sizes, out)
-        lvl, ((y0, y1, _), (x0, x1, _)) = _sample_taps(flat, sizes, out)
-        np.testing.assert_array_equal(fp[:, 0].numpy(), lvl.numpy())
-        for col, lo, hi in ((1, y0, y1), (3, x0, x1)):
-            np.testing.assert_array_equal(fp[:, col].numpy(), lo.min(1).values.numpy())
-            np.testing.assert_array_equal(fp[:, col + 1].numpy(), hi.max(1).values.numpy())
-            for i in range(flat.shape[0]):      # distinct rows (columns) it touches
-                touched = set(lo[i].tolist()) | set(hi[i].tolist())
-                span = int(fp[i, col + 1] - fp[i, col]) + 1
-                assert len(touched) <= min(span, 4 * out)
-        seen_levels |= set(lvl.tolist())
-        if boxes.shape[1] == 3 and boxes[0, 0, 2] > 0:
-            # the full-canvas box touches its whole level: row and column 0
-            # to the last, in ceil(size / capacity) chunks along each axis
-            h, w = sizes[int(lvl[0])]
-            assert fp[0, 1:].tolist() == [0, h - 1, 0, w - 1]
-            chunks = -(-h // CAP_ROWS) * -(-w // CAP_COLS)
-            assert chunks == (1 if h <= 16 else 4)
-    assert seen_levels == {0, 1, 2, 3}
-
-
-def _staged_mirror(feats, boxes, out, cap_rows, cap_cols):
-    '''The kernel's form: per ROI, the footprint in chunks of cap_rows x
-    cap_cols taps; along y into Ty (0.5 * each sample's two rows), row
-    chunks accumulating; then along x (0.5 * each sample's two columns),
-    column chunks accumulating; f32 throughout.'''
-    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import footprints
+def _warp_walk(feats, boxes, out, segs):
+    '''The kernel's form in f32, and per (ROI, row, segment) the columns its
+    walk interpolated, in order.'''
+    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import segments
     b, k = boxes.shape[:2]
     sizes = [f.shape[1:3] for f in feats]
     flat = torch.from_numpy(boxes).reshape(-1, 4)
-    fp = footprints(flat, sizes, out).tolist()
-    _, ((y0, y1, fy), (x0, x1, fx)) = _sample_taps(flat, sizes, out)
+    lvl, ((y0, y1, fy), (x0, x1, fx)) = _sample_taps(flat, sizes, out)
     res = np.zeros((b * k, out, out, feats[0].shape[-1]), np.float32)
-    for r, (lvl, y_lo, y_hi, x_lo, x_hi) in enumerate(fp):
-        level = feats[lvl][r // k]
-        for xa in range(x_lo, x_hi + 1, cap_cols):
-            xn = min(cap_cols, x_hi + 1 - xa)
-            ty = np.zeros((out, xn, level.shape[-1]), np.float32)
-            for ya in range(y_lo, y_hi + 1, cap_rows):
-                yn = min(cap_rows, y_hi + 1 - ya)
-                raw = level[ya:ya + yn, xa:xa + xn]
-                for oy in range(out):
-                    for i in (2 * oy, 2 * oy + 1):
-                        f = np.float32(fy[r, i])
-                        for row, w in ((y0[r, i] - ya, 1 - f), (y1[r, i] - ya, f)):
-                            if 0 <= row < yn:
-                                ty[oy] += np.float32(0.5) * w * raw[row]
-            for ox in range(out):
-                for j in (2 * ox, 2 * ox + 1):
-                    f = np.float32(fx[r, j])
-                    for col, w in ((x0[r, j] - xa, 1 - f), (x1[r, j] - xa, f)):
-                        if 0 <= col < xn:
-                            res[r, :, ox] += np.float32(0.5) * w * ty[:, col]
-    return res.reshape(b, k, out, out, -1)
+    walks = {}
+    half = np.float32(0.5)
+    for r in range(b * k):
+        level = feats[int(lvl[r])][r // k]
+        for oy in range(out):
+            pairs = []
+            for i in (2 * oy, 2 * oy + 1):
+                f = np.float32(fy[r, i])
+                pairs += [(int(y0[r, i]), half * (1 - f)), (int(y1[r, i]), half * f)]
+            for begin, end in segments(out, segs):
+                cache, walked = {}, []
+                for ox in range(begin, end):
+                    for j in (2 * ox, 2 * ox + 1):
+                        taps = []
+                        for x in (int(x0[r, j]), int(x1[r, j])):
+                            if x not in cache:
+                                cache = {key: val for key, val in cache.items()
+                                         if key == (walked[-1] if walked else None)}
+                                cache[x] = sum(w * level[row, x] for row, w in pairs)
+                                walked.append(x)
+                            taps.append(cache[x])
+                        f = np.float32(fx[r, j])
+                        res[r, oy, ox] += half * ((1 - f) * taps[0] + f * taps[1])
+                walks[r, oy, begin] = walked
+    return res.reshape(b, k, out, out, -1), walks
 
 
 @pytest.mark.parametrize('out', [7, 14])
-@pytest.mark.parametrize('cap', [(16, 16), (3, 5)])
-def test_footprint_staged_separable_matches_plain(out, cap):
-    '''(3, 5) forces the chunk loops on nearly every ROI. f32 against f32:
-    the same sums in another order, 1e-5 on unit-scale features.'''
+def test_roi_rows_and_columns_each_warp_reads(out):
+    '''Each warp reads its row's 4 sample rows; its walk interpolates each
+    column its samples touch once (the samples are monotone along x), so the
+    columns it reads number at most 2 per sample and at most the level's
+    width, for boxes past the canvas and whole-level boxes at every level.'''
+    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import segments
+    seen_levels = set()
+    for segs in (1, 2):
+        for feats, boxes in _pyramid_cases():
+            sizes = [f.shape[1:3] for f in feats]
+            flat = torch.from_numpy(boxes).reshape(-1, 4)
+            lvl, (_, (x0, x1, _)) = _sample_taps(flat, sizes, out)
+            _, walks = _warp_walk(feats, boxes, out, segs)
+            for (r, oy, begin), walked in walks.items():
+                end = dict(segments(out, segs))[begin]
+                touched = set(x0[r, 2 * begin:2 * end].tolist()) | \
+                    set(x1[r, 2 * begin:2 * end].tolist())
+                assert sorted(walked) == sorted(touched) == walked
+                assert len(walked) <= min(4 * (end - begin), sizes[int(lvl[r])][1])
+            seen_levels |= set(lvl.tolist())
+            if boxes.shape[1] == 3 and boxes[0, 0, 2] > 0:
+                # the full-canvas box's walk covers its whole level
+                w = sizes[int(lvl[0])][1]
+                cols = set().union(*(walks[0, 0, b] for b, _ in segments(out, segs)))
+                assert min(cols) == 0 and max(cols) == w - 1
+    assert seen_levels == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize('out', [7, 14])
+@pytest.mark.parametrize('segs', [1, 3])
+def test_warp_walk_separable_matches_plain(out, segs):
+    '''f32 against f32: the same sums in another order, 1e-5 on unit-scale
+    features.'''
     for feats, boxes in _pyramid_cases():
-        got = _staged_mirror(feats, boxes, out, *cap)
+        got, _ = _warp_walk(feats, boxes, out, segs)
         ref = separable_batched_roi_align([torch.from_numpy(f) for f in feats],
                                           torch.from_numpy(boxes), out)
         np.testing.assert_allclose(got, ref.numpy(), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize('rois,c,out,vec,lanes,blocks', [
-    (256, 256, 7, 8, 8, 1024),     # box stage: B 16, K 16, 64 channels a block
-    (16, 256, 14, 8, 2, 256),      # mask stage: B 16, K 1, 16 channels a block
-    (16, 256, 7, 8, 2, 256),       # keypoint stage
-    (12, 6, 5, 1, 1, 72),          # C = 6: one channel a block
-    (4, 16, 32, 8, 1, 8),          # the largest output: 4 outputs a thread
+@pytest.mark.parametrize('rois,c,out,vec,segs,warps', [
+    (256, 256, 7, 8, 1, 1792),     # box stage: B 16, K 16
+    (16, 256, 14, 8, 5, 1120),     # mask stage: B 16, K 1, rows in 5 segments
+    (16, 256, 7, 8, 7, 784),       # keypoint stage: a warp per output
+    (12, 6, 5, 1, 5, 300),         # C = 6: one channel a lane
+    (4, 16, 32, 8, 9, 1152),       # the largest output
+    (12, 24, 7, 8, 7, 588),        # C a multiple of 8, not of 16
 ])
-def test_roi_launch_plan(rois, c, out, vec, lanes, blocks):
+def test_roi_launch_plan(rois, c, out, vec, segs, warps):
     from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel as rk
     plan = rk.launch_plan(rois, c, out, vec)
-    assert (plan.vec, plan.lanes, rois * plan.slices) == (vec, lanes, blocks)
-    assert plan.slices * plan.lanes * plan.vec >= c
-    assert out * out * plan.lanes <= rk.THREADS * rk.MAX_ITEMS
-    assert 2 * (2 * out) <= rk.THREADS               # one thread per sample coordinate
-    assert plan.smem_bytes == rk.smem_bytes(vec, lanes, rk.CAP_ROWS, rk.CAP_COLS, out)
-    assert plan.smem_bytes <= 232448
+    assert (plan.vec, plan.segs, plan.warps) == (vec, segs, warps)
+    assert plan.groups * 32 * vec >= c and plan.segs <= out
+    assert plan.warps >= min(rk.SMS * rk.WARPS_PER_SM, rois * out * out * plan.groups)
+    cols = [x for b, e in rk.segments(out, plan.segs) for x in range(b, e)]
+    assert cols == list(range(out))                       # each column once
