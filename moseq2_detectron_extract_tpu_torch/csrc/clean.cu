@@ -70,9 +70,8 @@
 // half the SMs idle (64 blocks) and need 2 x 210 x 224 x 4 B of shared
 // memory for two frames, over the 227 KB limit.
 // Staging reads 16 bytes of each frame per load where the frame's width is
-// a multiple of 16 (three chunks' loads in flight a thread), and single
-// bytes elsewhere; the last pass stores 4 bytes of each frame per word
-// group where the width is a multiple of 4.
+// a multiple of 16, and single bytes elsewhere; the last pass stores 4
+// bytes of each frame per word group where the width is a multiple of 4.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,7 +82,6 @@ constexpr int kPadCols = 32;    // staged columns left (and right) of the tile
 constexpr int kThreads = 512;
 constexpr int kSeg = 8;         // output rows per thread item
 constexpr int kGroup = 4;       // words per thread item: one 16-byte access
-constexpr int kStageBatch = 3;  // staging loads a thread has in flight
 
 struct MinOp {
   static __device__ __forceinline__ uint32_t op3(uint32_t a, uint32_t b, uint32_t c) {
@@ -131,60 +129,42 @@ __device__ __forceinline__ uint32_t pack_pixel(uint32_t f0, uint32_t f1, int j) 
 }
 
 // Stage the pair's tile and its zero halo: rows x pitch packed words, in
-// chunks of 16 pixels; each thread issues the loads of kStageBatch chunks
-// before it packs and stores any of them.
+// chunks of 16 pixels.
 __device__ void stage(const Tile& t, uint32_t* dst, bool vec_in) {
   const int chunks = t.pitch / 16;
-  const int n = t.rows * chunks;
-  for (int base = threadIdx.x; base < n; base += kStageBatch * blockDim.x) {
-    uint4 f0[kStageBatch], f1[kStageBatch];
-    bool fast[kStageBatch];
+  for (int item = threadIdx.x; item < t.rows * chunks; item += blockDim.x) {
+    const int ly = item / chunks;
+    const int k = item - ly * chunks;
+    const int gy = t.r0 - kHalo + ly;
+    const int gx = t.c0 - kPadCols + 16 * k;
+    uint4* d = reinterpret_cast<uint4*>(dst + ly * t.pitch + 16 * k);
+    const bool row_in = gy >= 0 && gy < t.H;
+    if (row_in && vec_in && gx >= 0 && gx + 16 <= t.W) {
+      const size_t off = static_cast<size_t>(gy) * t.W + gx;
+      const uint4 f0 = *reinterpret_cast<const uint4*>(t.in0 + off);
+      const uint4 f1 = t.in1 ? *reinterpret_cast<const uint4*>(t.in1 + off)
+                             : make_uint4(0, 0, 0, 0);
+      const uint32_t a[4] = {f0.x, f0.y, f0.z, f0.w};
+      const uint32_t b[4] = {f1.x, f1.y, f1.z, f1.w};
 #pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int item = base + u * blockDim.x;
-      const int ly = item / chunks;
-      const int gy = t.r0 - kHalo + ly;
-      const int gx = t.c0 - kPadCols + 16 * (item - ly * chunks);
-      fast[u] = item < n && vec_in && gy >= 0 && gy < t.H && gx >= 0 && gx + 16 <= t.W;
-      if (fast[u]) {
-        const size_t off = static_cast<size_t>(gy) * t.W + gx;
-        f0[u] = *reinterpret_cast<const uint4*>(t.in0 + off);
-        f1[u] = t.in1 ? *reinterpret_cast<const uint4*>(t.in1 + off) : make_uint4(0, 0, 0, 0);
+      for (int v = 0; v < 4; ++v) {
+        d[v] = make_uint4(pack_pixel(a[v], b[v], 0), pack_pixel(a[v], b[v], 1),
+                          pack_pixel(a[v], b[v], 2), pack_pixel(a[v], b[v], 3));
       }
-    }
+    } else {
+      uint32_t w[16];
 #pragma unroll
-    for (int u = 0; u < kStageBatch; ++u) {
-      const int item = base + u * blockDim.x;
-      if (item >= n) break;
-      const int ly = item / chunks;
-      const int k = item - ly * chunks;
-      const int gy = t.r0 - kHalo + ly;
-      const int gx = t.c0 - kPadCols + 16 * k;
-      uint4* d = reinterpret_cast<uint4*>(dst + ly * t.pitch + 16 * k);
-      if (fast[u]) {
-        const uint32_t a[4] = {f0[u].x, f0[u].y, f0[u].z, f0[u].w};
-        const uint32_t b[4] = {f1[u].x, f1[u].y, f1[u].z, f1[u].w};
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          d[v] = make_uint4(pack_pixel(a[v], b[v], 0), pack_pixel(a[v], b[v], 1),
-                            pack_pixel(a[v], b[v], 2), pack_pixel(a[v], b[v], 3));
+      for (int j = 0; j < 16; ++j) {
+        const int x = gx + j;
+        uint32_t v = 0;
+        if (row_in && x >= 0 && x < t.W) {
+          const size_t off = static_cast<size_t>(gy) * t.W + x;
+          v = t.in0[off] | (t.in1 ? static_cast<uint32_t>(t.in1[off]) << 16 : 0u);
         }
-      } else {
-        const bool row_in = gy >= 0 && gy < t.H;
-        uint32_t w[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int x = gx + j;
-          uint32_t v = 0;
-          if (row_in && x >= 0 && x < t.W) {
-            const size_t off = static_cast<size_t>(gy) * t.W + x;
-            v = t.in0[off] | (t.in1 ? static_cast<uint32_t>(t.in1[off]) << 16 : 0u);
-          }
-          w[j] = v;
-        }
-#pragma unroll
-        for (int v = 0; v < 4; ++v) d[v] = make_uint4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
+        w[j] = v;
       }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) d[v] = make_uint4(w[4 * v], w[4 * v + 1], w[4 * v + 2], w[4 * v + 3]);
     }
   }
   __syncthreads();

@@ -140,10 +140,9 @@ struct Chan<1> {
 // grid (B*K ROIs, channel groups of 32*V, ceil(out_size * segs / kWarps));
 // the ROI's warp w = (output row w / segs, column segment w % segs).
 template <int V>
-__global__ void __launch_bounds__(32 * kWarps) roi_align_kernel(Pyramid pyr, int n_levels, int min_level,
-                                 const float* __restrict__ boxes,
-                                 __nv_bfloat16* __restrict__ out, int K, int C,
-                                 int out_size, int segs) {
+__global__ void __launch_bounds__(32 * kWarps)
+roi_align_kernel(Pyramid pyr, int n_levels, int min_level, const float* __restrict__ boxes,
+                 __nv_bfloat16* __restrict__ out, int K, int C, int out_size, int segs) {
   const int roi = blockIdx.x;   // b * K + k
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.z * kWarps + (threadIdx.x >> 5);
@@ -215,7 +214,7 @@ __global__ void __launch_bounds__(32 * kWarps) roi_align_kernel(Pyramid pyr, int
     }
   };
   // the last two columns computed (the walk along x is monotone)
-  float t_old[V], t_new[V];
+  float t_old[V] = {}, t_new[V] = {};
   int x_old = -1, x_new = -1;
   auto get = [&](int x, float* t) {
     if (x == x_new) {

@@ -1,9 +1,10 @@
 '''Mask+Keypoint R-CNN inference with fixed-size, validity-masked outputs.
 
 Port of ``moseq2_detectron_extract_tpu/models/rcnn.py`` (``inference``,
-lines 137-213, and ``_pool``, lines 215-233). Pooling is always bf16 in and
-out at inference, whatever ``amp_dtype`` says; on the card each of its three
-calls (box, mask, keypoint stage) launches the ROIAlign kernel.
+lines 137-213, and ``_pool``, lines 215-233, as ``pool_levels`` and
+``roi_align``). Pooling is always bf16 in and out at inference, whatever
+``amp_dtype`` says; on the card each of its three calls (box, mask,
+keypoint stage) launches the ROIAlign kernel.
 '''
 from typing import Dict, Optional
 
@@ -77,11 +78,6 @@ class MaskKeypointRCNN(nn.Module):
         return [f.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
                 for f in fpn_feats[:4]]
 
-    @staticmethod
-    def _pool(levels, boxes, resolution: int):
-        '''ROIAlign of (B, K, 4) boxes over NHWC P2..P5 -> (B, K, r, r, C) bf16.'''
-        return roi_align(levels, boxes, resolution)
-
     @torch.no_grad()
     def inference(self, images: torch.Tensor,
                   image_sizes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -111,7 +107,7 @@ class MaskKeypointRCNN(nn.Module):
 
         p = proposals.shape[1]
         levels = self.pool_levels(fpn_feats)
-        pooled = self._pool(levels, proposals, cfg.box_pooler_resolution)
+        pooled = roi_align(levels, proposals, cfg.box_pooler_resolution)
         cls_logits, box_deltas = self.box_head(pooled.reshape(b * p, *pooled.shape[2:]))
         cls_logits = cls_logits.reshape(b, p, -1).float()
         box_deltas = box_deltas.reshape(b, p, 4).float()
@@ -139,7 +135,7 @@ class MaskKeypointRCNN(nn.Module):
         d = det_boxes.shape[1]
 
         if cfg.mask_on:
-            mask_pooled = self._pool(levels, det_boxes, cfg.mask_pooler_resolution)
+            mask_pooled = roi_align(levels, det_boxes, cfg.mask_pooler_resolution)
             mask_logits = self.mask_head(mask_pooled.reshape(b * d, *mask_pooled.shape[2:]))
             mask_logits = mask_logits[..., 0].reshape(b, d, cfg.mask_resolution,
                                                       cfg.mask_resolution)
@@ -149,7 +145,7 @@ class MaskKeypointRCNN(nn.Module):
             out['masks'] = masks.reshape(b, d, *canvas) & det_valid[..., None, None]
 
         if cfg.keypoint_on:
-            kp_pooled = self._pool(levels, det_boxes, cfg.keypoint_pooler_resolution)
+            kp_pooled = roi_align(levels, det_boxes, cfg.keypoint_pooler_resolution)
             kp_logits = self.keypoint_head(kp_pooled.reshape(b * d, *kp_pooled.shape[2:]))
             s = kp_logits.shape[1]
             out['keypoint_heatmaps'] = kp_logits.reshape(

@@ -42,13 +42,6 @@ def launch_plan(rois: int, channels: int, output_size: int, vec: int) -> RoiPlan
     return RoiPlan(vec, segs, groups, rows * segs)
 
 
-def segments(output_size: int, segs: int):
-    '''The [begin, end) output columns of each segment, as the kernel cuts
-    a row; empty segments (their warps return at once) are left out.'''
-    per = -(-output_size // segs)
-    return [(b, min(output_size, b + per)) for b in range(0, output_size, per)]
-
-
 def _vector_width(features: Sequence[torch.Tensor], channels: int) -> int:
     '''8 (16-byte loads) where the channels, strides and addresses allow
     it, else 1.'''

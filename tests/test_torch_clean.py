@@ -169,8 +169,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 # The CUDA kernel's geometry and arithmetic (csrc/clean.cu), mirrored in
 # numpy: frames packed in pairs into the two 16-bit lanes of uint32 words,
 # the tiles of clean_kernel.tile_plan, the seven passes over their shrinking
-# margins in groups of 4 words and segments of 16 rows, three-input lane-wise
-# min/max and the median of three as the sum less min and max.
+# margins in groups of 4 words, three-input lane-wise min/max and the median
+# of three as the sum less min and max.
 
 KERNEL_SHAPES = [(64, 160, 160), (3, 77, 101), (2, 424, 512)]
 

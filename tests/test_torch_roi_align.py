@@ -140,10 +140,17 @@ def _pyramid_cases():
         yield whole_level_case(level)
 
 
+def segments(output_size, segs):
+    '''The [begin, end) output columns of each segment, as the kernel cuts
+    a row (ceil(out / segs) columns each); empty segments, whose warps
+    return at once, are left out.'''
+    per = -(-output_size // segs)
+    return [(b, min(output_size, b + per)) for b in range(0, output_size, per)]
+
+
 def _warp_walk(feats, boxes, out, segs):
     '''The kernel's form in f32, and per (ROI, row, segment) the columns its
     walk interpolated, in order.'''
-    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import segments
     b, k = boxes.shape[:2]
     sizes = [f.shape[1:3] for f in feats]
     flat = torch.from_numpy(boxes).reshape(-1, 4)
@@ -182,7 +189,6 @@ def test_roi_rows_and_columns_each_warp_reads(out):
     column its samples touch once (the samples are monotone along x), so the
     columns it reads number at most 2 per sample and at most the level's
     width, for boxes past the canvas and whole-level boxes at every level.'''
-    from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import segments
     seen_levels = set()
     for segs in (1, 2):
         for feats, boxes in _pyramid_cases():
@@ -231,5 +237,5 @@ def test_roi_launch_plan(rois, c, out, vec, segs, warps):
     assert (plan.vec, plan.segs, plan.warps) == (vec, segs, warps)
     assert plan.groups * 32 * vec >= c and plan.segs <= out
     assert plan.warps >= min(rk.SMS * rk.WARPS_PER_SM, rois * out * out * plan.groups)
-    cols = [x for b, e in rk.segments(out, plan.segs) for x in range(b, e)]
+    cols = [x for b, e in segments(out, plan.segs) for x in range(b, e)]
     assert cols == list(range(out))                       # each column once
