@@ -6,7 +6,9 @@
 Phases, each printed with its elapsed seconds as it starts:
 
 1. the card's name and power limit (nvidia-smi);
-2. build of the CUDA kernels (nvcc, one process per source, then ctypes);
+2. build of the CUDA kernels (nvcc, one process per build unit, then
+   ctypes), started in a thread as the script starts so that it runs while
+   torch imports;
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes: ROIAlign at batch 16 for the box (out 7, K 16), mask
    (out 14, K 1) and keypoint (out 7, K 1) stages, to 2 bf16 ulps; the
@@ -21,6 +23,20 @@ Phases, each printed with its elapsed seconds as it starts:
    report sums its three stage calls, one batch's pooling. No single PyTorch
    call computes either function (torchvision is absent), so there is no
    library time;
+3b. the ROIAlign stage-2 experiment's path: its entry,
+   ``benchmarks.roi_stage2_exp.main`` (a check of every variant at a small
+   shape, then CUDA-event times at its shape, 64 images x 256 ROIs, canvas
+   256, C 256, at block_k 8 and 16, beside ``roi_align_cuda`` and the
+   two-call cuBLAS form), with the four stage-2 kernels' launch counts set
+   to 0 just before and read just after; then each of the four kernels, and
+   noxpose with a bf16 output, against its plain version at the main path's
+   box shape (B 16, K 16, canvas 160) and at the experiment's shape on its
+   first 4 images (the plain version's f32 T at 64 would take 7.5 GB), to 2
+   bf16 ulps, with its device time at the box shape beside its bound (the
+   same yardstick as ROIAlign's, the output counted in its own dtype), the
+   dense form's tensor-core time (its multiply-adds x 2 over 989e12/s), the
+   two-call form's time, and the mma each kernel issued
+   (``roi_stage2_kernel.mma_count``) over its time, at both shapes;
 4. the main path: ``Predictor.from_model_dir`` on the committed fast160
    model (R50-FPN, full width, weights read from its npz), a chunk of 64
    sentinel-encoded 424x512 frames made from ``--seed``, and
@@ -34,7 +50,10 @@ Phases, each printed with its elapsed seconds as it starts:
    time); then the
    same 4-frame input through the port on the card and on the CPU (plain
    versions, f32 model) as a reference check;
-5. a JSON line of the kernels, then the result line.
+5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
+   kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
+   the box shape with block_k 8, its ``launches`` those of phase 3b's
+   experiment run), then the result line.
 
 It exits non-zero, without a result line, when CUDA is unavailable, when
 the port's package is not beside it, or when any phase fails.
@@ -66,6 +85,9 @@ BF16_TOL = 2.0 ** -6               # 2 bf16 ulps, relative and absolute
 # At most 16 taps per output element (4 samples x 4 bilinear taps, the
 # weights per ROI and shared by the channels): 16 multiply-adds.
 ROI_OPS_PER_OUTPUT = 32
+TC_BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
+STAGE2_REPS = 5                    # timed calls per variant at the experiment's shape
+STAGE2_BLOCK_K = 8                 # block_k of the comparisons and the box-shape times
 # Min/max operations per pixel of a minimal form of the clean (the form is
 # checked against the plain version in tests/test_torch_clean.py):
 # the median, 18 (sort each vertical triple, 6; then med3 of the max of the
@@ -110,23 +132,36 @@ def wall_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, attempts: int = 3) -> float:
     """Device time per call: the CUDA kernels that ``reps`` calls launched,
-    summed from a ``torch.profiler`` trace, over ``reps``."""
+    summed from a ``torch.profiler`` trace, over ``reps``. A trace that
+    records no device time (it happens now and then) is taken again; after
+    ``attempts`` such traces the time is CUDA-event time around ``reps``
+    back-to-back calls, and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     warnings.filterwarnings('ignore', message='.*Profiler clears events.*')
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        raise RuntimeError('the profiler recorded no device time')
-    return total_us / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    phase(f'the profiler recorded no device time in {attempts} traces: CUDA-event time '
+          'around back-to-back calls instead')
+    return start.elapsed_time(end) / reps
 
 
 def roi_inputs(rng, batch: int, k: int, canvas: int = 160, c: int = 256, device='cuda'):
@@ -150,10 +185,10 @@ def roi_inputs(rng, batch: int, k: int, canvas: int = 160, c: int = 256, device=
     return levels, torch.from_numpy(boxes).to(device)
 
 
-def roi_bound(levels, boxes, out: int):
+def roi_bound(levels, boxes, out: int, out_bytes: int = 2):
     '''(bytes, ops) the function needs on these inputs: the distinct taps it
-    reads (per image), the boxes, the output; ROI_OPS_PER_OUTPUT (32) fp32
-    operations per output element.'''
+    reads (per image), the boxes, the output (``out_bytes`` an element);
+    ROI_OPS_PER_OUTPUT (32) fp32 operations per output element.'''
     import torch
     from moseq2_detectron_extract_tpu_torch.ops.roi_align import (_roi_sample_coords,
                                                                   assign_fpn_levels)
@@ -181,12 +216,13 @@ def roi_bound(levels, boxes, out: int):
         rows = touched(ys[sel], hh)                    # (n, H)
         cols = touched(xs[sel], ww)                    # (n, W)
         img = torch.div(torch.nonzero(sel)[:, 0], k, rounding_mode='floor')
-        grid = torch.zeros((b, hh, ww), dtype=torch.bool, device=boxes.device)
-        for i in range(rows.shape[0]):
-            grid[img[i]] |= rows[i][:, None] & cols[i][None, :]
-        taps += int(grid.sum())
+        grid = torch.zeros((b, hh, ww), dtype=torch.int32, device=boxes.device)
+        for part in range(0, rows.shape[0], 4096):     # (n, H, W) in slices of 4096 ROIs
+            sl = slice(part, part + 4096)
+            grid.index_add_(0, img[sl], (rows[sl, :, None] & cols[sl, None, :]).int())
+        taps += int((grid > 0).sum())
     out_elems = b * k * out * out * c
-    nbytes = taps * c * 2 + boxes.numel() * 4 + out_elems * 2
+    nbytes = taps * c * 2 + boxes.numel() * 4 + out_elems * out_bytes
     return nbytes, out_elems * ROI_OPS_PER_OUTPUT
 
 
@@ -261,6 +297,103 @@ def check_kernels(rng, reps: int, card: str):
     return roi, clean
 
 
+def dense_tc_ms(levels, boxes, out: int, block_k: int) -> float:
+    '''The dense separable form's multiply-adds (stage 1 over every stacked
+    row, stage 2 over every column, the ROIs padded to block_k) x 2 over the
+    card's bf16 tensor-core rate, in ms.'''
+    b, k = boxes.shape[:2]
+    kp = -(-k // block_k) * block_k
+    h = sum(f.shape[1] for f in levels)
+    w = max(f.shape[2] for f in levels)
+    c = levels[0].shape[-1]
+    macs = b * kp * out * w * c * (h + out)
+    return 2 * macs / TC_BF16_OPS_PER_S * 1e3
+
+
+def check_stage2(rng, reps: int, card: str, seed: int):
+    '''Phase 3b: the stage-2 experiment's path, then each stage-2 kernel
+    against its plain version; the launches of the path and the report rows.'''
+    import torch
+    from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp as exp
+    from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.ops import roi_stage2_kernel as rs
+    from moseq2_detectron_extract_tpu_torch.ops.roi_align import _separable_inputs
+
+    for variant in rs.VARIANTS:
+        rs.launch_count[variant] = 0
+    result = exp.main(device='cuda', seed=seed, reps=STAGE2_REPS)
+    launches = dict(rs.launch_count)
+    phase(f'stage-2 experiment launches: {launches}')
+    if not all(launches.values()):
+        raise AssertionError(f'a stage-2 kernel was not launched by the experiment: {launches}')
+    exp_ms = {(r['label'], r['block_k']): r['ms'] for r in result['rows']}
+
+    bk = STAGE2_BLOCK_K
+    levels64, boxes64 = result['inputs']
+    shapes = {'box': roi_inputs(rng, 16, 16),
+              'experiment B=4': ([f[:4] for f in levels64], boxes64[:4].contiguous())}
+    box_levels, box_boxes = shapes['box']
+    dense = _separable_inputs(box_levels, box_boxes, 7, 2, as_dtype=torch.bfloat16)
+    yard = {'roi_align_cuda': device_ms(functools.partial(
+                roi_align_kernel.roi_align_cuda, box_levels, box_boxes, 7), reps),
+            'two calls': device_ms(functools.partial(exp.two_calls, *dense), reps),
+            'dense tensor-core': dense_tc_ms(box_levels, box_boxes, 7, bk)}
+    del dense
+    yard64 = {'roi_align_cuda': exp_ms[('base (roi_align_cuda)', None)],
+              'two calls': exp_ms[('two calls (bmm + matmul)', None)],
+              'dense tensor-core': dense_tc_ms(levels64, boxes64, 7, bk)}
+    phase('stage-2 yardsticks, box (B=16, K=16, canvas 160, C=256; device ms): '
+          + ', '.join(f'{k} {v:.4f}' for k, v in yard.items())
+          + f'; experiment (B=64, K=256, canvas 256, C=256; CUDA events, {STAGE2_REPS} '
+          'calls): ' + ', '.join(f'{k} {v:.4f}' for k, v in yard64.items()) + f' [{card}]')
+
+    exp_inputs = {k: rs.stage2_inputs(levels64, boxes64, 7, k)[1:] for k in exp.BLOCK_KS}
+    box_inputs = rs.stage2_inputs(box_levels, box_boxes, 7, bk)[1:]
+    rows = {}
+    for label, variant, dtype in exp.RUNS:
+        errs = {}
+        for name, (levels, boxes) in shapes.items():
+            inputs = rs.stage2_inputs(levels, boxes, 7, bk)
+            got = rs.roi_stage2_cuda(*inputs, boxes.shape[1], variant, bk, dtype).float()
+            ref = rs.roi_stage2_plain(levels, boxes, 7, variant, bk, dtype).float()
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            if not bool((err <= BF16_TOL * (1 + ref.abs())).all()):
+                raise AssertionError(f'roi_stage2 {label} ({name}): kernel differs from plain '
+                                     f'version (max abs err {float(err.max()):.3e})')
+            errs[name] = float(err.max())
+            del got, ref, err
+        inputs = rs.stage2_inputs(box_levels, box_boxes, 7, bk)
+        ms = device_ms(functools.partial(rs.roi_stage2_cuda, *inputs, 16, variant, bk,
+                                         dtype), reps)
+        plain_ms = device_ms(functools.partial(rs.roi_stage2_plain, box_levels, box_boxes, 7,
+                                               variant, bk, dtype), reps)
+        out_bytes = torch.empty((), dtype=dtype).element_size()
+        b_ms, by = bound_ms(*roi_bound(box_levels, box_boxes, 7, out_bytes))
+        b64_ms, by64 = bound_ms(*roi_bound(levels64, boxes64, 7, out_bytes))
+        plan = rs.launch_plan(variant, 16, 16, 256, 75, 40, bk)
+        phase(f'roi_stage2 {label} plan (box, block_k {bk}): {plan.blocks} blocks of '
+              f'{rs.THREADS} threads, {plan.passes} pass(es), {plan.smem_bytes} B shared memory')
+        phase(f'roi_stage2 {label}: max_abs_err box {errs["box"]:.3e}, experiment B=4 '
+              f'{errs["experiment B=4"]:.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); box device ms: '
+              f'kernel {ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by}; experiment '
+              f'B=64 ms: block_k 8 {exp_ms[(label, 8)]:.4f}, block_k 16 '
+              f'{exp_ms[(label, 16)]:.4f}, bound {b64_ms:.4f} by {by64} [{card}]')
+        rates = []
+        for name, (wy, wx), k, t in [('box', box_inputs, bk, ms)] + [
+                (f'experiment block_k {k}', exp_inputs[k], k, exp_ms[(label, k)])
+                for k in exp.BLOCK_KS]:
+            s1, s2 = rs.mma_count(variant, wy, wx, k, 256)
+            rates.append(f'{name} {s1} + {s2}, {(s1 + s2) * 2048 * 2 / t / 1e9:.1f} TFLOP/s')
+        phase(f'roi_stage2 {label}: mma.m16n8k16 issued (stage 1 + stage 2) and the rate: '
+              + '; '.join(rates) + f' (dense bf16 peak 989) [{card}]')
+        rows[label] = {'max_abs_err': max(errs.values()), 'ms': ms, 'plain_ms': plain_ms,
+                       'bound_ms': b_ms, 'bound_by': by,
+                       'experiment_ms': {str(k): exp_ms[(label, k)] for k in exp.BLOCK_KS},
+                       'experiment_bound_ms': b64_ms}
+    return launches, rows
+
+
 def stage_times(chunk, predictor, config, tracker) -> dict:
     '''Wall seconds of each stage of ``process_chunk`` on one chunk (host
     clock, each stage ended by a synchronize).'''
@@ -289,21 +422,26 @@ def stage_times(chunk, predictor, config, tracker) -> dict:
 
 def profile_chunk(chunk, predictor, config, tracker, card: str) -> None:
     '''One chunk under ``torch.profiler``: the device's busy share of its
-    wall time (profiler overhead included) and the top kernels.'''
+    wall time (profiler overhead included) and the top kernels. A trace that
+    records no device time is taken again, at most twice.'''
     import torch
     from moseq2_detectron_extract_tpu_torch.extract import process_chunk
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        process_chunk(chunk, predictor, config, tracker=tracker)
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
-    busy_us = sum(e.device_time_total for e in kernels)
-    if busy_us <= 0:
-        raise RuntimeError('the profiler recorded no device time')
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            process_chunk(chunk, predictor, config, tracker=tracker)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time_total > 0]
+        busy_us = sum(e.device_time_total for e in kernels)
+        if busy_us > 0:
+            break
+    else:
+        raise RuntimeError('the profiler recorded no device time in 3 traces')
     phase(f'profiled chunk: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
           f'({100 * busy_us / 1e3 / (wall * 1e3):.1f}%), {len(kernels)} kernel names, '
           f'{sum(e.count for e in kernels)} launches [{card}]')
@@ -348,6 +486,27 @@ def reference_check(model_dir: str, chunk, config, devices=('cuda', 'cpu')):
     return box_err, score_err, int(same.sum())
 
 
+def start_build():
+    '''Start the kernels' build (``native.build_library``: nvcc, no torch)
+    in a thread, so that it runs while torch imports; the thread and a dict
+    that gets the library's path and the build's seconds, or the error.'''
+    import threading
+    build = {}
+
+    def run():
+        try:
+            from moseq2_detectron_extract_tpu_torch import native
+            t = time.perf_counter()
+            build['path'] = native.build_library()
+            build['seconds'] = time.perf_counter() - t
+        except Exception as exc:   # raised in the main thread, at phase 2
+            build['error'] = exc
+
+    thread = threading.Thread(target=run, name='kernel-build')
+    thread.start()
+    return thread, build
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0)
@@ -355,16 +514,18 @@ def main() -> int:
                                                             'bench_model_fast160'))
     args = parser.parse_args()
 
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        print('chip_smoke: torch.cuda.is_available() is False; nothing run',
-              file=sys.stderr)
-        return 2
     if not os.path.isdir(os.path.join(REPO, PKG)):
         print(f'chip_smoke: the {PKG} package is not beside this script', file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    build_thread, build = start_build()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        build_thread.join()
+        print('chip_smoke: torch.cuda.is_available() is False; nothing run',
+              file=sys.stderr)
+        return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase(f'torch {torch.__version__} (CUDA {torch.version.cuda}); set '
@@ -375,12 +536,13 @@ def main() -> int:
     card = card_query()
     print(card, flush=True)
 
-    phase('2/5 build kernels (nvcc -> ctypes)')
+    phase('2/5 build kernels (nvcc -> ctypes; started with the script, beside the torch import)')
     from moseq2_detectron_extract_tpu_torch import native
-    t = time.perf_counter()
-    lib_path = native.build_library()
+    build_thread.join()
+    if 'error' in build:
+        raise build['error']
+    lib_path, build_s = build['path'], build['seconds']
     native.load_library()
-    build_s = time.perf_counter() - t
     with open(os.path.join(os.path.dirname(lib_path), 'build.log'), encoding='utf-8') as fh:
         for line in fh:
             if 'Used' in line or 'spill' in line:
@@ -390,6 +552,9 @@ def main() -> int:
     phase('3/5 kernels vs plain versions at main-path shapes')
     rng = np.random.default_rng(args.seed)
     roi, clean = check_kernels(rng, REPS, card)
+
+    phase('3b/5 stage-2 variants vs plain versions (the ROIAlign stage-2 experiment)')
+    stage2_launches, stage2 = check_stage2(rng, REPS, card, args.seed)
 
     phase('4/5 main path: Predictor.from_model_dir + process_chunk')
     from moseq2_detectron_extract_tpu_torch.extract import make_tracker, process_chunk
@@ -488,6 +653,18 @@ def main() -> int:
          'ms': clean['ms'], 'plain_ms': clean['plain_ms'], 'bound_ms': clean['bound_ms'],
          'bound_by': clean['bound_by'], 'library_ms': None},
     ]
+    replaces = {'retile': 59, 'transpose': 92, 'dotswap': 114, 'noxpose': 133}
+    for variant, line in replaces.items():
+        row = stage2[variant]
+        kernels.append({'name': f'roi_stage2_{variant}', 'route': 'cuda',
+                        'source': f'{PKG}/csrc/roi_stage2.cu',
+                        'replaces': f'benchmarks/roi_stage2_exp.py:{line}',
+                        'launches': stage2_launches[variant],
+                        'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+                        'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+                        'bound_by': row['bound_by'], 'library_ms': None,
+                        'experiment_ms': row['experiment_ms'],
+                        'experiment_bound_ms': row['experiment_bound_ms']})
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 '''Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/*.cu`` source is compiled by its own ``nvcc -c`` (all started
-together), and the objects are linked into one shared library with a plain
-C interface, loaded with ``ctypes``. No source includes PyTorch's headers,
+Each build unit, a ``csrc/*.cu`` source with its own flags, is compiled by
+its own ``nvcc -c`` (all started together), and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.
+``roi_stage2.cu`` is four units, one per entry, so that its kernels compile
+in parallel. No source includes PyTorch's headers,
 so a build takes seconds. The library lands in ``_build/<hash>/`` beside
 this file, keyed by a hash of the sources, the flags and the compiler, so an
 unchanged checkout builds once. The build happens at the first kernel call,
@@ -23,7 +25,10 @@ from typing import List
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-SOURCES = ('roi_align.cu', 'clean.cu')
+SOURCES = ('roi_align.cu', 'clean.cu', 'roi_stage2.cu')
+# (source, extra nvcc flags), one nvcc -c each: roi_stage2.cu once per entry
+UNITS = tuple((src, flags) for src in SOURCES for flags in (
+    [(f'-DM2DE_STAGE2_VARIANT={v}',) for v in range(4)] if src == 'roi_stage2.cu' else [()]))
 LIB_NAME = 'libm2de_kernels.so'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -52,6 +57,7 @@ def _build_key(nvcc: str) -> str:
     digest = hashlib.sha256()
     digest.update(nvcc.encode())
     digest.update(' '.join(NVCC_FLAGS).encode())
+    digest.update(repr(UNITS).encode())
     for name in sorted(os.listdir(CSRC_DIR)):
         if name.endswith(('.cu', '.cuh', '.h')):
             digest.update(name.encode())
@@ -63,7 +69,7 @@ def _build_key(nvcc: str) -> str:
 def build_library() -> str:
     '''Build the kernel library unless this source hash is built; its path.
 
-    The sources compile in parallel, one ``nvcc -c`` each; the compiler's
+    The units compile in parallel, one ``nvcc -c`` each; the compiler's
     output (``-Xptxas -v``: registers, shared memory, spills per kernel) is
     kept in ``build.log`` beside the library.
     '''
@@ -77,10 +83,10 @@ def build_library() -> str:
     try:
         procs = []
         objs: List[str] = []
-        for src in SOURCES:
-            obj = os.path.join(work, src + '.o')
+        for n, (src, flags) in enumerate(UNITS):
+            obj = os.path.join(work, f'{n}-{src}.o')
             objs.append(obj)
-            cmd = [nvcc, *NVCC_FLAGS, '-c', os.path.join(CSRC_DIR, src), '-o', obj]
+            cmd = [nvcc, *NVCC_FLAGS, *flags, '-c', os.path.join(CSRC_DIR, src), '-o', obj]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
         log = []
@@ -120,6 +126,15 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.m2de_clean_u8.restype = i
     lib.m2de_clean_smem_bytes.argtypes = [i, i]
     lib.m2de_clean_smem_bytes.restype = i
+    for variant in ('retile', 'transpose', 'dotswap', 'noxpose'):
+        entry = getattr(lib, f'm2de_roi_stage2_{variant}')
+        entry.argtypes = [p, p, p, p,          # f, wy, wx, out
+                          i, i, i, i, i, i,    # B, K, Kp, C, Hp, Wp
+                          i, i,                # block_k, out_bf16
+                          p]                   # stream
+        entry.restype = i
+    lib.m2de_roi_stage2_smem_bytes.argtypes = [i, i, i, i]  # variant, block_k, Hp, Wp
+    lib.m2de_roi_stage2_smem_bytes.restype = i
     lib.m2de_cuda_error_string.argtypes = [i]
     lib.m2de_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -67,21 +67,18 @@ def _fold_interp_weights(coords, sizes, max_size: int,
     return 0.5 * (w2[:, 0::2] + w2[:, 1::2])
 
 
-def _separable_inputs(features: Sequence[torch.Tensor], boxes, output_size: int,
-                      min_level: int):
-    '''The H-stacked, W-padded pyramid (B, sum_l H_l, Wmax, C) f32 and the
-    folded weights Wy (B, K, out, sum_l H_l), Wx (B, K, out, Wmax) f32.'''
+def _separable_weights(heights: Sequence[int], widths: Sequence[int], boxes,
+                       output_size: int, min_level: int, h_size: Optional[int] = None,
+                       w_size: Optional[int] = None):
+    '''The folded weights Wy (B, K, out, h_size) over the H-stacked levels
+    (taps offset into the ROI's level band) and Wx (B, K, out, w_size), f32.
+    ``h_size`` and ``w_size`` default to sum_l H_l and max_l W_l; larger
+    sizes add zero columns.'''
     b, k = boxes.shape[:2]
-    n_levels = len(features)
-    heights = [f.shape[1] for f in features]
-    widths = [f.shape[2] for f in features]
-    wmax = max(widths)
-    h_total = sum(heights)
+    n_levels = len(heights)
+    h_size = h_size or sum(heights)
+    w_size = w_size or max(widths)
     dev = boxes.device
-
-    f_stack = torch.cat([F.pad(f.float(), (0, 0, 0, wmax - f.shape[2]))
-                         for f in features], dim=1)
-
     flat_boxes = boxes.reshape(b * k, 4).float()
     levels = assign_fpn_levels(flat_boxes, min_level=min_level,
                                max_level=min_level + n_levels - 1)
@@ -90,15 +87,33 @@ def _separable_inputs(features: Sequence[torch.Tensor], boxes, output_size: int,
                                 dtype=torch.float32, device=dev)
     ys, xs = _roi_sample_coords(flat_boxes, output_size, stride_table[level_idx])
 
-    h_arr = torch.tensor(heights, dtype=torch.int64, device=dev)
-    w_arr = torch.tensor(widths, dtype=torch.int64, device=dev)
+    h_arr = torch.tensor(list(heights), dtype=torch.int64, device=dev)
+    w_arr = torch.tensor(list(widths), dtype=torch.int64, device=dev)
     h_off = torch.cumsum(h_arr, 0) - h_arr
-    wy = _fold_interp_weights(ys, h_arr[level_idx], h_total,
+    wy = _fold_interp_weights(ys, h_arr[level_idx], h_size,
                               offsets=h_off[level_idx])
-    wx = _fold_interp_weights(xs, w_arr[level_idx], wmax)
-    return (f_stack,
-            wy.reshape(b, k, output_size, h_total),
-            wx.reshape(b, k, output_size, wmax))
+    wx = _fold_interp_weights(xs, w_arr[level_idx], w_size)
+    return (wy.reshape(b, k, output_size, h_size),
+            wx.reshape(b, k, output_size, w_size))
+
+
+def _separable_inputs(features: Sequence[torch.Tensor], boxes, output_size: int,
+                      min_level: int, as_dtype: Optional[torch.dtype] = None):
+    '''The H-stacked, W-padded pyramid (B, sum_l H_l, Wmax, C) and the
+    folded weights Wy (B, K, out, sum_l H_l), Wx (B, K, out, Wmax).
+
+    All three are f32 by default. With ``as_dtype`` the pyramid stays in
+    that dtype and the weights are computed in f32 and rounded to it, as the
+    JAX package's ``_separable_inputs`` returns them in the feature dtype.'''
+    heights = [f.shape[1] for f in features]
+    widths = [f.shape[2] for f in features]
+    wmax = max(widths)
+    f_stack = torch.cat([F.pad(f.to(as_dtype or torch.float32), (0, 0, 0, wmax - f.shape[2]))
+                         for f in features], dim=1)
+    wy, wx = _separable_weights(heights, widths, boxes, output_size, min_level)
+    if as_dtype is not None:
+        wy, wx = wy.to(as_dtype), wx.to(as_dtype)
+    return f_stack, wy, wx
 
 
 def separable_batched_roi_align(features: Sequence[torch.Tensor], boxes,

@@ -7,7 +7,9 @@ imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
 Tolerances: ROIAlign kernel vs its plain version, 2 bf16 ulps (both
 compute in f32 and round to bf16 once; sums run in another order); the
-clean kernel is bit-exact.
+clean kernel is bit-exact; the stage-2 kernels vs their plain version, 2
+bf16 ulps (the same bf16 products summed in f32 in another order, so an
+element of T may round to the other bf16 neighbour).
 '''
 import numpy as np
 import pytest
@@ -17,7 +19,7 @@ from moseq2_detectron_extract_tpu_torch.extract import process_chunk
 from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
 from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
-from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel, roi_stage2_kernel
 from moseq2_detectron_extract_tpu_torch.ops.roi_align import separable_batched_roi_align
 from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk
 
@@ -164,3 +166,67 @@ def test_cuda_process_chunk_matches_cpu(cuda_device):
     np.testing.assert_array_equal(gpu['win_origins'], cpu['win_origins'])
     assert torch.equal(gpu['feat_dispatch']['cleaned_frames'].cpu(),
                        cpu['feat_dispatch']['cleaned_frames'])
+
+
+STAGE2_RUNS = [('retile', torch.float32), ('transpose', torch.float32),
+               ('dotswap', torch.float32), ('noxpose', torch.float32),
+               ('noxpose', torch.bfloat16)]
+
+
+@pytest.mark.parametrize('variant,dtype', STAGE2_RUNS,
+                         ids=[f'{v}-{str(d)[6:]}' for v, d in STAGE2_RUNS])
+@pytest.mark.parametrize('b,k,c,canvas,block_k', [
+    (16, 16, 256, 160, 8),      # the main path's box stage: sum H 75, Wmax 40 -> 80, 48
+    (16, 16, 256, 160, 16),
+    (2, 13, 32, 160, 8),        # K not a multiple of block_k
+    (2, 21, 32, 256, 16),       # and at the experiment's canvas: 120, 64
+    (3, 9, 16, 96, 8),          # sum H 45, Wmax 24 -> 48, 32
+])
+def test_cuda_roi_stage2_matches_plain(cuda_device, variant, dtype, b, k, c, canvas, block_k):
+    feats, boxes = random_pyramid(b, k, c, canvas=canvas, seed=b + k + c + canvas)
+    levels = [torch.from_numpy(f).to(cuda_device, torch.bfloat16) for f in feats]
+    bx = torch.from_numpy(boxes).to(cuda_device)
+    before = roi_stage2_kernel.launch_count[variant]
+    ours = roi_stage2_kernel.roi_stage2(levels, bx, 7, variant, block_k, dtype)
+    assert roi_stage2_kernel.launch_count[variant] == before + 1
+    plain = roi_stage2_kernel.roi_stage2_plain(levels, bx, 7, variant, block_k, dtype)
+    torch.cuda.synchronize()
+    assert ours.dtype == dtype and ours.shape == plain.shape
+    torch.testing.assert_close(ours.float(), plain.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_cuda_roi_stage2_refuses_what_it_does_not_take(cuda_device):
+    feats, boxes = random_pyramid(2, 8, 32, seed=7)
+    levels = [torch.from_numpy(f).to(cuda_device, torch.bfloat16) for f in feats]
+    bx = torch.from_numpy(boxes).to(cuda_device)
+    rs = roi_stage2_kernel
+    with pytest.raises(ValueError, match='output_size'):
+        rs.roi_stage2(levels, bx, 14, 'dotswap')
+    with pytest.raises(ValueError, match='block_k'):
+        rs.roi_stage2(levels, bx, 7, 'dotswap', block_k=4)
+    with pytest.raises(ValueError, match='variant'):
+        rs.roi_stage2(levels, bx, 7, 'blockdiag')
+    with pytest.raises(ValueError, match='channels'):
+        rs.roi_stage2([f[..., :24] for f in levels], bx, 7, 'dotswap')
+    f_stack, wy, wx = rs.stage2_inputs(levels, bx, 7, 8)
+    with pytest.raises(ValueError, match='out_dtype'):
+        rs.roi_stage2_cuda(f_stack, wy, wx, 8, 'dotswap', 8, torch.float16)
+    with pytest.raises(ValueError, match='wy'):
+        rs.roi_stage2_cuda(f_stack, wy.float(), wx, 8, 'dotswap', 8)
+    with pytest.raises(ValueError, match='wx'):
+        rs.roi_stage2_cuda(f_stack, wy, wx.transpose(2, 3).contiguous().transpose(2, 3), 8,
+                           'dotswap', 8)
+    big = [torch.zeros((1, 1024 // s, 1024 // s, 16), dtype=torch.bfloat16, device=cuda_device)
+           for s in (4, 8, 16, 32)]
+    with pytest.raises(ValueError, match='shared memory'):
+        rs.roi_stage2(big, bx[:1], 7, 'transpose', block_k=16)
+
+
+def test_cuda_roi_stage2_shared_memory_formula_agrees(cuda_device):
+    from moseq2_detectron_extract_tpu_torch import native
+    lib = native.load_library()
+    for i, variant in enumerate(roi_stage2_kernel.VARIANTS):
+        for bk in (8, 16):
+            for h, w in ((75, 40), (120, 64), (45, 24)):
+                plan = roi_stage2_kernel.launch_plan(variant, 4, 16, 256, h, w, bk)
+                assert lib.m2de_roi_stage2_smem_bytes(i, bk, plan.hp, plan.wp) == plan.smem_bytes

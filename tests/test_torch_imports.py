@@ -1,5 +1,6 @@
 '''The port imports neither JAX nor cv2/h5py/yaml/click nor the JAX package,
-and runs ``process_chunk`` on the CPU with all of them blocked.'''
+and runs ``process_chunk`` and the stage-2 experiment's check on the CPU
+with all of them blocked.'''
 import ast
 import os
 import subprocess
@@ -51,6 +52,9 @@ out = process_chunk(make_sentinel_chunk(3, 96, 128, seed=0), pred,
                     {'min_height': 0, 'max_height': 100, 'feature_window': 64})
 assert out['feat_dispatch']['cleaned_frames'].shape == (3, 64, 64)
 assert out['inference']['masks'].shape == (3, 1, 96, 128)
+from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp
+errors = roi_stage2_exp.main(device='cpu', check_shape=(1, 8, 16, 64))['errors']
+assert len(errors) == 5 and max(errors.values()) < 0.05, errors
 leaked = sorted(n for n in sys.modules if n.split('.')[0] in BLOCKED)
 assert not leaked, leaked
 print('OK')
