@@ -11,6 +11,12 @@ unchanged checkout builds once. The build happens at the first kernel call,
 never at import.
 
 A failed build raises with nvcc's stderr; there is no fallback.
+
+Every ``nvcc`` gets its own copy of the environment (``env=``). Without it
+the child reads the C ``environ`` array while it starts, and a thread that
+sets a variable meanwhile (``import torch`` does, and ``chip_smoke.py``
+builds in a thread beside that import) can free the array under it: the
+start then fails with ``OSError: [Errno 14] Bad address``.
 '''
 import ctypes
 import functools
@@ -80,6 +86,7 @@ def build_library() -> str:
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     work = tempfile.mkdtemp(dir=out_dir, prefix='tmp-')
+    env = dict(os.environ)
     try:
         procs = []
         objs: List[str] = []
@@ -88,7 +95,7 @@ def build_library() -> str:
             objs.append(obj)
             cmd = [nvcc, *NVCC_FLAGS, *flags, '-c', os.path.join(CSRC_DIR, src), '-o', obj]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.PIPE, text=True)))
+                                                stderr=subprocess.PIPE, text=True, env=env)))
         log = []
         failed = []
         for cmd, proc in procs:
@@ -100,7 +107,7 @@ def build_library() -> str:
             raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
         tmp_lib = os.path.join(work, LIB_NAME)
         cmd = [nvcc, *NVCC_FLAGS, '-shared', *objs, '-o', tmp_lib]
-        result = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        result = subprocess.run(cmd, capture_output=True, text=True, check=False, env=env)
         log.append(' '.join(cmd) + '\n' + result.stdout + result.stderr)
         if result.returncode != 0:
             raise RuntimeError(f'nvcc link failed:\n{" ".join(cmd)}\n{result.stderr}')
