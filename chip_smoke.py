@@ -32,8 +32,11 @@ Phases, each printed with its elapsed seconds as it starts:
    noxpose with a bf16 output, against its plain version at the main path's
    box shape (B 16, K 16, canvas 160) and at the experiment's shape on its
    first 4 images (the plain version's f32 T at 64 would take 7.5 GB), to 2
-   bf16 ulps, with its device time at the box shape beside its bound (the
-   same yardstick as ROIAlign's, the output counted in its own dtype), the
+   bf16 ulps, with each kernel's launch plan (its design: the resident loop
+   of retile and noxpose, the streaming loop of transpose and dotswap; its
+   channels per block), noxpose beside dotswap and retile beside transpose
+   (the same functions on the old loop), its device time at the box shape
+   beside its bound (the same yardstick as ROIAlign's, the output counted in its own dtype), the
    dense form's tensor-core time (its multiply-adds x 2 over 989e12/s), the
    two-call form's time, and the mma each kernel issued
    (``roi_stage2_kernel.mma_count``) over its time, at both shapes;
@@ -372,8 +375,12 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         b_ms, by = bound_ms(*roi_bound(box_levels, box_boxes, 7, out_bytes))
         b64_ms, by64 = bound_ms(*roi_bound(levels64, boxes64, 7, out_bytes))
         plan = rs.launch_plan(variant, 16, 16, 256, 75, 40, bk)
-        phase(f'roi_stage2 {label} plan (box, block_k {bk}): {plan.blocks} blocks of '
-              f'{rs.THREADS} threads, {plan.passes} pass(es), {plan.smem_bytes} B shared memory')
+        plan64 = rs.launch_plan(variant, 64, 256, 256, 120, 64, bk)
+        for name, p in (('box', plan), ('experiment', plan64)):
+            phase(f'roi_stage2 {label} plan ({name}, block_k {bk}): {p.design} loop, '
+                  f'{p.blocks} blocks of {rs.THREADS} threads, {p.cs} channels and '
+                  f'{p.roi_blocks} ROI block(s) a block, {p.passes} pass(es), '
+                  f'{p.smem_bytes} B shared memory')
         phase(f'roi_stage2 {label}: max_abs_err box {errs["box"]:.3e}, experiment B=4 '
               f'{errs["experiment B=4"]:.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); box device ms: '
               f'kernel {ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by}; experiment '
@@ -388,9 +395,18 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         phase(f'roi_stage2 {label}: mma.m16n8k16 issued (stage 1 + stage 2) and the rate: '
               + '; '.join(rates) + f' (dense bf16 peak 989) [{card}]')
         rows[label] = {'max_abs_err': max(errs.values()), 'ms': ms, 'plain_ms': plain_ms,
-                       'bound_ms': b_ms, 'bound_by': by,
+                       'bound_ms': b_ms, 'bound_by': by, 'design': plan.design,
+                       'cs': plan.cs, 'experiment_cs': plan64.cs,
                        'experiment_ms': {str(k): exp_ms[(label, k)] for k in exp.BLOCK_KS},
                        'experiment_bound_ms': b64_ms}
+    # each redesigned kernel beside the streaming-loop kernel of the same function
+    for new, control in (('noxpose', 'dotswap'), ('noxpose-bf16', 'dotswap'),
+                         ('retile', 'transpose')):
+        a, c = rows[new], rows[control]
+        phase(f'roi_stage2 {new} ({a["design"]}) vs {control} ({c["design"]}), ms: box '
+              f'{a["ms"]:.4f} vs {c["ms"]:.4f}; experiment block_k 8 '
+              f'{a["experiment_ms"]["8"]:.4f} vs {c["experiment_ms"]["8"]:.4f}, block_k 16 '
+              f'{a["experiment_ms"]["16"]:.4f} vs {c["experiment_ms"]["16"]:.4f} [{card}]')
     return launches, rows
 
 
@@ -656,8 +672,10 @@ def main() -> int:
     replaces = {'retile': 59, 'transpose': 92, 'dotswap': 114, 'noxpose': 133}
     for variant, line in replaces.items():
         row = stage2[variant]
+        source = 'roi_stage2_resident.cu' if row['design'] == 'resident' else 'roi_stage2.cu'
         kernels.append({'name': f'roi_stage2_{variant}', 'route': 'cuda',
-                        'source': f'{PKG}/csrc/roi_stage2.cu',
+                        'source': f'{PKG}/csrc/{source}', 'design': row['design'],
+                        'cs': row['cs'], 'experiment_cs': row['experiment_cs'],
                         'replaces': f'benchmarks/roi_stage2_exp.py:{line}',
                         'launches': stage2_launches[variant],
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],

@@ -1,12 +1,14 @@
 // The four stage-2 layouts of the fused separable ROIAlign, on Hopper's tensor
-// cores (sm_90a, mma.sync.m16n8k16 bf16 with f32 accumulators).
+// cores (sm_90a, mma.sync.m16n8k16 bf16 with f32 accumulators): the streaming
+// loop that ported them first. transpose and dotswap launch it; retile and
+// noxpose launch roi_stage2_resident.cu's loop, which keeps the image's F
+// slice in shared memory (the retile and noxpose paths of the template below
+// are no longer instantiated).
 //
 // Replaces the Pallas TPU kernel bodies of benchmarks/roi_stage2_exp.py,
 // launched by its make_variant:
-//   m2de_roi_stage2_retile     <- _kernel_retile_peroy (l.59)
 //   m2de_roi_stage2_transpose  <- _kernel_transpose    (l.92)
 //   m2de_roi_stage2_dotswap    <- _kernel_dotswap      (l.114)
-//   m2de_roi_stage2_noxpose    <- _kernel_noxpose      (l.133)
 //
 // Function. All four compute the fused separable multilevel ROIAlign
 //   T[i, oy, w, c]  = bf16( sum_h Wy[i, oy, h] * F[h, w, c] )        (stage 1)
@@ -470,23 +472,21 @@ int launch(const void* f, const void* wy, const void* wx, void* out, int B, int 
     return launch<variant>(f, wy, wx, out, B, K, Kp, C, hp, wp, block_k, out_bf16, stream); \
   }
 
-// native.py compiles this source once per entry, with -DM2DE_STAGE2_VARIANT=0..3
-// (one nvcc each, in parallel); without the macro one object holds all four.
-#if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 0
-M2DE_STAGE2_ENTRY(m2de_roi_stage2_retile, kRetile)
+// native.py compiles this source once per entry, with -DM2DE_STAGE2_VARIANT=1
+// or 2 (one nvcc each, in parallel); without the macro one object holds both.
+#if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 1
+M2DE_STAGE2_ENTRY(m2de_roi_stage2_transpose, kTranspose)
+
+extern "C" int m2de_roi_stage2_resident_smem_bytes(int hp, int wp);
 
 // Shared-memory bytes of one block (variant: 0 retile, 1 transpose, 2
-// dotswap, 3 noxpose), as ops/roi_stage2_kernel.py:launch_plan computes them.
+// dotswap, 3 noxpose), as ops/roi_stage2_kernel.py:launch_plan computes them;
+// retile and noxpose from roi_stage2_resident.cu.
 extern "C" int m2de_roi_stage2_smem_bytes(int variant, int block_k, int hp, int wp) {
+  if (variant == kRetile || variant == kNoxpose) return m2de_roi_stage2_resident_smem_bytes(hp, wp);
   return smem_bytes(variant, block_k, hp, wp);
 }
 #endif
-#if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 1
-M2DE_STAGE2_ENTRY(m2de_roi_stage2_transpose, kTranspose)
-#endif
 #if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 2
 M2DE_STAGE2_ENTRY(m2de_roi_stage2_dotswap, kDotswap)
-#endif
-#if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 3
-M2DE_STAGE2_ENTRY(m2de_roi_stage2_noxpose, kNoxpose)
 #endif

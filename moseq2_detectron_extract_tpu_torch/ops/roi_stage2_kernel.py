@@ -1,6 +1,9 @@
 '''The ROIAlign stage-2 experiment's four layouts: the tensor-core CUDA
-kernels (``csrc/roi_stage2.cu``), their plain version, launch plan and
-dispatching entry.
+kernels, their plain version, launch plan and dispatching entry. retile and
+noxpose run the loop that keeps one image's pyramid channel slice in shared
+memory (``csrc/roi_stage2_resident.cu``, design ``'resident'``); transpose
+and dotswap the loop that streams F tiles (``csrc/roi_stage2.cu``, design
+``'pr6'``).
 
 Replaces the Pallas TPU kernel bodies of ``benchmarks/roi_stage2_exp.py``
 (``_kernel_retile_peroy``, ``_kernel_transpose``, ``_kernel_dotswap``,
@@ -28,10 +31,14 @@ VARIANTS = ('retile', 'transpose', 'dotswap', 'noxpose')
 BLOCK_KS = (8, 16)
 OUTPUT_SIZE = 7           # the kernels' output size
 MMA_DEPTH = 16            # ΣH and Wmax are padded to this (mma.m16n8k16)
-CHANNELS_PER_BLOCK = 16
-THREADS = 256
-F_STAGES = 3              # cp.async ring of (16 h, 16 w, 16 c) F tiles
+THREADS = 256             # 8 warps a block, in both designs
 MAX_SMEM_BYTES = 232448   # shared memory one block may use on an H100
+RESIDENT = ('retile', 'noxpose')   # the variants on the F-resident loop
+GROUP = 8                 # ROIs the resident loop walks at a time, whatever block_k is
+UNIT_CHANNELS = 8         # channels of one resident F plane and T column
+_STREAM_CHANNELS = 16     # channels per block of the streaming loop
+_STREAM_F_STAGES = 3      # its cp.async ring of (16 h, 16 w, 16 c) F tiles
+_T_BYTES = 4 * 2 * 16 * 16 * UNIT_CHANNELS * 2   # resident: 4 pairs' two T buffers
 
 # launches of each variant's CUDA kernel since the counts were last set to 0
 launch_count = dict.fromkeys(VARIANTS, 0)
@@ -39,19 +46,40 @@ launch_count = dict.fromkeys(VARIANTS, 0)
 
 class Stage2Plan(NamedTuple):
     '''How a kernel splits the work: one block of THREADS threads per
-    (image, block of ``block_k`` ROIs, slice of 16 channels).'''
-    grid: Tuple[int, int, int]   # (channel slices, ROI blocks, images)
+    (image, slice of ``cs`` channels), walking all the image's ROIs in
+    groups of 8 with the F slice resident (design ``'resident'``), or per
+    (image, block of ``block_k`` ROIs, slice of 16 channels) streaming F
+    tiles (``'pr6'``).'''
+    design: str                  # 'resident' or 'pr6'
+    grid: Tuple[int, int, int]   # (channel slices, ROI blocks, images); resident: 1 ROI block
     blocks: int
+    cs: int                      # channels per block
+    f_stages: int                # F copies in flight: the 3-tile ring, or the slice once (1)
+    roi_blocks: int              # ROI blocks one block walks: Kp / 8 (resident) or 1
     kp: int                      # ROIs padded to a multiple of block_k
     hp: int                      # ΣH padded to the mma depth
     wp: int                      # Wmax padded to the mma depth
-    m_pad: int                   # rows (i, oy) of a ROI block, padded to 16
-    passes: int                  # 7 for retile (one per oy), else 1
+    m_pad: int                   # stage-1 rows (i, oy) of a ROI block, padded to 16
+    passes: int                  # stage-1 passes per block (7 for a per-oy loop)
     smem_bytes: int
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def resident_smem_bytes(cs: int, hp: int, wp: int) -> int:
+    '''Shared memory of a resident block: the range header, the F slice as
+    cs / 8 planes of (h, w, 8 channels) with h rows padded by 8 elements, two
+    buffers each of Wy and Wx (8 ROIs x 8 rows, padded by 8 elements) and the
+    four warp pairs' two T buffers (16 rows x 16 w x 8 channels).'''
+    return 32 + 2 * (cs // UNIT_CHANNELS * hp * (wp * UNIT_CHANNELS + 8)
+                     + 2 * GROUP * 8 * (hp + 8) + 2 * GROUP * 8 * (wp + 8)) + _T_BYTES
+
+
+def resident_cs(hp: int, wp: int) -> int:
+    '''Channels per resident block: 16 where everything fits, else 8.'''
+    return 16 if resident_smem_bytes(16, hp, wp) <= MAX_SMEM_BYTES else UNIT_CHANNELS
 
 
 def padded_sizes(rois: int, h_total: int, wmax: int, block_k: int) -> Tuple[int, int, int]:
@@ -67,29 +95,39 @@ def launch_plan(variant: str, batch: int, rois: int, channels: int, h_total: int
                 wmax: int, block_k: int) -> Stage2Plan:
     '''The plan of one launch; raises ValueError for what the kernels do not
     take. The shared-memory bytes are the C entry's
-    ``m2de_roi_stage2_smem_bytes``: Wy and Wx of the ROI block (rows padded
-    by 8 elements), the F ring and the T tile (16 w rows of 16 + 8
-    channels for each row of the block; 16 rows for retile's one oy).'''
+    ``m2de_roi_stage2_smem_bytes``: for the resident loop
+    :func:`resident_smem_bytes`; for the streaming loop Wy and Wx of the ROI
+    block (rows padded by 8 elements), the F ring and the T tile (16 w rows
+    of 16 + 8 channels for each row of the block).'''
     if variant not in VARIANTS:
         raise ValueError(f'variant must be one of {VARIANTS}, got {variant!r}')
     kp, hp, wp = padded_sizes(rois, h_total, wmax, block_k)
-    if channels < CHANNELS_PER_BLOCK or channels % CHANNELS_PER_BLOCK:
-        raise ValueError(f'channels must be a positive multiple of {CHANNELS_PER_BLOCK}, '
+    if channels < _STREAM_CHANNELS or channels % _STREAM_CHANNELS:
+        raise ValueError(f'channels must be a positive multiple of {_STREAM_CHANNELS}, '
                          f'got {channels}')
     if batch > 65535:
         raise ValueError(f'at most 65535 images, got {batch}')
-    m_pad = _round_up(block_k * OUTPUT_SIZE, 16)
-    t_rows = 16 if variant == 'retile' else m_pad
-    smem = 16 + 2 * (m_pad * (hp + 8) + block_k * 8 * (wp + 8)
-                     + F_STAGES * 16 * (16 * CHANNELS_PER_BLOCK + 8)
-                     + t_rows * 16 * (CHANNELS_PER_BLOCK + 8))
+    if variant in RESIDENT:
+        cs = resident_cs(hp, wp)
+        smem = resident_smem_bytes(cs, hp, wp)
+        what = f'an {cs}-channel slice of'
+        grid = (channels // cs, 1, batch)
+        plan = ('resident', grid, grid[0] * grid[2], cs, 1, kp // GROUP, kp, hp, wp,
+                GROUP * 8, 1, smem)
+    else:
+        m_pad = _round_up(block_k * OUTPUT_SIZE, 16)
+        smem = 16 + 2 * (m_pad * (hp + 8) + block_k * 8 * (wp + 8)
+                         + _STREAM_F_STAGES * 16 * (16 * _STREAM_CHANNELS + 8)
+                         + m_pad * 16 * (_STREAM_CHANNELS + 8))
+        what = f'at block_k {block_k},'
+        grid = (channels // _STREAM_CHANNELS, kp // block_k, batch)
+        plan = ('pr6', grid, grid[0] * grid[1] * grid[2], _STREAM_CHANNELS,
+                _STREAM_F_STAGES, 1, kp, hp, wp, m_pad, 1, smem)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f'a pyramid of {h_total} stacked rows and {wmax} columns needs '
-                         f'{smem} B of shared memory per block at block_k {block_k}; '
-                         f'the card has {MAX_SMEM_BYTES}')
-    grid = (channels // CHANNELS_PER_BLOCK, kp // block_k, batch)
-    return Stage2Plan(grid, grid[0] * grid[1] * grid[2], kp, hp, wp, m_pad,
-                      OUTPUT_SIZE if variant == 'retile' else 1, smem)
+        raise ValueError(f'{what} a pyramid of {h_total} stacked rows and {wmax} columns '
+                         f'needs {smem} B of shared memory per block; the card has '
+                         f'{MAX_SMEM_BYTES}')
+    return Stage2Plan(*plan)
 
 
 def _check_call(variant: str, output_size: int, out_dtype: torch.dtype) -> None:
@@ -121,22 +159,31 @@ def mma_count(variant: str, wy: torch.Tensor, wx: torch.Tensor, block_k: int,
               channels: int):
     '''(stage 1, stage 2) mma.m16n8k16 a launch on these weights issues (2048
     multiply-adds each), counted from :func:`tile_counts` as the kernel walks
-    its tiles: stage 1, for each (h tile, w tile) of a pass, (rows of the
-    pass / 16) x 32 n8 tiles; stage 2, for each w tile, one per (ROI, oy)
-    for dotswap and noxpose, and for the block-diagonal forms one per (row
-    tile, ROI it holds, column tile).'''
+    its tiles.
+
+    Resident (retile, noxpose): per group of 8 ROIs and 8 channels, stage 1
+    issues 4 row tiles x 16 n8 tiles for each (w tile, h tile); stage 2, for
+    each w tile, 4 per ROI for noxpose (its oy pairs) and 2 per (ROI pair, oy)
+    for retile's block-diagonal product, 32 and 56. block_k does not enter.
+
+    Streaming (transpose, dotswap): per ROI block and 16 channels, stage 1
+    issues (rows / 16) x 32 n8 tiles for each (h tile, w tile); stage 2, for
+    each w tile, one per (ROI, oy) for dotswap and, for transpose, one per
+    (row tile, ROI it holds, column tile).'''
+    if variant in RESIDENT:
+        n_ht, n_wt = tile_counts(wy, wx, GROUP)
+        steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
+        units = channels // UNIT_CHANNELS
+        stage2 = 32 if variant == 'noxpose' else 4 * OUTPUT_SIZE * 2
+        return steps * 4 * 16 * units, w_tiles * stage2 * units
     n_ht, n_wt = tile_counts(wy, wx, block_k)
     steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
     rows = block_k * OUTPUT_SIZE
     roi_tiles = sum((min(m + 15, rows - 1) // OUTPUT_SIZE) - m // OUTPUT_SIZE + 1
                     for m in range(0, rows, 16))
-    slices = channels // CHANNELS_PER_BLOCK
-    if variant == 'retile':
-        stage1 = OUTPUT_SIZE * steps * 32
-        stage2 = OUTPUT_SIZE * w_tiles * roi_tiles * 2
-    else:
-        stage1 = steps * (_round_up(rows, 16) // 16) * 32
-        stage2 = w_tiles * (roi_tiles * 2 * OUTPUT_SIZE if variant == 'transpose' else rows)
+    slices = channels // _STREAM_CHANNELS
+    stage1 = steps * (_round_up(rows, 16) // 16) * 32
+    stage2 = w_tiles * (roi_tiles * 2 * OUTPUT_SIZE if variant == 'transpose' else rows)
     return stage1 * slices, stage2 * slices
 
 

@@ -179,8 +179,11 @@ STAGE2_RUNS = [('retile', torch.float32), ('transpose', torch.float32),
     (16, 16, 256, 160, 8),      # the main path's box stage: sum H 75, Wmax 40 -> 80, 48
     (16, 16, 256, 160, 16),
     (2, 13, 32, 160, 8),        # K not a multiple of block_k
-    (2, 21, 32, 256, 16),       # and at the experiment's canvas: 120, 64
-    (3, 9, 16, 96, 8),          # sum H 45, Wmax 24 -> 48, 32
+    (2, 21, 32, 256, 16),       # and at the experiment's canvas: 120, 64 (cs 8)
+    (2, 21, 32, 256, 8),
+    (3, 9, 16, 96, 8),          # sum H 45, Wmax 24 -> 48, 32; C 16: one slice of 16
+    (2, 11, 48, 160, 16),       # C 48: three slices of 16
+    (2, 11, 48, 256, 8),        # C 48 at cs 8: six slices
 ])
 def test_cuda_roi_stage2_matches_plain(cuda_device, variant, dtype, b, k, c, canvas, block_k):
     feats, boxes = random_pyramid(b, k, c, canvas=canvas, seed=b + k + c + canvas)
@@ -230,3 +233,33 @@ def test_cuda_roi_stage2_shared_memory_formula_agrees(cuda_device):
             for h, w in ((75, 40), (120, 64), (45, 24)):
                 plan = roi_stage2_kernel.launch_plan(variant, 4, 16, 256, h, w, bk)
                 assert lib.m2de_roi_stage2_smem_bytes(i, bk, plan.hp, plan.wp) == plan.smem_bytes
+                if plan.design == 'resident':
+                    assert lib.m2de_roi_stage2_resident_cs(plan.hp, plan.wp) == plan.cs
+
+
+def plain_from_inputs(f_stack, wy, wx, rois, variant, dtype):
+    '''The plain version's arithmetic on the kernels' own inputs.'''
+    t = torch.einsum('bkyh,bhwc->bkywc', wy.float(), f_stack.float()).to(torch.bfloat16)
+    out = torch.einsum('bkxw,bkywc->bkyxc', wx.float(), t.float())[:, :rois]
+    if variant == 'noxpose':
+        out = out.transpose(3, 4)
+    return out.to(dtype)
+
+
+@pytest.mark.parametrize('variant,dtype', STAGE2_RUNS,
+                         ids=[f'{v}-{str(d)[6:]}' for v, d in STAGE2_RUNS])
+@pytest.mark.parametrize('canvas', [160, 256])
+def test_cuda_roi_stage2_image_of_zero_weights(cuda_device, variant, dtype, canvas):
+    '''An image whose ROIs all weigh nothing walks no tile and writes zeros;
+    the other image is unchanged by it.'''
+    feats, boxes = random_pyramid(2, 13, 32, canvas=canvas, seed=canvas)
+    levels = [torch.from_numpy(f).to(cuda_device, torch.bfloat16) for f in feats]
+    bx = torch.from_numpy(boxes).to(cuda_device)
+    f_stack, wy, wx = roi_stage2_kernel.stage2_inputs(levels, bx, 7, 8)
+    wy[1] = 0
+    wx[1] = 0
+    ours = roi_stage2_kernel.roi_stage2_cuda(f_stack, wy, wx, 13, variant, 8, dtype)
+    plain = plain_from_inputs(f_stack, wy, wx, 13, variant, dtype)
+    torch.cuda.synchronize()
+    assert not ours[1].any()
+    torch.testing.assert_close(ours.float(), plain.float(), rtol=BF16_TOL, atol=BF16_TOL)

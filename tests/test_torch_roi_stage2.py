@@ -17,6 +17,7 @@ bf16 are bit-exact.
 '''
 import importlib.util
 import os
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -125,25 +126,55 @@ def test_separable_inputs_bf16_bit_exact_vs_jax(canvas, k, seed):
         np.testing.assert_array_equal(ours.float().numpy(), np.asarray(ref.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize('variant,b,k,c,h,w,bk,grid,kp,hp,wp,m_pad,passes,smem', [
-    # the main path's box shape
-    ('dotswap', 16, 16, 256, 75, 40, 8, (16, 2, 16), 16, 80, 48, 64, 1, 92944),
-    ('retile', 16, 16, 256, 75, 40, 8, (16, 2, 16), 16, 80, 48, 64, 7, 56080),
-    # the experiment's shape
-    ('transpose', 64, 256, 256, 120, 64, 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272),
-    ('noxpose', 64, 256, 256, 120, 64, 8, (16, 32, 64), 256, 128, 64, 64, 1, 101136),
+BOX = (16, 16, 256, 75, 40)           # the main path's box shape: b, k, c, sum H, Wmax
+EXP = (64, 256, 256, 120, 64)         # the experiment's shape
+
+
+@pytest.mark.parametrize('variant,shape,bk,design,cs,grid,kp,hp,wp,m_pad,passes,smem,walks', [
+    # the streaming loop (transpose, dotswap): one block per (16 channels, ROI block, image)
+    ('dotswap', BOX, 8, 'pr6', 16, (16, 2, 16), 16, 80, 48, 64, 1, 92944, 1),
+    ('transpose', EXP, 16, 'pr6', 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272, 1),
+    # the resident loop (retile, noxpose): one block per (cs channels, image),
+    # walking the image's ROIs in groups of 8 at either block_k
+    ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
+    ('retile', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
+    ('noxpose', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
+    ('noxpose', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
+    ('retile', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
+    ('retile', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
+    ('noxpose', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
+    ('noxpose', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
     # K not a multiple of block_k
-    ('noxpose', 2, 13, 32, 75, 40, 8, (2, 2, 2), 16, 80, 48, 64, 1, 92944),
-    ('retile', 1, 21, 16, 45, 24, 16, (1, 2, 1), 32, 48, 32, 112, 7, 60432),
+    ('noxpose', (2, 13, 32, 75, 40), 8, 'resident', 16, (2, 1, 2), 16, 80, 48, 64, 1, 195104, 2),
+    ('retile', (1, 21, 16, 45, 24), 16, 'resident', 16, (1, 1, 1), 32, 48, 32, 64, 1, 108064,
+     4),
 ])
-def test_launch_plan(variant, b, k, c, h, w, bk, grid, kp, hp, wp, m_pad, passes, smem):
+def test_launch_plan(variant, shape, bk, design, cs, grid, kp, hp, wp, m_pad, passes, smem,
+                     walks):
+    b, k, c, h, w = shape
     plan = rs.launch_plan(variant, b, k, c, h, w, bk)
-    assert (plan.grid, plan.kp, plan.hp, plan.wp, plan.m_pad, plan.passes,
-            plan.smem_bytes) == (grid, kp, hp, wp, m_pad, passes, smem)
+    assert (plan.design, plan.cs, plan.grid, plan.kp, plan.hp, plan.wp, plan.m_pad,
+            plan.passes, plan.smem_bytes, plan.roi_blocks) == \
+        (design, cs, grid, kp, hp, wp, m_pad, passes, smem, walks)
     assert plan.blocks == grid[0] * grid[1] * grid[2]
+    assert plan.f_stages == (1 if design == 'resident' else 3)
+    assert plan.grid[0] * plan.cs == c
     assert plan.hp % rs.MMA_DEPTH == 0 and plan.wp % rs.MMA_DEPTH == 0
     assert 0 <= plan.hp - h < 16 and 0 <= plan.wp - w < 16 and 0 <= plan.kp - k < bk
     assert plan.smem_bytes <= rs.MAX_SMEM_BYTES
+    if design == 'resident':
+        assert plan.smem_bytes == rs.resident_smem_bytes(plan.cs, hp, wp)
+        assert plan.cs == 8 or rs.resident_smem_bytes(16, hp, wp) <= rs.MAX_SMEM_BYTES
+        assert plan.cs == 16 or rs.resident_smem_bytes(16, hp, wp) > rs.MAX_SMEM_BYTES
+
+
+def test_resident_smem_at_the_experiments_shape():
+    '''At cs 8 the F slice is 128 x (64 x 8 + 8) x 2 B, the two Wy buffers 2 x
+    64 x 136 x 2, the two Wx buffers 2 x 64 x 72 x 2, the T buffers 32 KB.'''
+    assert rs.resident_smem_bytes(8, 128, 64) == \
+        32 + 128 * 520 * 2 + 2 * 64 * 136 * 2 + 2 * 64 * 72 * 2 + 32768 == 219168
+    assert rs.resident_smem_bytes(16, 128, 64) > rs.MAX_SMEM_BYTES
+    assert rs.resident_cs(128, 64) == 8 and rs.resident_cs(80, 48) == 16
 
 
 @pytest.mark.parametrize('args,match', [
@@ -151,6 +182,9 @@ def test_launch_plan(variant, b, k, c, h, w, bk, grid, kp, hp, wp, m_pad, passes
     (('dotswap', 1, 8, 256, 75, 40, 4), 'block_k'),
     (('dotswap', 1, 8, 24, 75, 40, 8), 'channels'),
     (('transpose', 1, 8, 256, 480, 256, 16), 'shared memory'),
+    # the 8-channel slice of a pyramid of 256 stacked rows does not fit
+    (('noxpose', 1, 8, 256, 256, 64, 8), '8-channel slice'),
+    (('retile', 1, 8, 256, 240, 64, 16), '8-channel slice'),
 ])
 def test_launch_plan_refuses(args, match):
     with pytest.raises(ValueError, match=match):
@@ -201,12 +235,89 @@ def test_tile_counts_and_mma_count(block_k):
                     for m in range(0, rows, 16))
     assert rs.mma_count('dotswap', wy, wx, block_k, 32) == \
         (2 * steps * m_tiles * 32, 2 * w_tiles * rows)
-    assert rs.mma_count('noxpose', wy, wx, block_k, 32) == \
-        rs.mma_count('dotswap', wy, wx, block_k, 32)
     assert rs.mma_count('transpose', wy, wx, block_k, 32) == \
         (2 * steps * m_tiles * 32, 2 * w_tiles * roi_tiles * 14)
+    # the resident loop walks groups of 8 ROIs whatever block_k is: per group
+    # and 8 channels, 4 x 16 stage-1 mma per (w tile, h tile); per w tile 32
+    # stage-2 mma for noxpose, 56 for retile's block-diagonal product
+    g_ht, g_wt = rs.tile_counts(wy, wx, 8)
+    g_steps, g_w_tiles = int((g_ht * g_wt).sum()), int(g_wt.sum())
+    assert rs.mma_count('noxpose', wy, wx, block_k, 32) == \
+        (4 * g_steps * 64, 4 * g_w_tiles * 32)
     assert rs.mma_count('retile', wy, wx, block_k, 32) == \
-        (2 * 7 * steps * 32, 2 * 7 * w_tiles * roi_tiles * 2)
+        (4 * g_steps * 64, 4 * g_w_tiles * 56)
+    if block_k == 8:                     # one pass over all rows: dotswap's stage 1
+        assert rs.mma_count('retile', wy, wx, 8, 32)[0] == \
+            rs.mma_count('dotswap', wy, wx, 8, 32)[0]
+
+
+def kernel_walk(variant, wy, wx, block_k, channels):
+    '''A mirror of a kernel's loops: for each block (channel slice, image),
+    the ROI blocks it walks (groups of 8 for the resident loop), each one's
+    nonzero h and w tile ranges, then per unit of channels (8 resident, 16
+    streaming) the w tiles and, inside, the h tiles. Returns the visits, a
+    Counter of (image, ROI, h tile, w tile, channel), and the (stage 1, stage
+    2) mma the loops issue.'''
+    b, kp, _, hp = wy.shape
+    wp = wx.shape[-1]
+    plan = rs.launch_plan(variant, b, kp, channels, hp, wp, block_k)
+    resident = plan.design == 'resident'
+    rois = rs.GROUP if resident else block_k
+    unit = rs.UNIT_CHANNELS if resident else plan.cs
+    rows = rois * 7
+    held = [len({r // 7 for r in range(m, min(m + 16, rows))}) for m in range(0, rows, 16)]
+    visits, stage1, stage2 = Counter(), 0, 0
+    for cslice in range(plan.grid[0]):
+        for img in range(b):
+            for blk in range(kp // rois):
+                sel = slice(blk * rois, (blk + 1) * rois)
+                h = torch.nonzero(wy[img, sel].reshape(-1, hp).any(0)).flatten()
+                w = torch.nonzero(wx[img, sel].reshape(-1, wp).any(0)).flatten()
+                if not len(h) or not len(w):
+                    continue
+                for u in range(plan.cs // unit):
+                    c0 = cslice * plan.cs + u * unit
+                    for wt in range(int(w.min()) // 16, int(w.max()) // 16 + 1):
+                        for _ in range(plan.passes):
+                            for ht in range(int(h.min()) // 16, int(h.max()) // 16 + 1):
+                                visits.update((img, roi, ht, wt, c)
+                                              for roi in range(blk * rois, (blk + 1) * rois)
+                                              for c in range(c0, c0 + unit))
+                                stage1 += 4 * 16 if resident else len(held) * 32
+                        if variant == 'noxpose':
+                            stage2 += 4 * 2 * 4             # 4 pairs x 2 ROIs x 4 oy pairs
+                        elif variant == 'retile':
+                            stage2 += 4 * 7 * 2             # 4 pairs x 7 oy x 2 k tiles
+                        elif variant == 'transpose':
+                            stage2 += sum(held) * 14
+                        else:
+                            stage2 += rows
+    return visits, (stage1, stage2)
+
+
+@pytest.mark.parametrize('variant', rs.VARIANTS)
+@pytest.mark.parametrize('block_k', [8, 16])
+def test_kernel_walk_covers_each_tile_once_and_counts_the_mma(variant, block_k):
+    '''The walk visits each (ROI, h tile, w tile, channel) at most once, and
+    every h and w tile where a ROI's own weights are nonzero, for every
+    channel; mma_count is the walk's count.'''
+    tf, tb = port_exp.make_inputs(2, 21, 48, 160, seed=11)
+    _, wy, wx = rs.stage2_inputs(tf, tb, 7, block_k)
+    wy[1, 2:16] = 0                      # a partly zero group, an all-zero one at block_k 8
+    wx[1, 2:16] = 0
+    visits, counts = kernel_walk(variant, wy, wx, block_k, 48)
+    assert max(visits.values()) == 1
+    for img in range(2):
+        for roi in range(21):
+            h = torch.nonzero(wy[img, roi].any(0)).flatten()
+            w = torch.nonzero(wx[img, roi].any(0)).flatten()
+            if not len(h) or not len(w):
+                assert img == 1 and 2 <= roi < 16
+                continue
+            for ht in {int(x) // 16 for x in h}:
+                for wt in {int(x) // 16 for x in w}:
+                    assert all((img, roi, ht, wt, c) in visits for c in range(48))
+    assert counts == rs.mma_count(variant, wy, wx, block_k, 48)
 
 
 def test_cpu_dispatch_runs_the_plain_version_without_launching():
