@@ -21,44 +21,47 @@
 // for every ROI block of the image, this loop loads F once per image: each
 // block holds one (image, slice of cs channels) and its F slice, (Hp, Wp,
 // cs) bf16, stays in shared memory while the block walks every ROI of the
-// image. What is left to bound it is shared memory's 128 bytes per clock:
-// a warp reads 5 ldmatrix.x4 (2,560 bytes) for every 8 stage-1 mma.
+// image. The slice takes most of the shared memory, so an SM holds one block
+// of 8 warps, 2 per scheduler; what bounds the loop is then latency inside
+// each warp (PERF.md, PR 8), and the design keeps each warp's chain short:
+// no block barrier after the F slice, loads issued a step ahead of the mma
+// that read them, and shared-memory loads batched.
 //
 // Design. One block of 8 warps per (channel slice, image); cs is 16 where the
 // slice, the weight buffers and the T tiles fit in 232,448 bytes, else 8
-// (the experiment's Hp 128 x Wp 64: 219,168 bytes at cs 8).
+// (the experiment's Hp 128 x Wp 64: 219,264 bytes at cs 8).
 // 1. The F slice is copied into shared memory once (cp.async, 16 bytes a
 //    thread), as cs / 8 planes of (h, w, 8 channels), each h row padded by
 //    16 bytes so ldmatrix reads no bank twice.
-// 2. The block walks the image's ROIs in groups of 8, whatever block_k is:
-//    block_k only sets the ROI padding (make_variant's), since F is
-//    resident and a 16-ROI block would not fit twice in the buffers. The
-//    next group's Wy and Wx are copied (cp.async) into a second buffer while
-//    the current one is computed. Their rows are (i, oy) and (i, ox) with oy
-//    and ox padded to 8 by a zero row, so the 56 rows of a group are 64, four
-//    m16 tiles of two ROIs each. Once a group's weights have landed the block
-//    finds the h and w ranges where any of them is nonzero; tiles of 16
-//    outside them are skipped (the result is the same), inside them stage 1
-//    is dense.
-// 3. Warps work in pairs: pair p owns ROIs 2p, 2p+1 (one m16 tile of rows
-//    (i, oy)), and in each w tile of 16 the pair's two warps own 8 w columns
-//    each, 8 channels per column: 8 n8 tiles. For each w tile a warp runs
-//    stage 1 over the group's h range reading only shared memory (Wy rows by
-//    ldmatrix, F by ldmatrix.trans), with no barrier and no copy to wait
-//    for. Its accumulators, rounded to bf16, go into the pair's T tile (16
-//    rows x 16 w x 8 channels, two buffers, 16-byte chunks XOR-swizzled by
-//    row); a 64-thread named barrier of the pair is the only handoff, and
-//    the two buffers let the next w tile's stage 1 start before the partner
-//    has read the last. With cs 16 the group is walked once per 8-channel
-//    half.
+// 2. Warps work in pairs, each pair on its own ROIs: pair p takes ROIs 2p,
+//    2p+1 of each group of 8, whatever block_k is (block_k only sets
+//    make_variant's ROI padding: F is resident, and a pair needs the weights
+//    of its two ROIs only). Each warp copies its ROI's 7 Wy and 7 Wx rows with
+//    bulk copies (the TMA unit) counted on an mbarrier, one group ahead, into
+//    the second of two buffers; rows are (i, oy) and (i, ox) with oy and ox
+//    padded to 8 by a zero row, so a pair's rows are one m16 tile. Both warps
+//    then find the h and w tiles of 16 where the pair's weights are nonzero;
+//    the tiles outside are skipped (the result is the same; a finer skip than
+//    the streaming loop's per ROI block), inside them stage 1 is dense. The
+//    pair meets at a 64-thread named barrier once a group and once a w tile;
+//    the block never meets again after the F slice has landed.
+// 3. In each w tile of 16 the pair's two warps own 8 w columns each, 8
+//    channels per column: 8 n8 tiles. Stage 1 runs over the (w tile, h tile)
+//    steps as one loop reading only shared memory (Wy rows by ldmatrix, F by
+//    ldmatrix.trans), its fragments loaded a step ahead, with no barrier and
+//    no copy to wait for. At the end of a w tile the accumulators, rounded to
+//    bf16, go into the pair's T tile (16 rows x 16 w x 8 channels, two
+//    buffers, 16-byte chunks XOR-swizzled by row), after stage 2 of the
+//    previous w tile, which reads the other buffer while these mma drain.
+//    With cs 16 a pair walks its ROIs once per 8-channel half.
 // 4. Stage 2, its accumulators in registers across the w tiles:
 //    - noxpose: each warp takes one ROI of its pair. A = T with rows (oy
 //      pair, 8 channels) and depth w (ldmatrix.trans; the pair (6, 7) has
 //      T's zero row oy 7 as its second half), B = Wx^T with N = ox (7 padded
 //      to 8): 4 mma per ROI and w tile. The epilogue stages each (i, oy)
-//      row of (8 channels x 7 ox) values in the pair's T area and writes it
-//      with 16-byte stores, contiguous in the output (224 bytes f32, 112
-//      bf16), where a direct store would write 4 bytes at a stride of 7.
+//      row of (8 channels x 7 ox) values in shared memory and writes it with
+//      one bulk store, contiguous in the output (224 bytes f32, 112 bf16),
+//      where a direct store would write 4 bytes at a stride of 7.
 //    - retile: the TPU body's block-diagonal per-oy product. For each oy, A
 //      = the block-diagonal Wx of the pair's two ROIs, rows (i, ox), depth
 //      (i', w); B = T at that oy, depth (i', w), N = 8 channels: 2 mma per
@@ -79,13 +82,13 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kOut = 7;                  // output size
-constexpr int kGroup = 8;                // ROIs walked at a time
+constexpr int kGroup = 8;                // ROIs the 4 warp pairs take at a time
 constexpr int kGRows = kGroup * 8;       // rows (i, oy) of a group, oy padded to 8
 constexpr int kCu = 8;                   // channels per T column and F plane
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTBuf = 16 * 16 * kCu;     // one T buffer of a pair: 16 rows x 16 w x 8 c
-constexpr int kHead = 32;                // bytes: the h and w ranges of both buffers
+constexpr int kHead = 128;               // bytes: each warp's two mbarriers
 constexpr int kMaxSmem = 232448;         // bytes of shared memory a block may use
 
 enum Variant { kRetile = 0, kNoxpose = 3 };
@@ -107,8 +110,56 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+
+// The barrier expects `bytes` more bytes of bulk copies in its current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// One bulk copy (the TMA unit) of `bytes` contiguous bytes into shared
+// memory, its completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One bulk copy of `bytes` contiguous bytes from shared to global memory, in
+// this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // The 64 threads of warp pair p meet (barrier 1 + p; 0 is __syncthreads).
@@ -150,21 +201,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The lowest and highest index e (of 8) of a 16-byte chunk whose bf16 is not zero.
-__device__ __forceinline__ void nonzero_range(const uint4& v, int base, int* lo, int* hi) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    if ((w[e / 2] >> (16 * (e % 2))) & 0x7fffu) {
-      *lo = min(*lo, base + e);
-      *hi = max(*hi, base + e);
-    }
-  }
+// Whether a 16-byte chunk holds a bf16 that is not zero.
+__device__ __forceinline__ bool nonzero(const uint4& v) {
+  return ((v.x | v.y | v.z | v.w) & 0x7fff7fffu) != 0;
 }
 
 // Element offset of (row, w) in a pair's T buffer: rows of 16 w x 8 channels,
 // the 16-byte chunk of w XOR-swizzled by the row so that the 8 rows a warp
-// writes at one w, and the 8 w ldmatrix reads at one row, hit 8 banks groups.
+// writes at one w, and the 8 w ldmatrix reads at one row, hit 8 bank groups.
 __device__ __forceinline__ int tidx(int row, int w) { return (row * 16 + (w ^ (row & 7))) * kCu; }
 
 template <int V, typename OutT>
@@ -174,13 +218,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                                int Kp, int C, int hp, int wp, int cs) {
   static_assert(V == kNoxpose || std::is_same<OutT, float>::value, "retile stores f32");
   extern __shared__ __align__(16) unsigned char smem[];
-  int* range = reinterpret_cast<int*>(smem);                 // [buffer][h lo, h hi, w lo, w hi]
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);        // [warp][buffer]
   const int f_row = wp * kCu + 8;                            // one h row of an F plane
   const int f_plane = hp * f_row;
   const int wy_row = hp + 8, wx_row = wp + 8;
   bf16* f_s = reinterpret_cast<bf16*>(smem + kHead);         // [cs / 8][h][w][8 c]
-  bf16* wy_s = f_s + cs / kCu * f_plane;                     // [buffer][i * 8 + oy][h]
-  bf16* wx_s = wy_s + 2 * kGRows * wy_row;                   // [buffer][i * 8 + ox][w]
+  bf16* wy_s = f_s + cs / kCu * f_plane;                     // [pair][buffer][i * 8 + oy][h]
+  bf16* wx_s = wy_s + 2 * kGRows * wy_row;                   // [pair][buffer][i * 8 + ox][w]
   bf16* t_s = wx_s + 2 * kGRows * wx_row;                    // [pair][buffer][row][w][8 c]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -190,66 +234,99 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.z;
   const int cbase = blockIdx.x * cs;
   const int groups = Kp / kGroup;
-  const int wy_chunks = hp / 8, wx_chunks = wp / 8;
+  const int wy_chunks = hp / 8, chunks = hp / 8 + wp / 8;    // 16-byte chunks of a weight row
+  // Chunk ch of row r of a Wy and Wx buffer pair: the Wy row's chunks, then Wx's.
+  auto chunk = [&](bf16* ys, bf16* xs, int r, int ch) -> bf16* {
+    return ch < wy_chunks ? ys + r * wy_row + ch * 8 : xs + r * wx_row + (ch - wy_chunks) * 8;
+  };
+  // This warp's ROI's rows oy (ox) in buffer buf of its pair: rows wh * 8 + oy.
+  auto wy_buf = [&](int buf) { return wy_s + ((2 * pr + buf) * 16 + wh * 8) * wy_row; };
+  auto wx_buf = [&](int buf) { return wx_s + ((2 * pr + buf) * 16 + wh * 8) * wx_row; };
 
-  // The zero rows oy = 7 and ox = 7 of both buffers (cp.async never writes
-  // them), and the ranges.
-  for (int q = tid; q < 2 * kGroup * (wy_chunks + wx_chunks); q += kThreads) {
-    const int r = q / (wy_chunks + wx_chunks), ch = q % (wy_chunks + wx_chunks);
-    const int row = (r / kGroup) * kGRows + (r % kGroup) * 8 + 7;
-    bf16* dst = ch < wy_chunks ? wy_s + row * wy_row + ch * 8
-                               : wx_s + row * wx_row + (ch - wy_chunks) * 8;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-  }
-  if (tid < 8) range[tid] = (tid % 2 == 0) ? INT_MAX : -1;
+  // The zero rows oy = 7 and ox = 7 (the copies never write them).
+  for (int buf = 0; buf < 2; ++buf)
+    for (int ch = lane; ch < chunks; ch += 32)
+      *reinterpret_cast<uint4*>(chunk(wy_buf(buf), wx_buf(buf), 7, ch)) = make_uint4(0, 0, 0, 0);
 
   // 1. The F slice, once.
   const bf16* f_img = f + static_cast<size_t>(b) * hp * wp * C + cbase;
-  for (int q = tid; q < cs / kCu * hp * wp; q += kThreads) {
-    const int plane = q / (hp * wp), hw = q % (hp * wp);
-    cp_async16(f_s + plane * f_plane + (hw / wp) * f_row + (hw % wp) * kCu,
-               f_img + static_cast<size_t>(hw) * C + plane * kCu);
+  for (int r = warp; r < cs / kCu * hp; r += kWarps) {
+    const int plane = r / hp, h = r % hp;
+    for (int w = lane; w < wp; w += 32)
+      cp_async16(f_s + plane * f_plane + h * f_row + w * kCu,
+                 f_img + static_cast<size_t>(h * wp + w) * C + plane * kCu);
   }
   cp_async_commit();
 
+  // 2. The ROIs, two per warp pair at a time: each warp copies the weights
+  // of one of them (ROI grp * 8 + 2 * pr + wh), 14 rows by 14 bulk copies
+  // (one lane each), counted on the warp's mbarrier of the buffer; 16-byte
+  // cp.async copies by every lane took longer (PERF.md, PR 8).
+  if (lane == 0) {
+    mbar_init(&mbar[2 * warp]);
+    mbar_init(&mbar[2 * warp + 1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();               // the partner waits on this warp's barriers too
   auto load_weights = [&](int grp, int buf) {
-    const size_t row0 = (static_cast<size_t>(b) * Kp + grp * kGroup) * kOut;
-    for (int q = tid; q < kGroup * kOut * (wy_chunks + wx_chunks); q += kThreads) {
-      const int r = q / (wy_chunks + wx_chunks), ch = q % (wy_chunks + wx_chunks);
-      const int row = buf * kGRows + (r / kOut) * 8 + r % kOut;
-      if (ch < wy_chunks) {
-        cp_async16(wy_s + row * wy_row + ch * 8, wy + (row0 + r) * hp + ch * 8);
-      } else {
-        const int cw = ch - wy_chunks;
-        cp_async16(wx_s + row * wx_row + cw * 8, wx + (row0 + r) * wp + cw * 8);
-      }
+    const size_t row0 = (static_cast<size_t>(b) * Kp + grp * kGroup + 2 * pr + wh) * kOut;
+    uint64_t* bar = &mbar[2 * warp + buf];
+    if (lane == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, kOut * (hp + wp) * 2);
+    }
+    __syncwarp();
+    const int oy = lane >> 1;                    // lanes 0..13: one row each
+    if (lane < 2 * kOut && lane % 2 == 0) {
+      bulk_copy(wy_buf(buf) + oy * wy_row, wy + (row0 + oy) * hp, hp * 2, bar);
+    } else if (lane < 2 * kOut) {
+      bulk_copy(wx_buf(buf) + oy * wx_row, wx + (row0 + oy) * wp, wp * 2, bar);
     }
   };
   load_weights(0, 0);
-  cp_async_commit();
 
   bf16* t_pair = t_s + pr * 2 * kTBuf;
   int tb = 0;                    // T buffers used so far by this pair, across groups
   for (int grp = 0; grp < groups; ++grp) {
     const int buf = grp & 1;
+    // The pair's weights of group grp (at first, the whole F slice) have
+    // landed; after the barrier the partner is done with group grp - 1, so
+    // its buffer is free.
+    mbar_wait(&mbar[2 * warp + buf], (grp >> 1) & 1);
+    mbar_wait(&mbar[2 * (warp ^ 1) + buf], (grp >> 1) & 1);
+    if (V == kNoxpose) bulk_wait_read();     // the last group's output rows have left
+    if (grp == 0) {
+      cp_async_wait_all();
+      __syncthreads();
+    } else {
+      pair_sync(pr);
+    }
     if (grp + 1 < groups) load_weights(grp + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait1();            // the F slice and this group's weights
-    __syncthreads();
 
-    // 2. The group's nonzero h and w ranges.
-    const bf16* wyb = wy_s + buf * kGRows * wy_row;
-    const bf16* wxb = wx_s + buf * kGRows * wx_row;
+    // The h and w tiles (of 16) where the pair's two ROIs weigh anything;
+    // both warps find them.
+    bf16* wyb = wy_s + (2 * pr + buf) * 16 * wy_row;         // the pair's rows (i, oy)
+    bf16* wxb = wx_s + (2 * pr + buf) * 16 * wx_row;         // the pair's rows (i, ox)
     int hlo = INT_MAX, hhi = -1, wlo = INT_MAX, whi = -1;
-    for (int q = tid; q < kGRows * (wy_chunks + wx_chunks); q += kThreads) {
-      const int r = q / (wy_chunks + wx_chunks), ch = q % (wy_chunks + wx_chunks);
+    for (int ch = lane; ch < chunks; ch += 32) {
+      // each ROI's 7 rows at once, so that one shared-memory latency covers them
+      uint32_t any = 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint4 v[kOut];
+#pragma unroll
+        for (int oy = 0; oy < kOut; ++oy)
+          v[oy] = *reinterpret_cast<const uint4*>(chunk(wyb, wxb, i * 8 + oy, ch));
+#pragma unroll
+        for (int oy = 0; oy < kOut; ++oy) any |= v[oy].x | v[oy].y | v[oy].z | v[oy].w;
+      }
+      if (!nonzero(make_uint4(any, 0, 0, 0))) continue;
       if (ch < wy_chunks) {
-        nonzero_range(*reinterpret_cast<const uint4*>(wyb + r * wy_row + ch * 8), ch * 8, &hlo,
-                      &hhi);
+        hlo = min(hlo, ch / 2);
+        hhi = max(hhi, ch / 2);
       } else {
-        const int cw = ch - wy_chunks;
-        nonzero_range(*reinterpret_cast<const uint4*>(wxb + r * wx_row + cw * 8), cw * 8, &wlo,
-                      &whi);
+        wlo = min(wlo, (ch - wy_chunks) / 2);
+        whi = max(whi, (ch - wy_chunks) / 2);
       }
     }
 #pragma unroll
@@ -259,21 +336,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, s));
       whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, s));
     }
-    int* rg = range + 4 * buf;
-    if (lane == 0) {
-      atomicMin(&rg[0], hlo);
-      atomicMax(&rg[1], hhi);
-      atomicMin(&rg[2], wlo);
-      atomicMax(&rg[3], whi);
-    }
-    __syncthreads();
-    const bool empty = rg[1] < 0 || rg[3] < 0;
-    const int ht0 = empty ? 0 : rg[0] / 16;
-    const int ht1 = empty ? 0 : rg[1] / 16 + 1;
-    const int wt0 = empty ? 0 : rg[2] / 16;
-    const int wt1 = empty ? 0 : rg[3] / 16 + 1;
+    const bool empty = hhi < 0 || whi < 0;
+    const int ht0 = empty ? 0 : hlo, ht1 = empty ? 0 : hhi + 1;
+    const int wt0 = empty ? 0 : wlo, wt1 = empty ? 0 : whi + 1;
 
     for (int half = 0; half < cs / kCu; ++half) {
+      if (V == kNoxpose && half > 0) {
+        // this half's T writes (the partner's too) reach the buffer that
+        // held this warp's output rows
+        bulk_wait_read();
+        pair_sync(pr);
+      }
       const bf16* fb = f_s + half * f_plane;
       const int c0 = cbase + half * kCu;
       float acc2[4][4];
@@ -282,28 +355,76 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc2[p][e] = 0.0f;
 
-      for (int wt = wt0; wt < wt1; ++wt, ++tb) {
-        // 3. Stage 1: rows (i, oy) of the pair's ROIs x this warp's 8 w
-        // columns of the tile, over the h range, from shared memory only.
-        float acc1[8][4];
+      // Stage 2 (4. above) of w tile wt on the pair's T tile tt: every
+      // fragment first, then the mma.
+      auto stage2 = [&](int wt, const bf16* tt) {
+        if constexpr (V == kNoxpose) {
+          uint32_t x0, x1, a[4][4];
+          ldsm_x2(x0, x1, wxb + (wh * 8 + mrow) * wx_row + wt * 16 + 8 * (mat & 1));
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+          for (int p = 0; p < 4; ++p)
+            ldsm_x4_trans(a[p], tt + tidx(wh * 8 + 2 * p + (mat & 1), mrow + 8 * (mat >> 1)));
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc1[j][e] = 0.0f;
-        const bf16* fcol = fb + (mrow + 8 * (mat & 1)) * f_row +
-                           (wt * 16 + wh * 8 + (mat >> 1)) * kCu;
-        const bf16* arow = wyb + (16 * pr + mrow + 8 * (mat & 1)) * wy_row + 8 * (mat >> 1);
-        for (int ht = ht0; ht < ht1; ++ht) {
-          uint32_t a[4];
-          ldsm_x4(a, arow + ht * 16);
+          for (int p = 0; p < 4; ++p) mma_bf16(acc2[p], a[p], x0, x1);
+        } else {
+          const bf16* x0 = wxb + g * wx_row + wt * 16 + 2 * t4;
+          const bf16* x1 = x0 + 8 * wx_row;
+          // A: the block-diagonal Wx, its k tile of the first ROI, then the second
+          const uint32_t xa[4] = {*reinterpret_cast<const uint32_t*>(x0), 0u,
+                                  *reinterpret_cast<const uint32_t*>(x0 + 8), 0u};
+          const uint32_t xb[4] = {0u, *reinterpret_cast<const uint32_t*>(x1), 0u,
+                                  *reinterpret_cast<const uint32_t*>(x1 + 8)};
+          uint32_t bt[4][4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            uint32_t r[4];
-            ldsm_x4_trans(r, fcol + ht * 16 * f_row + 2 * q * kCu);
-            mma_bf16(acc1[2 * q], a, r[0], r[1]);
-            mma_bf16(acc1[2 * q + 1], a, r[2], r[3]);
+          for (int p = 0; p < 4; ++p) {
+            const int oy = min(wh * 4 + p, kOut - 1);
+            ldsm_x2_trans(bt[p][0], bt[p][1], tt + tidx(oy, lane & 15));
+            ldsm_x2_trans(bt[p][2], bt[p][3], tt + tidx(8 + oy, lane & 15));
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            if (wh * 4 + p >= kOut) break;
+            mma_bf16(acc2[p], xa, bt[p][0], bt[p][1]);
+            mma_bf16(acc2[p], xb, bt[p][2], bt[p][3]);
           }
         }
+      };
+
+      // 3. Stage 1: rows (i, oy) of the pair's ROIs x this warp's 8 w columns
+      // of each w tile, over the h range, from shared memory only. The
+      // (w tile, h tile) steps run as one loop whose fragments are loaded a
+      // step ahead, in two register sets, so that ldmatrix's latency overlaps
+      // the mma, across the end of a w tile too.
+      float acc1[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc1[j][e] = 0.0f;
+      const bf16* fcol = fb + (mrow + 8 * (mat & 1)) * f_row + (wh * 8 + (mat >> 1)) * kCu;
+      const bf16* arow = wyb + (mrow + 8 * (mat & 1)) * wy_row + 8 * (mat >> 1);
+      int lw = wt0, lh = ht0;    // the next step to load
+      auto load = [&](uint32_t (&a)[4], uint32_t (&bq)[4][4]) {
+        ldsm_x4(a, arow + lh * 16);
+        const bf16* fp = fcol + lh * 16 * f_row + lw * 16 * kCu;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ldsm_x4_trans(bq[q], fp + 2 * q * kCu);
+        if (++lh == ht1) {
+          lh = ht0;
+          ++lw;
+        }
+      };
+      auto mma8 = [&](const uint32_t (&a)[4], const uint32_t (&bq)[4][4]) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          mma_bf16(acc1[2 * q], a, bq[q][0], bq[q][1]);
+          mma_bf16(acc1[2 * q + 1], a, bq[q][2], bq[q][3]);
+        }
+      };
+      // The end of w tile wt: stage 2 of the previous w tile while these mma
+      // drain (its T buffer is the other one, handed over at the last pair
+      // barrier), then this tile's T, rounded to bf16, and the handoff.
+      auto end_tile = [&](int wt) {
+        if (wt > wt0) stage2(wt - 1, t_pair + ((tb - 1) & 1) * kTBuf);
         bf16* tt = t_pair + (tb & 1) * kTBuf;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -312,69 +433,61 @@ __global__ void __launch_bounds__(kThreads, 1)
               __floats2bfloat162_rn(acc1[j][0], acc1[j][1]);
           *reinterpret_cast<__nv_bfloat162*>(tt + tidx(g + 8, w) + 2 * t4) =
               __floats2bfloat162_rn(acc1[j][2], acc1[j][3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc1[j][e] = 0.0f;
         }
         pair_sync(pr);
-
-        // 4. Stage 2 on the pair's T tile.
-        if constexpr (V == kNoxpose) {
-          uint32_t b0, b1;
-          ldsm_x2(b0, b1, wxb + ((2 * pr + wh) * 8 + mrow) * wx_row + wt * 16 + 8 * (mat & 1));
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            uint32_t a[4];
-            ldsm_x4_trans(a, tt + tidx(wh * 8 + 2 * p + (mat & 1), mrow + 8 * (mat >> 1)));
-            mma_bf16(acc2[p], a, b0, b1);
-          }
-        } else {
-          const bf16* x0 = wxb + ((2 * pr) * 8 + g) * wx_row + wt * 16 + 2 * t4;
-          const bf16* x1 = x0 + 8 * wx_row;
-          uint32_t a0[4] = {*reinterpret_cast<const uint32_t*>(x0), 0u,
-                            *reinterpret_cast<const uint32_t*>(x0 + 8), 0u};
-          uint32_t a1[4] = {0u, *reinterpret_cast<const uint32_t*>(x1), 0u,
-                            *reinterpret_cast<const uint32_t*>(x1 + 8)};
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const int oy = wh * 4 + p;
-            if (oy >= kOut) break;
-            uint32_t b0, b1;
-            ldsm_x2_trans(b0, b1, tt + tidx(oy, lane & 15));
-            mma_bf16(acc2[p], a0, b0, b1);
-            ldsm_x2_trans(b0, b1, tt + tidx(8 + oy, lane & 15));
-            mma_bf16(acc2[p], a1, b0, b1);
-          }
+        ++tb;
+      };
+      const int steps = (ht1 - ht0) * (wt1 - wt0);
+      uint32_t a0[4], b0[4][4], a1[4], b1[4][4];
+      if (steps > 0) load(a0, b0);
+      int cw = wt0, ch = ht0;    // the step being computed
+      for (int step = 0; step < steps; step += 2) {
+        if (step + 1 < steps) load(a1, b1);
+        mma8(a0, b0);
+        if (++ch == ht1) {
+          ch = ht0;
+          end_tile(cw++);
+        }
+        if (step + 1 >= steps) break;
+        if (step + 2 < steps) load(a0, b0);
+        mma8(a1, b1);
+        if (++ch == ht1) {
+          ch = ht0;
+          end_tile(cw++);
         }
       }
+      if (wt1 > wt0) stage2(wt1 - 1, t_pair + ((tb - 1) & 1) * kTBuf);
 
       // 5. Epilogue: only ROIs k < K.
       const int kg = grp * kGroup + 2 * pr;
       if constexpr (V == kNoxpose) {
-        // (oy, 8 c, 7 ox) rows through the pair's T area, 16-byte stores
-        constexpr int kChunks = 8 * kOut * sizeof(OutT) / 16;      // per (i, oy) row
-        constexpr int kPer = 16 / sizeof(OutT);
-        OutT* st = reinterpret_cast<OutT*>(t_pair);
-        pair_sync(pr);
+        // This warp's ROI's (oy, 8 c, 7 ox) rows through its half of the T
+        // buffer that the next w tile would take (the partner last read it
+        // before the last pair barrier, and writes it again only after the
+        // next one), then one bulk store (the TMA unit) per row, 224
+        // contiguous bytes (112 in bf16) of the output.
+        OutT* st = reinterpret_cast<OutT*>(t_pair + (tb & 1) * kTBuf + wh * kTBuf / 2);
 #pragma unroll
         for (int p = 0; p < 4; ++p)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int oy = 2 * p + (e >> 1), ox = 2 * t4 + (e & 1);
             if (oy >= kOut || ox >= kOut) continue;
-            OutT* dst = st + (wh * kOut + oy) * 8 * kOut + g * kOut + ox;
+            OutT* dst = st + oy * 8 * kOut + g * kOut + ox;
             if constexpr (std::is_same<OutT, float>::value) {
               *dst = acc2[p][e];
             } else {
               *dst = __float2bfloat16_rn(acc2[p][e]);
             }
           }
-        pair_sync(pr);
-        for (int q = tid - 64 * pr; q < 2 * kOut * kChunks; q += 64) {
-          const int il = q / (kOut * kChunks), oy = (q / kChunks) % kOut, ch = q % kChunks;
-          if (kg + il >= K) continue;
-          const size_t row = (static_cast<size_t>(b) * K + kg + il) * kOut + oy;
-          *reinterpret_cast<uint4*>(out + (row * C + c0) * kOut + ch * kPer) =
-              *reinterpret_cast<const uint4*>(st + (il * kOut + oy) * 8 * kOut + ch * kPer);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane < kOut && kg + wh < K) {
+          const size_t row = (static_cast<size_t>(b) * K + kg + wh) * kOut + lane;
+          bulk_store(out + (row * C + c0) * kOut, st + lane * 8 * kOut, 8 * kOut * sizeof(OutT));
         }
-        pair_sync(pr);
       } else {
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
@@ -391,9 +504,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    __syncthreads();             // the weight buffer is free for group grp + 2
-    if (tid < 4) rg[tid] = (tid % 2 == 0) ? INT_MAX : -1;
   }
+  if (V == kNoxpose) bulk_wait_read();
 }
 
 template <int V, typename OutT>

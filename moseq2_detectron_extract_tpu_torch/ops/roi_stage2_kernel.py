@@ -35,6 +35,7 @@ THREADS = 256             # 8 warps a block, in both designs
 MAX_SMEM_BYTES = 232448   # shared memory one block may use on an H100
 RESIDENT = ('retile', 'noxpose')   # the variants on the F-resident loop
 GROUP = 8                 # ROIs the resident loop walks at a time, whatever block_k is
+PAIR = 2                  # ROIs of one warp pair, whose tiles it walks together
 UNIT_CHANNELS = 8         # channels of one resident F plane and T column
 _STREAM_CHANNELS = 16     # channels per block of the streaming loop
 _STREAM_F_STAGES = 3      # its cp.async ring of (16 h, 16 w, 16 c) F tiles
@@ -69,11 +70,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def resident_smem_bytes(cs: int, hp: int, wp: int) -> int:
-    '''Shared memory of a resident block: the range header, the F slice as
-    cs / 8 planes of (h, w, 8 channels) with h rows padded by 8 elements, two
-    buffers each of Wy and Wx (8 ROIs x 8 rows, padded by 8 elements) and the
-    four warp pairs' two T buffers (16 rows x 16 w x 8 channels).'''
-    return 32 + 2 * (cs // UNIT_CHANNELS * hp * (wp * UNIT_CHANNELS + 8)
+    '''Shared memory of a resident block: each warp's two mbarriers (128
+    B), the F slice as cs / 8 planes of (h, w, 8 channels)
+    with h rows padded by 8 elements, two buffers each of Wy and Wx (8 ROIs
+    x 8 rows, padded by 8 elements) and the four warp pairs' two T buffers
+    (16 rows x 16 w x 8 channels).'''
+    return 128 + 2 * (cs // UNIT_CHANNELS * hp * (wp * UNIT_CHANNELS + 8)
                      + 2 * GROUP * 8 * (hp + 8) + 2 * GROUP * 8 * (wp + 8)) + _T_BYTES
 
 
@@ -161,21 +163,22 @@ def mma_count(variant: str, wy: torch.Tensor, wx: torch.Tensor, block_k: int,
     multiply-adds each), counted from :func:`tile_counts` as the kernel walks
     its tiles.
 
-    Resident (retile, noxpose): per group of 8 ROIs and 8 channels, stage 1
-    issues 4 row tiles x 16 n8 tiles for each (w tile, h tile); stage 2, for
-    each w tile, 4 per ROI for noxpose (its oy pairs) and 2 per (ROI pair, oy)
-    for retile's block-diagonal product, 32 and 56. block_k does not enter.
+    Resident (retile, noxpose): each warp pair walks the tiles of its two
+    ROIs (:func:`tile_counts` with block 2); per pair and 8 channels, stage 1
+    issues 16 n8 tiles of its m16 row tile for each (w tile, h tile); stage
+    2, for each w tile, 4 per ROI for noxpose (its oy pairs) and 2 per oy for
+    retile's block-diagonal product, 8 and 14. block_k does not enter.
 
     Streaming (transpose, dotswap): per ROI block and 16 channels, stage 1
     issues (rows / 16) x 32 n8 tiles for each (h tile, w tile); stage 2, for
     each w tile, one per (ROI, oy) for dotswap and, for transpose, one per
     (row tile, ROI it holds, column tile).'''
     if variant in RESIDENT:
-        n_ht, n_wt = tile_counts(wy, wx, GROUP)
+        n_ht, n_wt = tile_counts(wy, wx, PAIR)
         steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
         units = channels // UNIT_CHANNELS
-        stage2 = 32 if variant == 'noxpose' else 4 * OUTPUT_SIZE * 2
-        return steps * 4 * 16 * units, w_tiles * stage2 * units
+        stage2 = PAIR * 4 if variant == 'noxpose' else OUTPUT_SIZE * 2
+        return steps * 16 * units, w_tiles * stage2 * units
     n_ht, n_wt = tile_counts(wy, wx, block_k)
     steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
     rows = block_k * OUTPUT_SIZE

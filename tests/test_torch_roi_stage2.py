@@ -136,17 +136,17 @@ EXP = (64, 256, 256, 120, 64)         # the experiment's shape
     ('transpose', EXP, 16, 'pr6', 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272, 1),
     # the resident loop (retile, noxpose): one block per (cs channels, image),
     # walking the image's ROIs in groups of 8 at either block_k
-    ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
-    ('retile', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
-    ('noxpose', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
-    ('noxpose', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195104, 2),
-    ('retile', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
-    ('retile', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
-    ('noxpose', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
-    ('noxpose', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219168, 32),
+    ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
+    ('retile', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
+    ('noxpose', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
+    ('noxpose', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
+    ('retile', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
+    ('retile', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
+    ('noxpose', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
+    ('noxpose', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
     # K not a multiple of block_k
-    ('noxpose', (2, 13, 32, 75, 40), 8, 'resident', 16, (2, 1, 2), 16, 80, 48, 64, 1, 195104, 2),
-    ('retile', (1, 21, 16, 45, 24), 16, 'resident', 16, (1, 1, 1), 32, 48, 32, 64, 1, 108064,
+    ('noxpose', (2, 13, 32, 75, 40), 8, 'resident', 16, (2, 1, 2), 16, 80, 48, 64, 1, 195200, 2),
+    ('retile', (1, 21, 16, 45, 24), 16, 'resident', 16, (1, 1, 1), 32, 48, 32, 64, 1, 108160,
      4),
 ])
 def test_launch_plan(variant, shape, bk, design, cs, grid, kp, hp, wp, m_pad, passes, smem,
@@ -169,10 +169,11 @@ def test_launch_plan(variant, shape, bk, design, cs, grid, kp, hp, wp, m_pad, pa
 
 
 def test_resident_smem_at_the_experiments_shape():
-    '''At cs 8 the F slice is 128 x (64 x 8 + 8) x 2 B, the two Wy buffers 2 x
-    64 x 136 x 2, the two Wx buffers 2 x 64 x 72 x 2, the T buffers 32 KB.'''
+    '''At cs 8: 8 warps' two mbarriers (128 B), the F slice 128 x (64 x 8 + 8) x
+    2 B, two buffers of 64 Wy rows of 136 and of 64 Wx rows of 72 elements,
+    the T buffers 32 KB.'''
     assert rs.resident_smem_bytes(8, 128, 64) == \
-        32 + 128 * 520 * 2 + 2 * 64 * 136 * 2 + 2 * 64 * 72 * 2 + 32768 == 219168
+        128 + 128 * 520 * 2 + 2 * 64 * 136 * 2 + 2 * 64 * 72 * 2 + 32768 == 219264
     assert rs.resident_smem_bytes(16, 128, 64) > rs.MAX_SMEM_BYTES
     assert rs.resident_cs(128, 64) == 8 and rs.resident_cs(80, 48) == 16
 
@@ -237,23 +238,27 @@ def test_tile_counts_and_mma_count(block_k):
         (2 * steps * m_tiles * 32, 2 * w_tiles * rows)
     assert rs.mma_count('transpose', wy, wx, block_k, 32) == \
         (2 * steps * m_tiles * 32, 2 * w_tiles * roi_tiles * 14)
-    # the resident loop walks groups of 8 ROIs whatever block_k is: per group
-    # and 8 channels, 4 x 16 stage-1 mma per (w tile, h tile); per w tile 32
-    # stage-2 mma for noxpose, 56 for retile's block-diagonal product
-    g_ht, g_wt = rs.tile_counts(wy, wx, 8)
-    g_steps, g_w_tiles = int((g_ht * g_wt).sum()), int(g_wt.sum())
+    # the resident loop: each warp pair walks the tiles of its 2 ROIs whatever
+    # block_k is; per pair and 8 channels, 16 stage-1 mma per (w tile, h
+    # tile); per w tile 8 stage-2 mma for noxpose, 14 for retile's
+    # block-diagonal product
+    p_ht, p_wt = rs.tile_counts(wy, wx, 2)
+    p_steps, p_w_tiles = int((p_ht * p_wt).sum()), int(p_wt.sum())
     assert rs.mma_count('noxpose', wy, wx, block_k, 32) == \
-        (4 * g_steps * 64, 4 * g_w_tiles * 32)
+        (4 * p_steps * 16, 4 * p_w_tiles * 8)
     assert rs.mma_count('retile', wy, wx, block_k, 32) == \
-        (4 * g_steps * 64, 4 * g_w_tiles * 56)
-    if block_k == 8:                     # one pass over all rows: dotswap's stage 1
-        assert rs.mma_count('retile', wy, wx, 8, 32)[0] == \
-            rs.mma_count('dotswap', wy, wx, 8, 32)[0]
+        (4 * p_steps * 16, 4 * p_w_tiles * 14)
+    # one pass over all rows, with the pair's finer skip: no more than
+    # dotswap's stage 1 at block_k 8
+    assert rs.mma_count('retile', wy, wx, block_k, 32)[0] == \
+        rs.mma_count('noxpose', wy, wx, block_k, 32)[0] <= \
+        rs.mma_count('dotswap', wy, wx, 8, 32)[0]
 
 
 def kernel_walk(variant, wy, wx, block_k, channels):
     '''A mirror of a kernel's loops: for each block (channel slice, image),
-    the ROI blocks it walks (groups of 8 for the resident loop), each one's
+    the ROI blocks it walks (for the resident loop, the pairs of ROIs its
+    warp pairs walk, four at a time), each one's
     nonzero h and w tile ranges, then per unit of channels (8 resident, 16
     streaming) the w tiles and, inside, the h tiles. Returns the visits, a
     Counter of (image, ROI, h tile, w tile, channel), and the (stage 1, stage
@@ -262,9 +267,9 @@ def kernel_walk(variant, wy, wx, block_k, channels):
     wp = wx.shape[-1]
     plan = rs.launch_plan(variant, b, kp, channels, hp, wp, block_k)
     resident = plan.design == 'resident'
-    rois = rs.GROUP if resident else block_k
+    rois = rs.PAIR if resident else block_k
     unit = rs.UNIT_CHANNELS if resident else plan.cs
-    rows = rois * 7
+    rows = block_k * 7
     held = [len({r // 7 for r in range(m, min(m + 16, rows))}) for m in range(0, rows, 16)]
     visits, stage1, stage2 = Counter(), 0, 0
     for cslice in range(plan.grid[0]):
@@ -283,11 +288,11 @@ def kernel_walk(variant, wy, wx, block_k, channels):
                                 visits.update((img, roi, ht, wt, c)
                                               for roi in range(blk * rois, (blk + 1) * rois)
                                               for c in range(c0, c0 + unit))
-                                stage1 += 4 * 16 if resident else len(held) * 32
+                                stage1 += 16 if resident else len(held) * 32
                         if variant == 'noxpose':
-                            stage2 += 4 * 2 * 4             # 4 pairs x 2 ROIs x 4 oy pairs
+                            stage2 += 2 * 4                 # 2 ROIs x 4 oy pairs
                         elif variant == 'retile':
-                            stage2 += 4 * 7 * 2             # 4 pairs x 7 oy x 2 k tiles
+                            stage2 += 7 * 2                 # 7 oy x 2 k tiles
                         elif variant == 'transpose':
                             stage2 += sum(held) * 14
                         else:
