@@ -23,7 +23,7 @@
 // cs) bf16, stays in shared memory while the block walks every ROI of the
 // image. The slice takes most of the shared memory, so an SM holds one block
 // of 8 warps, 2 per scheduler; what bounds the loop is then latency inside
-// each warp (PERF.md, PR 8), and the design keeps each warp's chain short:
+// each warp (PERF.md, section 6), and the design keeps each warp's chain short:
 // no block barrier after the F slice, loads issued a step ahead of the mma
 // that read them, and shared-memory loads batched.
 //
@@ -261,7 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 2. The ROIs, two per warp pair at a time: each warp copies the weights
   // of one of them (ROI grp * 8 + 2 * pr + wh), 14 rows by 14 bulk copies
   // (one lane each), counted on the warp's mbarrier of the buffer; 16-byte
-  // cp.async copies by every lane took longer (PERF.md, PR 8).
+  // cp.async copies by every lane took longer (PERF.md, section 6).
   if (lane == 0) {
     mbar_init(&mbar[2 * warp]);
     mbar_init(&mbar[2 * warp + 1]);

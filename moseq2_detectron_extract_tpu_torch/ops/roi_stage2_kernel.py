@@ -3,7 +3,7 @@ kernels, their plain version, launch plan and dispatching entry. retile and
 noxpose run the loop that keeps one image's pyramid channel slice in shared
 memory (``csrc/roi_stage2_resident.cu``, design ``'resident'``); transpose
 and dotswap the loop that streams F tiles (``csrc/roi_stage2.cu``, design
-``'pr6'``).
+``'streaming'``).
 
 Replaces the Pallas TPU kernel bodies of ``benchmarks/roi_stage2_exp.py``
 (``_kernel_retile_peroy``, ``_kernel_transpose``, ``_kernel_dotswap``,
@@ -50,8 +50,8 @@ class Stage2Plan(NamedTuple):
     (image, slice of ``cs`` channels), walking all the image's ROIs in
     groups of 8 with the F slice resident (design ``'resident'``), or per
     (image, block of ``block_k`` ROIs, slice of 16 channels) streaming F
-    tiles (``'pr6'``).'''
-    design: str                  # 'resident' or 'pr6'
+    tiles (``'streaming'``).'''
+    design: str                  # 'resident' or 'streaming'
     grid: Tuple[int, int, int]   # (channel slices, ROI blocks, images); resident: 1 ROI block
     blocks: int
     cs: int                      # channels per block
@@ -123,7 +123,7 @@ def launch_plan(variant: str, batch: int, rois: int, channels: int, h_total: int
                          + m_pad * 16 * (_STREAM_CHANNELS + 8))
         what = f'at block_k {block_k},'
         grid = (channels // _STREAM_CHANNELS, kp // block_k, batch)
-        plan = ('pr6', grid, grid[0] * grid[1] * grid[2], _STREAM_CHANNELS,
+        plan = ('streaming', grid, grid[0] * grid[1] * grid[2], _STREAM_CHANNELS,
                 _STREAM_F_STAGES, 1, kp, hp, wp, m_pad, 1, smem)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f'{what} a pyramid of {h_total} stacked rows and {wmax} columns '

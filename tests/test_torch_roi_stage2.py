@@ -132,8 +132,8 @@ EXP = (64, 256, 256, 120, 64)         # the experiment's shape
 
 @pytest.mark.parametrize('variant,shape,bk,design,cs,grid,kp,hp,wp,m_pad,passes,smem,walks', [
     # the streaming loop (transpose, dotswap): one block per (16 channels, ROI block, image)
-    ('dotswap', BOX, 8, 'pr6', 16, (16, 2, 16), 16, 80, 48, 64, 1, 92944, 1),
-    ('transpose', EXP, 16, 'pr6', 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272, 1),
+    ('dotswap', BOX, 8, 'streaming', 16, (16, 2, 16), 16, 80, 48, 64, 1, 92944, 1),
+    ('transpose', EXP, 16, 'streaming', 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272, 1),
     # the resident loop (retile, noxpose): one block per (cs channels, image),
     # walking the image's ROIs in groups of 8 at either block_k
     ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
