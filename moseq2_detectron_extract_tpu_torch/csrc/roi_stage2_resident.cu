@@ -22,54 +22,52 @@
 // block holds one (image, slice of cs channels) and its F slice, (Hp, Wp,
 // cs) bf16, stays in shared memory while the block walks every ROI of the
 // image. The slice takes most of the shared memory, so an SM holds one block
-// of 8 warps, 2 per scheduler; what bounds the loop is then latency inside
-// each warp (PERF.md, section 6), and the design keeps each warp's chain short:
-// no block barrier after the F slice, loads issued a step ahead of the mma
-// that read them, and shared-memory loads batched.
+// of 8 warps; what bounds the loop is then latency inside each warp (PERF.md,
+// section 6), and the design keeps each warp's chains short and its warps
+// apart: after the F slice has landed no warp waits for another, loads run
+// a step ahead of the mma that read them, and shared-memory loads are
+// batched.
 //
 // Design. One block of 8 warps per (channel slice, image); cs is 16 where the
-// slice, the weight buffers and the T tiles fit in 232,448 bytes, else 8
-// (the experiment's Hp 128 x Wp 64: 219,264 bytes at cs 8).
+// slice and the warps' buffers fit in 232,448 bytes, else 8 (the
+// experiment's Hp 128 x Wp 64: 219,264 bytes at cs 8).
 // 1. The F slice is copied into shared memory once (cp.async, 16 bytes a
 //    thread), as cs / 8 planes of (h, w, 8 channels), each h row padded by
-//    16 bytes so ldmatrix reads no bank twice.
-// 2. Warps work in pairs, each pair on its own ROIs: pair p takes ROIs 2p,
-//    2p+1 of each group of 8, whatever block_k is (block_k only sets
-//    make_variant's ROI padding: F is resident, and a pair needs the weights
-//    of its two ROIs only). Each warp copies its ROI's 7 Wy and 7 Wx rows with
-//    bulk copies (the TMA unit) counted on an mbarrier, one group ahead, into
-//    the second of two buffers; rows are (i, oy) and (i, ox) with oy and ox
-//    padded to 8 by a zero row, so a pair's rows are one m16 tile. Both warps
-//    then find the h and w tiles of 16 where the pair's weights are nonzero;
-//    the tiles outside are skipped (the result is the same; a finer skip than
-//    the streaming loop's per ROI block), inside them stage 1 is dense. The
-//    pair meets at a 64-thread named barrier once a group and once a w tile;
-//    the block never meets again after the F slice has landed.
-// 3. In each w tile of 16 the pair's two warps own 8 w columns each, 8
-//    channels per column: 8 n8 tiles. Stage 1 runs over the (w tile, h tile)
-//    steps as one loop reading only shared memory (Wy rows by ldmatrix, F by
-//    ldmatrix.trans), its fragments loaded a step ahead, with no barrier and
-//    no copy to wait for. At the end of a w tile the accumulators, rounded to
-//    bf16, go into the pair's T tile (16 rows x 16 w x 8 channels, two
-//    buffers, 16-byte chunks XOR-swizzled by row), after stage 2 of the
-//    previous w tile, which reads the other buffer while these mma drain.
-//    With cs 16 a pair walks its ROIs once per 8-channel half.
+//    16 bytes so ldmatrix reads no bank twice. This is the only time the
+//    block meets.
+// 2. Each warp walks pairs of the image's ROIs on its own (pairs warp,
+//    warp + 8, ...), whatever block_k is (block_k only sets make_variant's
+//    ROI padding). It copies the pair's 14 Wy and 14 Wx rows with bulk
+//    copies (the TMA unit) counted on its mbarrier, into rows (i, oy) and (i,
+//    ox) with oy and ox padded to 8 by a zero row, so a pair's rows are one
+//    m16 tile; the next pair's copies start as soon as this pair's weights
+//    are read, and run under the epilogue. It then finds the h and w tiles of
+//    16 where the pair's weights are nonzero; the tiles outside are skipped
+//    (the result is the same), inside them stage 1 is dense.
+// 3. Stage 1 runs over the (w tile, h tile) steps as one loop reading only
+//    shared memory (Wy rows by ldmatrix, F by ldmatrix.trans; per step 16 n8
+//    tiles, 16 w columns of 8 channels), its fragments loaded a step ahead,
+//    with no barrier and no copy to wait for. At the end of a w tile the
+//    accumulators, rounded to bf16, go into the warp's T tile (16 rows x 16
+//    w x 8 channels, 16-byte chunks XOR-swizzled by row), after stage 2 of
+//    the previous w tile has read it while these mma drain. With cs 16 a
+//    warp walks each pair once per 8-channel half.
 // 4. Stage 2, its accumulators in registers across the w tiles:
-//    - noxpose: each warp takes one ROI of its pair. A = T with rows (oy
-//      pair, 8 channels) and depth w (ldmatrix.trans; the pair (6, 7) has
-//      T's zero row oy 7 as its second half), B = Wx^T with N = ox (7 padded
-//      to 8): 4 mma per ROI and w tile. The epilogue stages each (i, oy)
-//      row of (8 channels x 7 ox) values in shared memory and writes it with
-//      one bulk store, contiguous in the output (224 bytes f32, 112 bf16),
-//      where a direct store would write 4 bytes at a stride of 7.
+//    - noxpose: A = T with rows (oy pair, 8 channels) and depth w
+//      (ldmatrix.trans; the pair (6, 7) has T's zero row oy 7 as its second
+//      half), B = Wx^T with N = ox (7 padded to 8): 4 mma per ROI and w
+//      tile. The epilogue stages each (i, oy) row of (8 channels x 7 ox)
+//      values in the T tile and writes it with one bulk store, contiguous in
+//      the output (224 bytes f32, 112 bf16), where a direct store would
+//      write 4 bytes at a stride of 7.
 //    - retile: the TPU body's block-diagonal per-oy product. For each oy, A
 //      = the block-diagonal Wx of the pair's two ROIs, rows (i, ox), depth
 //      (i', w); B = T at that oy, depth (i', w), N = 8 channels: 2 mma per
-//      oy (one k tile per ROI; the zero blocks outside the pair are not
-//      multiplied). The pair's warps split the 7 oy 4 + 3. Stage 1 runs once
-//      over all rows (i, oy), as noxpose's: with T a w tile at a time there
-//      is no reason to repeat it per oy, so retile's stage-1 mma equal
-//      noxpose's at both block_k (roi_stage2_kernel.mma_count).
+//      oy (one k tile per ROI; no other ROI's zero block is multiplied).
+//      Stage 1 runs once over all rows (i, oy), as noxpose's: with T a w
+//      tile at a time there is no reason to repeat it per oy, so retile's
+//      stage-1 mma equal noxpose's at both block_k
+//      (roi_stage2_kernel.mma_count).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -82,20 +80,18 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kOut = 7;                  // output size
-constexpr int kGroup = 8;                // ROIs the 4 warp pairs take at a time
-constexpr int kGRows = kGroup * 8;       // rows (i, oy) of a group, oy padded to 8
 constexpr int kCu = 8;                   // channels per T column and F plane
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTBuf = 16 * 16 * kCu;     // one T buffer of a pair: 16 rows x 16 w x 8 c
-constexpr int kHead = 128;               // bytes: each warp's two mbarriers
+constexpr int kTBuf = 16 * 16 * kCu;     // a warp's T tile: 16 rows x 16 w x 8 c
+constexpr int kHead = 128;               // bytes: the warps' mbarriers, and room
 constexpr int kMaxSmem = 232448;         // bytes of shared memory a block may use
 
 enum Variant { kRetile = 0, kNoxpose = 3 };
 
 int resident_bytes(int cs, int hp, int wp) {
-  return kHead + 2 * (cs / kCu * hp * (wp * kCu + 8) + 2 * kGRows * (hp + 8) +
-                      2 * kGRows * (wp + 8) + (kWarps / 2) * 2 * kTBuf);
+  return kHead + 2 * (cs / kCu * hp * (wp * kCu + 8) + kWarps * 16 * (hp + 8 + wp + 8) +
+                      kWarps * kTBuf);
 }
 
 int resident_cs(int hp, int wp) { return resident_bytes(16, hp, wp) <= kMaxSmem ? 16 : 8; }
@@ -162,11 +158,6 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-// The 64 threads of warp pair p meet (barrier 1 + p; 0 is __syncthreads).
-__device__ __forceinline__ void pair_sync(int p) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + p) : "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -201,12 +192,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Whether a 16-byte chunk holds a bf16 that is not zero.
-__device__ __forceinline__ bool nonzero(const uint4& v) {
-  return ((v.x | v.y | v.z | v.w) & 0x7fff7fffu) != 0;
-}
-
-// Element offset of (row, w) in a pair's T buffer: rows of 16 w x 8 channels,
+// Element offset of (row, w) in a warp's T tile: rows of 16 w x 8 channels,
 // the 16-byte chunk of w XOR-swizzled by the row so that the 8 rows a warp
 // writes at one w, and the 8 w ldmatrix reads at one row, hit 8 bank groups.
 __device__ __forceinline__ int tidx(int row, int w) { return (row * 16 + (w ^ (row & 7))) * kCu; }
@@ -218,37 +204,61 @@ __global__ void __launch_bounds__(kThreads, 1)
                                int Kp, int C, int hp, int wp, int cs) {
   static_assert(V == kNoxpose || std::is_same<OutT, float>::value, "retile stores f32");
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem);        // [warp][buffer]
   const int f_row = wp * kCu + 8;                            // one h row of an F plane
   const int f_plane = hp * f_row;
   const int wy_row = hp + 8, wx_row = wp + 8;
   bf16* f_s = reinterpret_cast<bf16*>(smem + kHead);         // [cs / 8][h][w][8 c]
-  bf16* wy_s = f_s + cs / kCu * f_plane;                     // [pair][buffer][i * 8 + oy][h]
-  bf16* wx_s = wy_s + 2 * kGRows * wy_row;                   // [pair][buffer][i * 8 + ox][w]
-  bf16* t_s = wx_s + 2 * kGRows * wx_row;                    // [pair][buffer][row][w][8 c]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int mat = lane >> 3, mrow = lane & 7;                // ldmatrix: this lane's matrix, row
-  const int pr = warp >> 1, wh = warp & 1;                   // pair, warp within the pair
   const int b = blockIdx.z;
   const int cbase = blockIdx.x * cs;
-  const int groups = Kp / kGroup;
   const int wy_chunks = hp / 8, chunks = hp / 8 + wp / 8;    // 16-byte chunks of a weight row
-  // Chunk ch of row r of a Wy and Wx buffer pair: the Wy row's chunks, then Wx's.
-  auto chunk = [&](bf16* ys, bf16* xs, int r, int ch) -> bf16* {
-    return ch < wy_chunks ? ys + r * wy_row + ch * 8 : xs + r * wx_row + (ch - wy_chunks) * 8;
+  // This warp's own shared memory: its mbarrier, its two ROIs' Wy and Wx rows
+  // (i * 8 + oy, oy = 7 a zero row) and its T tile.
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + warp;
+  bf16* wyw = f_s + cs / kCu * f_plane + warp * 16 * wy_row;
+  bf16* wxw = f_s + cs / kCu * f_plane + kWarps * 16 * wy_row + warp * 16 * wx_row;
+  bf16* tw = f_s + cs / kCu * f_plane + kWarps * 16 * (wy_row + wx_row) + warp * kTBuf;
+  // Chunk ch of row r: the Wy row's chunks, then the Wx row's.
+  auto chunk = [&](int r, int ch) -> bf16* {
+    return ch < wy_chunks ? wyw + r * wy_row + ch * 8 : wxw + r * wx_row + (ch - wy_chunks) * 8;
   };
-  // This warp's ROI's rows oy (ox) in buffer buf of its pair: rows wh * 8 + oy.
-  auto wy_buf = [&](int buf) { return wy_s + ((2 * pr + buf) * 16 + wh * 8) * wy_row; };
-  auto wx_buf = [&](int buf) { return wx_s + ((2 * pr + buf) * 16 + wh * 8) * wx_row; };
 
   // The zero rows oy = 7 and ox = 7 (the copies never write them).
-  for (int buf = 0; buf < 2; ++buf)
-    for (int ch = lane; ch < chunks; ch += 32)
-      *reinterpret_cast<uint4*>(chunk(wy_buf(buf), wx_buf(buf), 7, ch)) = make_uint4(0, 0, 0, 0);
+  for (int ch = lane; ch < chunks; ch += 32) {
+    *reinterpret_cast<uint4*>(chunk(7, ch)) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(chunk(15, ch)) = make_uint4(0, 0, 0, 0);
+  }
+  if (lane == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
 
-  // 1. The F slice, once.
+  // 2. The weights of ROI pair q (ROIs 2q, 2q + 1): 28 rows by 28 bulk
+  // copies (one lane each), counted on the warp's mbarrier; 16-byte cp.async
+  // copies by every lane took longer (PERF.md, section 6).
+  auto load_weights = [&](int q) {
+    if (lane == 0) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, 2 * kOut * (hp + wp) * 2);
+    }
+    __syncwarp();
+    if (lane < 4 * kOut) {
+      const int i = lane / (2 * kOut), oy = (lane % (2 * kOut)) / 2;
+      const size_t row = (static_cast<size_t>(b) * Kp + 2 * q + i) * kOut + oy;
+      if (lane % 2 == 0) {
+        bulk_copy(wyw + (i * 8 + oy) * wy_row, wy + row * hp, hp * 2, bar);
+      } else {
+        bulk_copy(wxw + (i * 8 + oy) * wx_row, wx + row * wp, wp * 2, bar);
+      }
+    }
+  };
+  if (warp < Kp / 2) load_weights(warp);
+
+  // 1. The F slice, once, the only time the block meets.
   const bf16* f_img = f + static_cast<size_t>(b) * hp * wp * C + cbase;
   for (int r = warp; r < cs / kCu * hp; r += kWarps) {
     const int plane = r / hp, h = r % hp;
@@ -257,56 +267,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                  f_img + static_cast<size_t>(h * wp + w) * C + plane * kCu);
   }
   cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
-  // 2. The ROIs, two per warp pair at a time: each warp copies the weights
-  // of one of them (ROI grp * 8 + 2 * pr + wh), 14 rows by 14 bulk copies
-  // (one lane each), counted on the warp's mbarrier of the buffer; 16-byte
-  // cp.async copies by every lane took longer (PERF.md, section 6).
-  if (lane == 0) {
-    mbar_init(&mbar[2 * warp]);
-    mbar_init(&mbar[2 * warp + 1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();               // the partner waits on this warp's barriers too
-  auto load_weights = [&](int grp, int buf) {
-    const size_t row0 = (static_cast<size_t>(b) * Kp + grp * kGroup + 2 * pr + wh) * kOut;
-    uint64_t* bar = &mbar[2 * warp + buf];
-    if (lane == 0) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      mbar_expect_tx(bar, kOut * (hp + wp) * 2);
-    }
-    __syncwarp();
-    const int oy = lane >> 1;                    // lanes 0..13: one row each
-    if (lane < 2 * kOut && lane % 2 == 0) {
-      bulk_copy(wy_buf(buf) + oy * wy_row, wy + (row0 + oy) * hp, hp * 2, bar);
-    } else if (lane < 2 * kOut) {
-      bulk_copy(wx_buf(buf) + oy * wx_row, wx + (row0 + oy) * wp, wp * 2, bar);
-    }
-  };
-  load_weights(0, 0);
+  // Each warp walks ROI pairs warp, warp + 8, ... on its own.
+  for (int q = warp, it = 0; q < Kp / 2; q += kWarps, ++it) {
+    mbar_wait(bar, it & 1);
 
-  bf16* t_pair = t_s + pr * 2 * kTBuf;
-  int tb = 0;                    // T buffers used so far by this pair, across groups
-  for (int grp = 0; grp < groups; ++grp) {
-    const int buf = grp & 1;
-    // The pair's weights of group grp (at first, the whole F slice) have
-    // landed; after the barrier the partner is done with group grp - 1, so
-    // its buffer is free.
-    mbar_wait(&mbar[2 * warp + buf], (grp >> 1) & 1);
-    mbar_wait(&mbar[2 * (warp ^ 1) + buf], (grp >> 1) & 1);
-    if (V == kNoxpose) bulk_wait_read();     // the last group's output rows have left
-    if (grp == 0) {
-      cp_async_wait_all();
-      __syncthreads();
-    } else {
-      pair_sync(pr);
-    }
-    if (grp + 1 < groups) load_weights(grp + 1, buf ^ 1);
-
-    // The h and w tiles (of 16) where the pair's two ROIs weigh anything;
-    // both warps find them.
-    bf16* wyb = wy_s + (2 * pr + buf) * 16 * wy_row;         // the pair's rows (i, oy)
-    bf16* wxb = wx_s + (2 * pr + buf) * 16 * wx_row;         // the pair's rows (i, ox)
+    // The h and w tiles (of 16) where the pair weighs anything.
     int hlo = INT_MAX, hhi = -1, wlo = INT_MAX, whi = -1;
     for (int ch = lane; ch < chunks; ch += 32) {
       // each ROI's 7 rows at once, so that one shared-memory latency covers them
@@ -316,11 +284,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         uint4 v[kOut];
 #pragma unroll
         for (int oy = 0; oy < kOut; ++oy)
-          v[oy] = *reinterpret_cast<const uint4*>(chunk(wyb, wxb, i * 8 + oy, ch));
+          v[oy] = *reinterpret_cast<const uint4*>(chunk(i * 8 + oy, ch));
 #pragma unroll
         for (int oy = 0; oy < kOut; ++oy) any |= v[oy].x | v[oy].y | v[oy].z | v[oy].w;
       }
-      if (!nonzero(make_uint4(any, 0, 0, 0))) continue;
+      if (!(any & 0x7fff7fffu)) continue;    // no bf16 of the chunk's column is nonzero
       if (ch < wy_chunks) {
         hlo = min(hlo, ch / 2);
         hhi = max(hhi, ch / 2);
@@ -341,141 +309,138 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int wt0 = empty ? 0 : wlo, wt1 = empty ? 0 : whi + 1;
 
     for (int half = 0; half < cs / kCu; ++half) {
-      if (V == kNoxpose && half > 0) {
-        // this half's T writes (the partner's too) reach the buffer that
-        // held this warp's output rows
-        bulk_wait_read();
-        pair_sync(pr);
+      if constexpr (V == kNoxpose) {
+        bulk_wait_read();        // the last output rows have left the T tile
+        __syncwarp();
       }
       const bf16* fb = f_s + half * f_plane;
       const int c0 = cbase + half * kCu;
-      float acc2[4][4];
+      // noxpose: [ROI][oy pair]; retile: [oy] (of 7)
+      float acc2[8][4];
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int p = 0; p < 8; ++p)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc2[p][e] = 0.0f;
 
-      // Stage 2 (4. above) of w tile wt on the pair's T tile tt: every
-      // fragment first, then the mma.
-      auto stage2 = [&](int wt, const bf16* tt) {
+      // Stage 2 (4. above) of w tile wt on the T tile: every fragment
+      // first, then the mma.
+      auto stage2 = [&](int wt) {
         if constexpr (V == kNoxpose) {
-          uint32_t x0, x1, a[4][4];
-          ldsm_x2(x0, x1, wxb + (wh * 8 + mrow) * wx_row + wt * 16 + 8 * (mat & 1));
 #pragma unroll
-          for (int p = 0; p < 4; ++p)
-            ldsm_x4_trans(a[p], tt + tidx(wh * 8 + 2 * p + (mat & 1), mrow + 8 * (mat >> 1)));
+          for (int i = 0; i < 2; ++i) {
+            uint32_t x0, x1, a[4][4];
+            ldsm_x2(x0, x1, wxw + (i * 8 + mrow) * wx_row + wt * 16 + 8 * (mat & 1));
 #pragma unroll
-          for (int p = 0; p < 4; ++p) mma_bf16(acc2[p], a[p], x0, x1);
+            for (int p = 0; p < 4; ++p)
+              ldsm_x4_trans(a[p], tw + tidx(i * 8 + 2 * p + (mat & 1), mrow + 8 * (mat >> 1)));
+#pragma unroll
+            for (int p = 0; p < 4; ++p) mma_bf16(acc2[i * 4 + p], a[p], x0, x1);
+          }
         } else {
-          const bf16* x0 = wxb + g * wx_row + wt * 16 + 2 * t4;
+          const bf16* x0 = wxw + g * wx_row + wt * 16 + 2 * t4;
           const bf16* x1 = x0 + 8 * wx_row;
           // A: the block-diagonal Wx, its k tile of the first ROI, then the second
           const uint32_t xa[4] = {*reinterpret_cast<const uint32_t*>(x0), 0u,
                                   *reinterpret_cast<const uint32_t*>(x0 + 8), 0u};
           const uint32_t xb[4] = {0u, *reinterpret_cast<const uint32_t*>(x1), 0u,
                                   *reinterpret_cast<const uint32_t*>(x1 + 8)};
-          uint32_t bt[4][4];
+          uint32_t bt[kOut][4];
 #pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const int oy = min(wh * 4 + p, kOut - 1);
-            ldsm_x2_trans(bt[p][0], bt[p][1], tt + tidx(oy, lane & 15));
-            ldsm_x2_trans(bt[p][2], bt[p][3], tt + tidx(8 + oy, lane & 15));
+          for (int oy = 0; oy < kOut; ++oy) {
+            ldsm_x2_trans(bt[oy][0], bt[oy][1], tw + tidx(oy, lane & 15));
+            ldsm_x2_trans(bt[oy][2], bt[oy][3], tw + tidx(8 + oy, lane & 15));
           }
 #pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            if (wh * 4 + p >= kOut) break;
-            mma_bf16(acc2[p], xa, bt[p][0], bt[p][1]);
-            mma_bf16(acc2[p], xb, bt[p][2], bt[p][3]);
+          for (int oy = 0; oy < kOut; ++oy) {
+            mma_bf16(acc2[oy], xa, bt[oy][0], bt[oy][1]);
+            mma_bf16(acc2[oy], xb, bt[oy][2], bt[oy][3]);
           }
         }
       };
 
-      // 3. Stage 1: rows (i, oy) of the pair's ROIs x this warp's 8 w columns
-      // of each w tile, over the h range, from shared memory only. The
-      // (w tile, h tile) steps run as one loop whose fragments are loaded a
-      // step ahead, in two register sets, so that ldmatrix's latency overlaps
-      // the mma, across the end of a w tile too.
-      float acc1[8][4];
+      // 3. Stage 1: rows (i, oy) of the pair x the 16 w columns of each w
+      // tile, 8 channels each, over the h range, from shared memory only.
+      // The (w tile, h tile) steps run as one loop whose fragments are loaded
+      // a step ahead, in two register sets, so that ldmatrix's latency
+      // overlaps the mma, across the end of a w tile too.
+      float acc1[16][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc1[j][e] = 0.0f;
-      const bf16* fcol = fb + (mrow + 8 * (mat & 1)) * f_row + (wh * 8 + (mat >> 1)) * kCu;
-      const bf16* arow = wyb + (mrow + 8 * (mat & 1)) * wy_row + 8 * (mat >> 1);
+      const bf16* fcol = fb + (mrow + 8 * (mat & 1)) * f_row + (mat >> 1) * kCu;
+      const bf16* arow = wyw + (mrow + 8 * (mat & 1)) * wy_row + 8 * (mat >> 1);
       int lw = wt0, lh = ht0;    // the next step to load
-      auto load = [&](uint32_t (&a)[4], uint32_t (&bq)[4][4]) {
+      auto load = [&](uint32_t (&a)[4], uint32_t (&bq)[8][4]) {
         ldsm_x4(a, arow + lh * 16);
         const bf16* fp = fcol + lh * 16 * f_row + lw * 16 * kCu;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) ldsm_x4_trans(bq[q], fp + 2 * q * kCu);
+        for (int j = 0; j < 8; ++j) ldsm_x4_trans(bq[j], fp + 2 * j * kCu);
         if (++lh == ht1) {
           lh = ht0;
           ++lw;
         }
       };
-      auto mma8 = [&](const uint32_t (&a)[4], const uint32_t (&bq)[4][4]) {
+      auto mma16 = [&](const uint32_t (&a)[4], const uint32_t (&bq)[8][4]) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          mma_bf16(acc1[2 * q], a, bq[q][0], bq[q][1]);
-          mma_bf16(acc1[2 * q + 1], a, bq[q][2], bq[q][3]);
+        for (int j = 0; j < 8; ++j) {
+          mma_bf16(acc1[2 * j], a, bq[j][0], bq[j][1]);
+          mma_bf16(acc1[2 * j + 1], a, bq[j][2], bq[j][3]);
         }
       };
       // The end of w tile wt: stage 2 of the previous w tile while these mma
-      // drain (its T buffer is the other one, handed over at the last pair
-      // barrier), then this tile's T, rounded to bf16, and the handoff.
+      // drain, then this tile's T, rounded to bf16, in the same buffer.
       auto end_tile = [&](int wt) {
-        if (wt > wt0) stage2(wt - 1, t_pair + ((tb - 1) & 1) * kTBuf);
-        bf16* tt = t_pair + (tb & 1) * kTBuf;
+        if (wt > wt0) stage2(wt - 1);
+        __syncwarp();
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int w = wh * 8 + j;
-          *reinterpret_cast<__nv_bfloat162*>(tt + tidx(g, w) + 2 * t4) =
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(tw + tidx(g, j) + 2 * t4) =
               __floats2bfloat162_rn(acc1[j][0], acc1[j][1]);
-          *reinterpret_cast<__nv_bfloat162*>(tt + tidx(g + 8, w) + 2 * t4) =
+          *reinterpret_cast<__nv_bfloat162*>(tw + tidx(g + 8, j) + 2 * t4) =
               __floats2bfloat162_rn(acc1[j][2], acc1[j][3]);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc1[j][e] = 0.0f;
         }
-        pair_sync(pr);
-        ++tb;
+        __syncwarp();
       };
       const int steps = (ht1 - ht0) * (wt1 - wt0);
-      uint32_t a0[4], b0[4][4], a1[4], b1[4][4];
+      uint32_t a0[4], b0[8][4], a1[4], b1[8][4];
       if (steps > 0) load(a0, b0);
       int cw = wt0, ch = ht0;    // the step being computed
       for (int step = 0; step < steps; step += 2) {
         if (step + 1 < steps) load(a1, b1);
-        mma8(a0, b0);
+        mma16(a0, b0);
         if (++ch == ht1) {
           ch = ht0;
           end_tile(cw++);
         }
         if (step + 1 >= steps) break;
         if (step + 2 < steps) load(a0, b0);
-        mma8(a1, b1);
+        mma16(a1, b1);
         if (++ch == ht1) {
           ch = ht0;
           end_tile(cw++);
         }
       }
-      if (wt1 > wt0) stage2(wt1 - 1, t_pair + ((tb - 1) & 1) * kTBuf);
+      if (wt1 > wt0) stage2(wt1 - 1);
+      __syncwarp();
+      // the pair's weights are read: the next pair's may come in
+      if (half == cs / kCu - 1 && q + kWarps < Kp / 2) load_weights(q + kWarps);
 
       // 5. Epilogue: only ROIs k < K.
-      const int kg = grp * kGroup + 2 * pr;
       if constexpr (V == kNoxpose) {
-        // This warp's ROI's (oy, 8 c, 7 ox) rows through its half of the T
-        // buffer that the next w tile would take (the partner last read it
-        // before the last pair barrier, and writes it again only after the
-        // next one), then one bulk store (the TMA unit) per row, 224
-        // contiguous bytes (112 in bf16) of the output.
-        OutT* st = reinterpret_cast<OutT*>(t_pair + (tb & 1) * kTBuf + wh * kTBuf / 2);
+        // Each (i, oy) row of (8 channels x 7 ox) values through the T tile,
+        // then one bulk store (the TMA unit) per row, 224 contiguous bytes
+        // (112 in bf16) of the output.
+        OutT* st = reinterpret_cast<OutT*>(tw);
 #pragma unroll
-        for (int p = 0; p < 4; ++p)
+        for (int p = 0; p < 8; ++p)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int oy = 2 * p + (e >> 1), ox = 2 * t4 + (e & 1);
+            const int i = p / 4, oy = 2 * (p % 4) + (e >> 1), ox = 2 * t4 + (e & 1);
             if (oy >= kOut || ox >= kOut) continue;
-            OutT* dst = st + oy * 8 * kOut + g * kOut + ox;
+            OutT* dst = st + (i * kOut + oy) * 8 * kOut + g * kOut + ox;
             if constexpr (std::is_same<OutT, float>::value) {
               *dst = acc2[p][e];
             } else {
@@ -484,24 +449,23 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         __syncwarp();
-        if (lane < kOut && kg + wh < K) {
-          const size_t row = (static_cast<size_t>(b) * K + kg + wh) * kOut + lane;
-          bulk_store(out + (row * C + c0) * kOut, st + lane * 8 * kOut, 8 * kOut * sizeof(OutT));
+        const int i = lane / kOut, oy = lane % kOut;
+        if (lane < 2 * kOut && 2 * q + i < K) {
+          const size_t row = (static_cast<size_t>(b) * K + 2 * q + i) * kOut + oy;
+          bulk_store(out + (row * C + c0) * kOut, st + (i * kOut + oy) * 8 * kOut,
+                     8 * kOut * sizeof(OutT));
         }
       } else {
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int oy = wh * 4 + p;
-          if (oy >= kOut) break;
+        for (int oy = 0; oy < kOut; ++oy)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (g >= kOut || kg + h >= K) continue;
+          for (int i = 0; i < 2; ++i) {
+            if (g >= kOut || 2 * q + i >= K) continue;
             const size_t idx =
-                (((static_cast<size_t>(b) * K + kg + h) * kOut + oy) * kOut + g) * C + c0 +
+                (((static_cast<size_t>(b) * K + 2 * q + i) * kOut + oy) * kOut + g) * C + c0 +
                 2 * t4;
-            *reinterpret_cast<float2*>(out + idx) = make_float2(acc2[p][2 * h], acc2[p][2 * h + 1]);
+            *reinterpret_cast<float2*>(out + idx) = make_float2(acc2[oy][2 * i], acc2[oy][2 * i + 1]);
           }
-        }
       }
     }
   }

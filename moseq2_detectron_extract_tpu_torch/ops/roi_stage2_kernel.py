@@ -34,12 +34,11 @@ MMA_DEPTH = 16            # ΣH and Wmax are padded to this (mma.m16n8k16)
 THREADS = 256             # 8 warps a block, in both designs
 MAX_SMEM_BYTES = 232448   # shared memory one block may use on an H100
 RESIDENT = ('retile', 'noxpose')   # the variants on the F-resident loop
-GROUP = 8                 # ROIs the resident loop walks at a time, whatever block_k is
-PAIR = 2                  # ROIs of one warp pair, whose tiles it walks together
+WARPS = THREADS // 32
+PAIR = 2                  # ROIs a resident warp walks together, whatever block_k is
 UNIT_CHANNELS = 8         # channels of one resident F plane and T column
 _STREAM_CHANNELS = 16     # channels per block of the streaming loop
 _STREAM_F_STAGES = 3      # its cp.async ring of (16 h, 16 w, 16 c) F tiles
-_T_BYTES = 4 * 2 * 16 * 16 * UNIT_CHANNELS * 2   # resident: 4 pairs' two T buffers
 
 # launches of each variant's CUDA kernel since the counts were last set to 0
 launch_count = dict.fromkeys(VARIANTS, 0)
@@ -47,8 +46,8 @@ launch_count = dict.fromkeys(VARIANTS, 0)
 
 class Stage2Plan(NamedTuple):
     '''How a kernel splits the work: one block of THREADS threads per
-    (image, slice of ``cs`` channels), walking all the image's ROIs in
-    groups of 8 with the F slice resident (design ``'resident'``), or per
+    (image, slice of ``cs`` channels), its F slice resident, each warp
+    walking pairs of the image's ROIs (design ``'resident'``), or per
     (image, block of ``block_k`` ROIs, slice of 16 channels) streaming F
     tiles (``'streaming'``).'''
     design: str                  # 'resident' or 'streaming'
@@ -56,12 +55,12 @@ class Stage2Plan(NamedTuple):
     blocks: int
     cs: int                      # channels per block
     f_stages: int                # F copies in flight: the 3-tile ring, or the slice once (1)
-    roi_blocks: int              # ROI blocks one block walks: Kp / 8 (resident) or 1
+    roi_blocks: int              # ROI blocks one block walks: Kp / 2 pairs (resident) or 1
     kp: int                      # ROIs padded to a multiple of block_k
     hp: int                      # ΣH padded to the mma depth
     wp: int                      # Wmax padded to the mma depth
-    m_pad: int                   # stage-1 rows (i, oy) of a ROI block, padded to 16
-    passes: int                  # stage-1 passes per block (7 for a per-oy loop)
+    m_pad: int                   # stage-1 rows (i, oy) of a ROI block (resident: oy to 8)
+    passes: int                  # stage-1 passes over a ROI block's rows
     smem_bytes: int
 
 
@@ -70,13 +69,12 @@ def _round_up(x: int, m: int) -> int:
 
 
 def resident_smem_bytes(cs: int, hp: int, wp: int) -> int:
-    '''Shared memory of a resident block: each warp's two mbarriers (128
-    B), the F slice as cs / 8 planes of (h, w, 8 channels)
-    with h rows padded by 8 elements, two buffers each of Wy and Wx (8 ROIs
-    x 8 rows, padded by 8 elements) and the four warp pairs' two T buffers
-    (16 rows x 16 w x 8 channels).'''
+    '''Shared memory of a resident block: the warps' mbarriers (128 B), the F
+    slice as cs / 8 planes of (h, w, 8 channels) with h rows padded by 8
+    elements, and each warp's own Wy and Wx rows (2 ROIs x 8 rows, padded by
+    8 elements) and T tile (16 rows x 16 w x 8 channels).'''
     return 128 + 2 * (cs // UNIT_CHANNELS * hp * (wp * UNIT_CHANNELS + 8)
-                     + 2 * GROUP * 8 * (hp + 8) + 2 * GROUP * 8 * (wp + 8)) + _T_BYTES
+                      + WARPS * 16 * (hp + 8 + wp + 8) + WARPS * 16 * 16 * UNIT_CHANNELS)
 
 
 def resident_cs(hp: int, wp: int) -> int:
@@ -114,8 +112,8 @@ def launch_plan(variant: str, batch: int, rois: int, channels: int, h_total: int
         smem = resident_smem_bytes(cs, hp, wp)
         what = f'an {cs}-channel slice of'
         grid = (channels // cs, 1, batch)
-        plan = ('resident', grid, grid[0] * grid[2], cs, 1, kp // GROUP, kp, hp, wp,
-                GROUP * 8, 1, smem)
+        plan = ('resident', grid, grid[0] * grid[2], cs, 1, kp // PAIR, kp, hp, wp, 16, 1,
+                smem)
     else:
         m_pad = _round_up(block_k * OUTPUT_SIZE, 16)
         smem = 16 + 2 * (m_pad * (hp + 8) + block_k * 8 * (wp + 8)
@@ -163,11 +161,11 @@ def mma_count(variant: str, wy: torch.Tensor, wx: torch.Tensor, block_k: int,
     multiply-adds each), counted from :func:`tile_counts` as the kernel walks
     its tiles.
 
-    Resident (retile, noxpose): each warp pair walks the tiles of its two
-    ROIs (:func:`tile_counts` with block 2); per pair and 8 channels, stage 1
+    Resident (retile, noxpose): a warp walks the tiles of two ROIs at a time
+    (:func:`tile_counts` with block 2); per ROI pair and 8 channels, stage 1
     issues 16 n8 tiles of its m16 row tile for each (w tile, h tile); stage
-    2, for each w tile, 4 per ROI for noxpose (its oy pairs) and 2 per oy for
-    retile's block-diagonal product, 8 and 14. block_k does not enter.
+    2, for each w tile, 4 per ROI for noxpose (its oy pairs) and 2 per oy
+    for retile's block-diagonal product, 8 and 14. block_k does not enter.
 
     Streaming (transpose, dotswap): per ROI block and 16 channels, stage 1
     issues (rows / 16) x 32 n8 tiles for each (h tile, w tile); stage 2, for

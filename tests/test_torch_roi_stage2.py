@@ -135,19 +135,19 @@ EXP = (64, 256, 256, 120, 64)         # the experiment's shape
     ('dotswap', BOX, 8, 'streaming', 16, (16, 2, 16), 16, 80, 48, 64, 1, 92944, 1),
     ('transpose', EXP, 16, 'streaming', 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272, 1),
     # the resident loop (retile, noxpose): one block per (cs channels, image),
-    # walking the image's ROIs in groups of 8 at either block_k
-    ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
-    ('retile', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
-    ('noxpose', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
-    ('noxpose', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 64, 1, 195200, 2),
-    ('retile', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
-    ('retile', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
-    ('noxpose', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
-    ('noxpose', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 64, 1, 219264, 32),
+    # its warps walking the image's ROIs two at a time at either block_k
+    ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
+    ('retile', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
+    ('noxpose', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
+    ('noxpose', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
+    ('retile', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
+    ('retile', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
+    ('noxpose', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
+    ('noxpose', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
     # K not a multiple of block_k
-    ('noxpose', (2, 13, 32, 75, 40), 8, 'resident', 16, (2, 1, 2), 16, 80, 48, 64, 1, 195200, 2),
-    ('retile', (1, 21, 16, 45, 24), 16, 'resident', 16, (1, 1, 1), 32, 48, 32, 64, 1, 108160,
-     4),
+    ('noxpose', (2, 13, 32, 75, 40), 8, 'resident', 16, (2, 1, 2), 16, 80, 48, 16, 1, 195200, 8),
+    ('retile', (1, 21, 16, 45, 24), 16, 'resident', 16, (1, 1, 1), 32, 48, 32, 16, 1, 108160,
+     16),
 ])
 def test_launch_plan(variant, shape, bk, design, cs, grid, kp, hp, wp, m_pad, passes, smem,
                      walks):
@@ -169,9 +169,9 @@ def test_launch_plan(variant, shape, bk, design, cs, grid, kp, hp, wp, m_pad, pa
 
 
 def test_resident_smem_at_the_experiments_shape():
-    '''At cs 8: 8 warps' two mbarriers (128 B), the F slice 128 x (64 x 8 + 8) x
-    2 B, two buffers of 64 Wy rows of 136 and of 64 Wx rows of 72 elements,
-    the T buffers 32 KB.'''
+    '''At cs 8: the warps' mbarriers (128 B), the F slice 128 x (64 x 8 + 8)
+    x 2 B, each of 8 warps' 16 Wy rows of 136 and 16 Wx rows of 72 elements
+    and its T tile of 4 KB.'''
     assert rs.resident_smem_bytes(8, 128, 64) == \
         128 + 128 * 520 * 2 + 2 * 64 * 136 * 2 + 2 * 64 * 72 * 2 + 32768 == 219264
     assert rs.resident_smem_bytes(16, 128, 64) > rs.MAX_SMEM_BYTES
@@ -238,8 +238,8 @@ def test_tile_counts_and_mma_count(block_k):
         (2 * steps * m_tiles * 32, 2 * w_tiles * rows)
     assert rs.mma_count('transpose', wy, wx, block_k, 32) == \
         (2 * steps * m_tiles * 32, 2 * w_tiles * roi_tiles * 14)
-    # the resident loop: each warp pair walks the tiles of its 2 ROIs whatever
-    # block_k is; per pair and 8 channels, 16 stage-1 mma per (w tile, h
+    # the resident loop: a warp walks the tiles of 2 ROIs at a time whatever
+    # block_k is; per ROI pair and 8 channels, 16 stage-1 mma per (w tile, h
     # tile); per w tile 8 stage-2 mma for noxpose, 14 for retile's
     # block-diagonal product
     p_ht, p_wt = rs.tile_counts(wy, wx, 2)
@@ -248,7 +248,7 @@ def test_tile_counts_and_mma_count(block_k):
         (4 * p_steps * 16, 4 * p_w_tiles * 8)
     assert rs.mma_count('retile', wy, wx, block_k, 32) == \
         (4 * p_steps * 16, 4 * p_w_tiles * 14)
-    # one pass over all rows, with the pair's finer skip: no more than
+    # one pass over all rows, with the ROI pair's finer skip: no more than
     # dotswap's stage 1 at block_k 8
     assert rs.mma_count('retile', wy, wx, block_k, 32)[0] == \
         rs.mma_count('noxpose', wy, wx, block_k, 32)[0] <= \
@@ -258,7 +258,7 @@ def test_tile_counts_and_mma_count(block_k):
 def kernel_walk(variant, wy, wx, block_k, channels):
     '''A mirror of a kernel's loops: for each block (channel slice, image),
     the ROI blocks it walks (for the resident loop, the pairs of ROIs its
-    warp pairs walk, four at a time), each one's
+    8 warps walk), each one's
     nonzero h and w tile ranges, then per unit of channels (8 resident, 16
     streaming) the w tiles and, inside, the h tiles. Returns the visits, a
     Counter of (image, ROI, h tile, w tile, channel), and the (stage 1, stage
