@@ -35,11 +35,12 @@ Phases, each printed with its elapsed seconds as it starts:
    bf16 ulps, with each kernel's launch plan (its design: the resident loop
    of retile and noxpose, the streaming loop of transpose and dotswap; its
    channels per block), noxpose beside dotswap and retile beside transpose
-   (the same functions on the old loop), its device time at the box shape
-   beside its bound (the same yardstick as ROIAlign's, the output counted in its own dtype), the
-   dense form's tensor-core time (its multiply-adds x 2 over 989e12/s), the
-   two-call form's time, and the mma each kernel issued
-   (``roi_stage2_kernel.mma_count``) over its time, at both shapes;
+   (the same functions on the streaming loop), its device time at the box
+   shape beside its bound (the same yardstick as ROIAlign's, the output
+   counted in its own dtype), the dense form's tensor-core time (its
+   multiply-adds x 2 over 989e12/s), the two-call form's time, and the mma
+   each kernel issued (``roi_stage2_kernel.mma_count``) over its time, at
+   both shapes;
 4. the main path: ``Predictor.from_model_dir`` on the committed fast160
    model (R50-FPN, full width, weights read from its npz), a chunk of 64
    sentinel-encoded 424x512 frames made from ``--seed``, and

@@ -109,25 +109,23 @@ def launch_plan(variant: str, batch: int, rois: int, channels: int, h_total: int
         raise ValueError(f'at most 65535 images, got {batch}')
     if variant in RESIDENT:
         cs = resident_cs(hp, wp)
-        smem = resident_smem_bytes(cs, hp, wp)
+        plan = Stage2Plan('resident', (channels // cs, 1, batch), channels // cs * batch, cs,
+                          1, kp // PAIR, kp, hp, wp, 2 * 8, 1, resident_smem_bytes(cs, hp, wp))
         what = f'an {cs}-channel slice of'
-        grid = (channels // cs, 1, batch)
-        plan = ('resident', grid, grid[0] * grid[2], cs, 1, kp // PAIR, kp, hp, wp, 16, 1,
-                smem)
     else:
         m_pad = _round_up(block_k * OUTPUT_SIZE, 16)
         smem = 16 + 2 * (m_pad * (hp + 8) + block_k * 8 * (wp + 8)
                          + _STREAM_F_STAGES * 16 * (16 * _STREAM_CHANNELS + 8)
                          + m_pad * 16 * (_STREAM_CHANNELS + 8))
-        what = f'at block_k {block_k},'
         grid = (channels // _STREAM_CHANNELS, kp // block_k, batch)
-        plan = ('streaming', grid, grid[0] * grid[1] * grid[2], _STREAM_CHANNELS,
-                _STREAM_F_STAGES, 1, kp, hp, wp, m_pad, 1, smem)
-    if smem > MAX_SMEM_BYTES:
+        plan = Stage2Plan('streaming', grid, grid[0] * grid[1] * grid[2], _STREAM_CHANNELS,
+                          _STREAM_F_STAGES, 1, kp, hp, wp, m_pad, 1, smem)
+        what = f'at block_k {block_k},'
+    if plan.smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(f'{what} a pyramid of {h_total} stacked rows and {wmax} columns '
-                         f'needs {smem} B of shared memory per block; the card has '
-                         f'{MAX_SMEM_BYTES}')
-    return Stage2Plan(*plan)
+                         f'needs {plan.smem_bytes} B of shared memory per block; the card '
+                         f'has {MAX_SMEM_BYTES}')
+    return plan
 
 
 def _check_call(variant: str, output_size: int, out_dtype: torch.dtype) -> None:
