@@ -92,6 +92,7 @@ ROI_OPS_PER_OUTPUT = 32
 TC_BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 STAGE2_REPS = 5                    # timed calls per variant at the experiment's shape
 STAGE2_BLOCK_K = 8                 # block_k of the comparisons and the box-shape times
+STAGE2_WINDOWS = 7                 # alternating windows of each redesigned kernel and its control
 # Min/max operations per pixel of a minimal form of the clean (the form is
 # checked against the plain version in tests/test_torch_clean.py):
 # the median, 18 (sort each vertical triple, 6; then med3 of the max of the
@@ -318,6 +319,7 @@ def check_stage2(rng, reps: int, card: str, seed: int):
     '''Phase 3b: the stage-2 experiment's path, then each stage-2 kernel
     against its plain version; the launches of the path and the report rows.'''
     import torch
+    from moseq2_detectron_extract_tpu_torch import native
     from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp as exp
     from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel
     from moseq2_detectron_extract_tpu_torch.ops import roi_stage2_kernel as rs
@@ -332,6 +334,7 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         raise AssertionError(f'a stage-2 kernel was not launched by the experiment: {launches}')
     exp_ms = {(r['label'], r['block_k']): r['ms'] for r in result['rows']}
 
+    lib = native.load_library()
     bk = STAGE2_BLOCK_K
     levels64, boxes64 = result['inputs']
     shapes = {'box': roi_inputs(rng, 16, 16),
@@ -378,6 +381,12 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         plan = rs.launch_plan(variant, 16, 16, 256, 75, 40, bk)
         plan64 = rs.launch_plan(variant, 64, 256, 256, 120, 64, bk)
         for name, p in (('box', plan), ('experiment', plan64)):
+            # the channel slice as the C launcher chooses it, held against the plan
+            if p.design == 'resident':
+                launched_cs = lib.m2de_roi_stage2_resident_cs(p.hp, p.wp)
+                if launched_cs != p.cs:
+                    raise AssertionError(f'roi_stage2 {label} ({name}): the launcher takes '
+                                         f'{launched_cs} channels a block, the plan {p.cs}')
             phase(f'roi_stage2 {label} plan ({name}, block_k {bk}): {p.design} loop, '
                   f'{p.blocks} blocks of {rs.THREADS} threads, {p.cs} channels and '
                   f'{p.roi_blocks} ROI block(s) a block, {p.passes} pass(es), '
@@ -400,14 +409,32 @@ def check_stage2(rng, reps: int, card: str, seed: int):
                        'cs': plan.cs, 'experiment_cs': plan64.cs,
                        'experiment_ms': {str(k): exp_ms[(label, k)] for k in exp.BLOCK_KS},
                        'experiment_bound_ms': b64_ms}
-    # each redesigned kernel beside the streaming-loop kernel of the same function
+    # Each redesigned kernel beside the streaming-loop kernel of the same
+    # function, then both again at the experiment's shape in alternating
+    # windows of STAGE2_REPS calls, so that a drift over the run shows as a
+    # spread and not as a difference between the two.
+    runs = {label: (variant, dtype) for label, variant, dtype in exp.RUNS}
+    exp_full = rs.stage2_inputs(levels64, boxes64, 7, bk)
+    k64 = boxes64.shape[1]
     for new, control in (('noxpose', 'dotswap'), ('noxpose-bf16', 'dotswap'),
                          ('retile', 'transpose')):
         a, c = rows[new], rows[control]
+        windows = {new: [], control: []}
+        for _ in range(STAGE2_WINDOWS):
+            for label in windows:
+                variant, dtype = runs[label]
+                windows[label].append(exp.event_ms(functools.partial(
+                    rs.roi_stage2_cuda, *exp_full, k64, variant, bk, dtype), STAGE2_REPS))
+        spread = '; '.join(
+            f'{label} median {statistics.median(ms):.4f}, range {min(ms):.4f}-{max(ms):.4f}'
+            for label, ms in windows.items())
         phase(f'roi_stage2 {new} ({a["design"]}) vs {control} ({c["design"]}), ms: box '
               f'{a["ms"]:.4f} vs {c["ms"]:.4f}; experiment block_k 8 '
               f'{a["experiment_ms"]["8"]:.4f} vs {c["experiment_ms"]["8"]:.4f}, block_k 16 '
-              f'{a["experiment_ms"]["16"]:.4f} vs {c["experiment_ms"]["16"]:.4f} [{card}]')
+              f'{a["experiment_ms"]["16"]:.4f} vs {c["experiment_ms"]["16"]:.4f} (the resident '
+              f'kernel does the same work at both block_k, which only pads K: its two readings '
+              f'repeat one measurement); experiment block_k {bk}, {STAGE2_WINDOWS} alternating '
+              f'windows of {STAGE2_REPS} calls: {spread} [{card}]')
     return launches, rows
 
 
@@ -676,7 +703,6 @@ def main() -> int:
         source = 'roi_stage2_resident.cu' if row['design'] == 'resident' else 'roi_stage2.cu'
         kernels.append({'name': f'roi_stage2_{variant}', 'route': 'cuda',
                         'source': f'{PKG}/csrc/{source}', 'design': row['design'],
-                        'cs': row['cs'], 'experiment_cs': row['experiment_cs'],
                         'replaces': f'benchmarks/roi_stage2_exp.py:{line}',
                         'launches': stage2_launches[variant],
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
