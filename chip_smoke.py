@@ -32,10 +32,10 @@ Phases, each printed with its elapsed seconds as it starts:
    noxpose with a bf16 output, against its plain version at the main path's
    box shape (B 16, K 16, canvas 160) and at the experiment's shape on its
    first 4 images (the plain version's f32 T at 64 would take 7.5 GB), to 2
-   bf16 ulps, with each kernel's launch plan (its design: the resident loop
-   of retile and noxpose, the streaming loop of transpose and dotswap; its
-   channels per block), noxpose beside dotswap and retile beside transpose
-   (the same functions on the streaming loop), its device time at the box
+   bf16 ulps, with each kernel's launch plan (all four run one loop; its
+   channels per block, held against the C launcher's), each kernel beside
+   its twin on that loop (transpose beside retile, dotswap beside noxpose:
+   the same mma, another B load or epilogue), its device time at the box
    shape beside its bound (the same yardstick as ROIAlign's, the output
    counted in its own dtype), the dense form's tensor-core time (its
    multiply-adds x 2 over 989e12/s), the two-call form's time, and the mma
@@ -92,7 +92,7 @@ ROI_OPS_PER_OUTPUT = 32
 TC_BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 STAGE2_REPS = 5                    # timed calls per variant at the experiment's shape
 STAGE2_BLOCK_K = 8                 # block_k of the comparisons and the box-shape times
-STAGE2_WINDOWS = 7                 # alternating windows of each redesigned kernel and its control
+STAGE2_WINDOWS = 7                 # alternating windows of each redesigned kernel and its twin
 # Min/max operations per pixel of a minimal form of the clean (the form is
 # checked against the plain version in tests/test_torch_clean.py):
 # the median, 18 (sort each vertical triple, 6; then med3 of the max of the
@@ -382,14 +382,12 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         plan64 = rs.launch_plan(variant, 64, 256, 256, 120, 64, bk)
         for name, p in (('box', plan), ('experiment', plan64)):
             # the channel slice as the C launcher chooses it, held against the plan
-            if p.design == 'resident':
-                launched_cs = lib.m2de_roi_stage2_resident_cs(p.hp, p.wp)
-                if launched_cs != p.cs:
-                    raise AssertionError(f'roi_stage2 {label} ({name}): the launcher takes '
-                                         f'{launched_cs} channels a block, the plan {p.cs}')
-            phase(f'roi_stage2 {label} plan ({name}, block_k {bk}): {p.design} loop, '
-                  f'{p.blocks} blocks of {rs.THREADS} threads, {p.cs} channels and '
-                  f'{p.roi_blocks} ROI block(s) a block, {p.passes} pass(es), '
+            launched_cs = lib.m2de_roi_stage2_resident_cs(p.hp, p.wp)
+            if launched_cs != p.cs:
+                raise AssertionError(f'roi_stage2 {label} ({name}): the launcher takes '
+                                     f'{launched_cs} channels a block, the plan {p.cs}')
+            phase(f'roi_stage2 {label} plan ({name}, block_k {bk}): {p.blocks} blocks of '
+                  f'{rs.THREADS} threads, {p.cs} channels and {p.pairs} ROI pairs a block, '
                   f'{p.smem_bytes} B shared memory')
         phase(f'roi_stage2 {label}: max_abs_err box {errs["box"]:.3e}, experiment B=4 '
               f'{errs["experiment B=4"]:.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); box device ms: '
@@ -405,21 +403,19 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         phase(f'roi_stage2 {label}: mma.m16n8k16 issued (stage 1 + stage 2) and the rate: '
               + '; '.join(rates) + f' (dense bf16 peak 989) [{card}]')
         rows[label] = {'max_abs_err': max(errs.values()), 'ms': ms, 'plain_ms': plain_ms,
-                       'bound_ms': b_ms, 'bound_by': by, 'design': plan.design,
-                       'cs': plan.cs, 'experiment_cs': plan64.cs,
+                       'bound_ms': b_ms, 'bound_by': by,
                        'experiment_ms': {str(k): exp_ms[(label, k)] for k in exp.BLOCK_KS},
                        'experiment_bound_ms': b64_ms}
-    # Each redesigned kernel beside the streaming-loop kernel of the same
-    # function, then both again at the experiment's shape in alternating
-    # windows of STAGE2_REPS calls, so that a drift over the run shows as a
-    # spread and not as a difference between the two.
+    # Each kernel redesigned last beside its twin on the same loop, then both
+    # again at the experiment's shape in alternating windows of STAGE2_REPS
+    # calls, so that a drift over the run shows as a spread and not as a
+    # difference between the two.
     runs = {label: (variant, dtype) for label, variant, dtype in exp.RUNS}
     exp_full = rs.stage2_inputs(levels64, boxes64, 7, bk)
     k64 = boxes64.shape[1]
-    for new, control in (('noxpose', 'dotswap'), ('noxpose-bf16', 'dotswap'),
-                         ('retile', 'transpose')):
-        a, c = rows[new], rows[control]
-        windows = {new: [], control: []}
+    for new, twin in (('transpose', 'retile'), ('dotswap', 'noxpose')):
+        a, c = rows[new], rows[twin]
+        windows = {new: [], twin: []}
         for _ in range(STAGE2_WINDOWS):
             for label in windows:
                 variant, dtype = runs[label]
@@ -428,11 +424,11 @@ def check_stage2(rng, reps: int, card: str, seed: int):
         spread = '; '.join(
             f'{label} median {statistics.median(ms):.4f}, range {min(ms):.4f}-{max(ms):.4f}'
             for label, ms in windows.items())
-        phase(f'roi_stage2 {new} ({a["design"]}) vs {control} ({c["design"]}), ms: box '
+        phase(f'roi_stage2 {new} vs {twin}, ms: box '
               f'{a["ms"]:.4f} vs {c["ms"]:.4f}; experiment block_k 8 '
               f'{a["experiment_ms"]["8"]:.4f} vs {c["experiment_ms"]["8"]:.4f}, block_k 16 '
-              f'{a["experiment_ms"]["16"]:.4f} vs {c["experiment_ms"]["16"]:.4f} (the resident '
-              f'kernel does the same work at both block_k, which only pads K: its two readings '
+              f'{a["experiment_ms"]["16"]:.4f} vs {c["experiment_ms"]["16"]:.4f} (each kernel '
+              f'does the same work at both block_k, which only pads K: its two readings '
               f'repeat one measurement); experiment block_k {bk}, {STAGE2_WINDOWS} alternating '
               f'windows of {STAGE2_REPS} calls: {spread} [{card}]')
     return launches, rows
@@ -700,9 +696,8 @@ def main() -> int:
     replaces = {'retile': 59, 'transpose': 92, 'dotswap': 114, 'noxpose': 133}
     for variant, line in replaces.items():
         row = stage2[variant]
-        source = 'roi_stage2_resident.cu' if row['design'] == 'resident' else 'roi_stage2.cu'
         kernels.append({'name': f'roi_stage2_{variant}', 'route': 'cuda',
-                        'source': f'{PKG}/csrc/{source}', 'design': row['design'],
+                        'source': f'{PKG}/csrc/roi_stage2_resident.cu',
                         'replaces': f'benchmarks/roi_stage2_exp.py:{line}',
                         'launches': stage2_launches[variant],
                         'max_abs_err': row['max_abs_err'], 'ms': row['ms'],

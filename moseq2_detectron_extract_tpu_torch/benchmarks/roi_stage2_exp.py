@@ -5,7 +5,8 @@ the card's tensor cores.
         [--device cpu] [--seed 0] [--reps 5]
 
 Port of ``benchmarks/roi_stage2_exp.py``. Its four Pallas bodies are the
-CUDA kernels of ``csrc/roi_stage2.cu`` (``ops/roi_stage2_kernel.py``):
+CUDA kernels of ``csrc/roi_stage2_resident.cu`` (``ops/roi_stage2_kernel.py``),
+one loop that keeps an image's pyramid channel slice in shared memory:
 
   retile     block-diagonal Wx (rows (i, ox)) against T, one oy at a time
   transpose  the same product over all (oy, c) columns in one pass

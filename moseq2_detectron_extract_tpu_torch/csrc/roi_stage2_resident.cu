@@ -1,31 +1,44 @@
-// Two stage-2 layouts of the fused separable ROIAlign on Hopper's tensor
-// cores (sm_90a, mma.sync.m16n8k16 bf16 with f32 accumulators), on a loop
-// that keeps one image's pyramid channel slice resident in shared memory.
+// The four stage-2 layouts of the fused separable ROIAlign on Hopper's
+// tensor cores (sm_90a, mma.sync.m16n8k16 bf16 with f32 accumulators), on one
+// loop that keeps an image's pyramid channel slice resident in shared memory.
 //
 // Replaces the Pallas TPU kernel bodies of benchmarks/roi_stage2_exp.py,
 // launched by its make_variant:
-//   m2de_roi_stage2_retile   <- _kernel_retile_peroy (l.59)
-//   m2de_roi_stage2_noxpose  <- _kernel_noxpose      (l.133)
-// (transpose and dotswap stay on roi_stage2.cu's streaming loop.)
+//   m2de_roi_stage2_retile     <- _kernel_retile_peroy (l.59)
+//   m2de_roi_stage2_transpose  <- _kernel_transpose    (l.92)
+//   m2de_roi_stage2_dotswap    <- _kernel_dotswap      (l.114)
+//   m2de_roi_stage2_noxpose    <- _kernel_noxpose      (l.133)
 //
-// Function, inputs and outputs: as roi_stage2.cu says.
+// Function. All four compute the fused separable multilevel ROIAlign
 //   T[i, oy, w, c]  = bf16( sum_h Wy[i, oy, h] * F[h, w, c] )        (stage 1)
 //   out[i, oy, ox, c] = sum_w Wx[i, ox, w] * T[i, oy, w, c]           (stage 2)
-// noxpose writes (i, oy, c, ox) in f32 or bf16, retile (i, oy, ox, c) in f32.
+// with F the H-stacked, W-padded pyramid of one image (bf16), Wy and Wx the
+// folded interpolation weights rounded to bf16, both stages accumulated in
+// f32 and T rounded to bf16 between them, as the TPU's bf16 t_vmem is.
+// noxpose writes (i, oy, c, ox) in f32 or bf16, the others (i, oy, ox, c) in
+// f32. Only ROIs i < K are written (the wrapper pads the ROIs to a multiple
+// of block_k with zero weights, as make_variant does).
 //
-// What bounds it on an H100. The streaming loop of roi_stage2.cu issued its
-// mma at about a tenth of the tensor-core peak: every warp waited on a
-// cp.async group and a block barrier behind every 16 mma, F tiles arriving
-// from L2 two steps ahead (PERF.md, section 5). Like the TPU kernel, which
-// copies one image's pyramid into VMEM once (at kb == 0) and reads it there
-// for every ROI block of the image, this loop loads F once per image: each
-// block holds one (image, slice of cs channels) and its F slice, (Hp, Wp,
-// cs) bf16, stays in shared memory while the block walks every ROI of the
-// image. The slice takes most of the shared memory, so an SM holds one block
-// of 8 warps; what bounds the loop is then latency inside each warp (PERF.md,
-// section 6), and the design keeps each warp's chains short and its warps
-// apart: after the F slice has landed no warp waits for another, loads run
-// a step ahead of the mma that read them, and shared-memory loads are
+// Layout (ops/roi_stage2_kernel.py builds it): F (B, Hp, Wp, C), Wy (B, Kp, 7,
+// Hp), Wx (B, Kp, 7, Wp), bf16, contiguous; Hp and Wp are sum_l H_l and
+// max_l W_l padded with zeros to the mma depth of 16, Kp a multiple of
+// block_k (8 or 16). The output size is 7.
+//
+// What bounds it on an H100. The function moves bytes: the taps its boxes
+// touch, 32 fp32 operations per output element (PERF.md, row 1). This dense
+// form does far more work: stage 1 multiplies every row of the ROIs' level
+// bands. PR 6's loop streamed F tiles from L2 through a cp.async ring and
+// issued its mma at about a tenth of the tensor-core peak: every warp waited
+// on a cp.async group and a block barrier behind every 16 mma. Like the TPU
+// kernel, which copies one image's pyramid into VMEM once (at kb == 0) and
+// reads it there for every ROI block of the image, this loop loads F once per
+// image: each block holds one (image, slice of cs channels) and its F slice,
+// (Hp, Wp, cs) bf16, stays in shared memory while the block walks every ROI
+// of the image. The slice takes most of the shared memory, so an SM holds one
+// block of 8 warps; what bounds the loop is then latency inside each warp
+// (PERF.md, section 6), and the design keeps each warp's chains short and its
+// warps apart: after the F slice has landed no warp waits for another, loads
+// run a step ahead of the mma that read them, and shared-memory loads are
 // batched.
 //
 // Design. One block of 8 warps per (channel slice, image); cs is 16 where the
@@ -44,30 +57,50 @@
 //    are read, and run under the epilogue. It then finds the h and w tiles of
 //    16 where the pair's weights are nonzero; the tiles outside are skipped
 //    (the result is the same), inside them stage 1 is dense.
-// 3. Stage 1 runs over the (w tile, h tile) steps as one loop reading only
-//    shared memory (Wy rows by ldmatrix, F by ldmatrix.trans; per step 16 n8
-//    tiles, 16 w columns of 8 channels), its fragments loaded a step ahead,
-//    with no barrier and no copy to wait for. At the end of a w tile the
-//    accumulators, rounded to bf16, go into the warp's T tile (16 rows x 16
-//    w x 8 channels, 16-byte chunks XOR-swizzled by row), after stage 2 of
-//    the previous w tile has read it while these mma drain. With cs 16 a
-//    warp walks each pair once per 8-channel half.
+// 3. Stage 1, the same for all four, runs over the (w tile, h tile) steps
+//    as one loop reading only shared memory (Wy rows by ldmatrix, F by
+//    ldmatrix.trans; per step 16 n8 tiles, 16 w columns of 8 channels), its
+//    fragments loaded a step ahead, with no barrier and no copy to wait for.
+//    At the end of a w tile the accumulators, rounded to bf16, go into the
+//    warp's T tile (16 rows x 16 w x 8 channels, 16-byte chunks
+//    XOR-swizzled by row), after stage 2 of the previous w tile has read it
+//    while these mma drain. With cs 16 a warp walks each pair once per
+//    8-channel half. It runs once over all rows (i, oy): with T a w tile at
+//    a time there is no reason to repeat it per oy, so the four variants
+//    issue the same stage-1 mma at both block_k
+//    (roi_stage2_kernel.mma_count).
 // 4. Stage 2, its accumulators in registers across the w tiles:
-//    - noxpose: A = T with rows (oy pair, 8 channels) and depth w
+//    - dotswap, noxpose: A = T with rows (oy pair, 8 channels) and depth w
 //      (ldmatrix.trans; the pair (6, 7) has T's zero row oy 7 as its second
 //      half), B = Wx^T with N = ox (7 padded to 8): 4 mma per ROI and w
-//      tile. The epilogue stages each (i, oy) row of (8 channels x 7 ox)
-//      values in the T tile and writes it with one bulk store, contiguous in
-//      the output (224 bytes f32, 112 bf16), where a direct store would
-//      write 4 bytes at a stride of 7.
+//      tile. They issue the same mma in the same order and differ only in
+//      the epilogue, so dotswap's output is noxpose's with (c, ox) swapped,
+//      bit for bit.
 //    - retile: the TPU body's block-diagonal per-oy product. For each oy, A
 //      = the block-diagonal Wx of the pair's two ROIs, rows (i, ox), depth
 //      (i', w); B = T at that oy, depth (i', w), N = 8 channels: 2 mma per
-//      oy (one k tile per ROI; no other ROI's zero block is multiplied).
-//      Stage 1 runs once over all rows (i, oy), as noxpose's: with T a w
-//      tile at a time there is no reason to repeat it per oy, so retile's
-//      stage-1 mma equal noxpose's at both block_k
-//      (roi_stage2_kernel.mma_count).
+//      oy (one k tile per ROI; no other ROI's zero block is multiplied),
+//      its B fragments by two ldmatrix.x2.trans per oy.
+//    - transpose: the same block-diagonal A against B = T with N = (oy, c),
+//      all 7 oy in one product. Its B fragments come over oy pairs, one
+//      ldmatrix.x4.trans per pair and ROI (the pair (6, 7) reads the zero
+//      row oy 7, whose n8 tile is not multiplied): 8 loads per w tile where
+//      retile issues 14. The mma are retile's, 14 per w tile, each
+//      accumulator (oy) summed in the same order, so transpose's output is
+//      retile's bit for bit. On the TPU the two split because of Mosaic's
+//      relayout limits; on Hopper only the B loads differ.
+// 5. Epilogue, only ROIs k < K:
+//    - noxpose stages each (i, oy) row of (8 channels x 7 ox) values in the
+//      T tile and writes it with one bulk store, contiguous in the output
+//      (224 bytes f32, 112 bf16), where a direct store would write 4 bytes
+//      at a stride of 7.
+//    - retile, transpose and dotswap write (i, oy, ox, c): a block's 8
+//      channels of one (i, oy, ox) are a 32-byte piece, pieces C x 4 bytes
+//      apart. retile and transpose stage the pair's 98 pieces in the T tile
+//      as (i, oy, ox, 8 channels) and write them with 16-byte stores, two
+//      lanes a piece. dotswap stores from its accumulators, 4 bytes a lane:
+//      the 8 lanes of one ox and oy pair hold one piece's 8 channels, so a
+//      warp's store fills four 32-byte sectors.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -87,7 +120,7 @@ constexpr int kTBuf = 16 * 16 * kCu;     // a warp's T tile: 16 rows x 16 w x 8 
 constexpr int kHead = 128;               // bytes: the warps' mbarriers, and room
 constexpr int kMaxSmem = 232448;         // bytes of shared memory a block may use
 
-enum Variant { kRetile = 0, kNoxpose = 3 };
+enum Variant { kRetile = 0, kTranspose = 1, kDotswap = 2, kNoxpose = 3 };
 
 int resident_bytes(int cs, int hp, int wp) {
   return kHead + 2 * (cs / kCu * hp * (wp * kCu + 8) + kWarps * 16 * (hp + 8 + wp + 8) +
@@ -182,7 +215,10 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const 
                : "r"(smem_u32(p)));
 }
 
-// d += a * b for one m16n8k16 tile (fragments as in roi_stage2.cu).
+// d += a * b for one m16n8k16 tile: a holds (row g, k 2t..2t+1), (row g+8, k
+// 2t..), (row g, k 2t+8..), (row g+8, k 2t+8..); b (k 2t.., col g), (k 2t+8..,
+// col g); d (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1), with g = lane / 4
+// and t = lane % 4.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -202,7 +238,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     roi_stage2_resident_kernel(const bf16* __restrict__ f, const bf16* __restrict__ wy,
                                const bf16* __restrict__ wx, OutT* __restrict__ out, int K,
                                int Kp, int C, int hp, int wp, int cs) {
-  static_assert(V == kNoxpose || std::is_same<OutT, float>::value, "retile stores f32");
+  static_assert(V == kNoxpose || std::is_same<OutT, float>::value, "only noxpose stores bf16");
+  constexpr bool kBlockDiag = V == kRetile || V == kTranspose;   // stage 2's A is Wx
   extern __shared__ __align__(16) unsigned char smem[];
   const int f_row = wp * kCu + 8;                            // one h row of an F plane
   const int f_plane = hp * f_row;
@@ -315,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const bf16* fb = f_s + half * f_plane;
       const int c0 = cbase + half * kCu;
-      // noxpose: [ROI][oy pair]; retile: [oy] (of 7)
+      // dotswap, noxpose: [ROI][oy pair]; retile, transpose: [oy] (of 7)
       float acc2[8][4];
 #pragma unroll
       for (int p = 0; p < 8; ++p)
@@ -325,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // Stage 2 (4. above) of w tile wt on the T tile: every fragment
       // first, then the mma.
       auto stage2 = [&](int wt) {
-        if constexpr (V == kNoxpose) {
+        if constexpr (!kBlockDiag) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             uint32_t x0, x1, a[4][4];
@@ -344,11 +381,27 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   *reinterpret_cast<const uint32_t*>(x0 + 8), 0u};
           const uint32_t xb[4] = {0u, *reinterpret_cast<const uint32_t*>(x1), 0u,
                                   *reinterpret_cast<const uint32_t*>(x1 + 8)};
-          uint32_t bt[kOut][4];
+          // B at oy: [0..1] the first ROI's T rows, [2..3] the second's
+          uint32_t bt[8][4];
+          if constexpr (V == kRetile) {
 #pragma unroll
-          for (int oy = 0; oy < kOut; ++oy) {
-            ldsm_x2_trans(bt[oy][0], bt[oy][1], tw + tidx(oy, lane & 15));
-            ldsm_x2_trans(bt[oy][2], bt[oy][3], tw + tidx(8 + oy, lane & 15));
+            for (int oy = 0; oy < kOut; ++oy) {
+              ldsm_x2_trans(bt[oy][0], bt[oy][1], tw + tidx(oy, lane & 15));
+              ldsm_x2_trans(bt[oy][2], bt[oy][3], tw + tidx(8 + oy, lane & 15));
+            }
+          } else {
+            // one x4 per (ROI, oy pair): lanes 16-31 address the pair's second oy
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+              for (int p = 0; p < 4; ++p) {
+                uint32_t r[4];
+                ldsm_x4_trans(r, tw + tidx(i * 8 + 2 * p + (lane >> 4), lane & 15));
+                bt[2 * p][2 * i] = r[0];
+                bt[2 * p][2 * i + 1] = r[1];
+                bt[2 * p + 1][2 * i] = r[2];
+                bt[2 * p + 1][2 * i + 1] = r[3];
+              }
           }
 #pragma unroll
           for (int oy = 0; oy < kOut; ++oy) {
@@ -455,17 +508,35 @@ __global__ void __launch_bounds__(kThreads, 1)
           bulk_store(out + (row * C + c0) * kOut, st + (i * kOut + oy) * 8 * kOut,
                      8 * kOut * sizeof(OutT));
         }
+      } else if constexpr (V == kDotswap) {
+        // (oy, channel g) x (ox pair) straight from the accumulators: 4 bytes
+        // a lane, a warp's 8 lanes of one ox one 32-byte piece
+        const size_t roi0 = static_cast<size_t>(b) * K + 2 * q;
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = p / 4, oy = 2 * (p % 4) + (e >> 1), ox = 2 * t4 + (e & 1);
+            if (oy >= kOut || ox >= kOut || 2 * q + i >= K) continue;
+            out[(((roi0 + i) * kOut + oy) * kOut + ox) * C + c0 + g] = acc2[p][e];
+          }
       } else {
+        // The pair's 98 (i, oy, ox) pieces of 8 channels (32 bytes) staged in
+        // the T tile, then 16-byte stores, two lanes a piece.
+        float* st = reinterpret_cast<float*>(tw);
 #pragma unroll
         for (int oy = 0; oy < kOut; ++oy)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            if (g >= kOut || 2 * q + i >= K) continue;
-            const size_t idx =
-                (((static_cast<size_t>(b) * K + 2 * q + i) * kOut + oy) * kOut + g) * C + c0 +
-                2 * t4;
-            *reinterpret_cast<float2*>(out + idx) = make_float2(acc2[oy][2 * i], acc2[oy][2 * i + 1]);
-          }
+          for (int i = 0; i < 2; ++i)
+            if (g < kOut)
+              *reinterpret_cast<float2*>(st + ((i * kOut + oy) * kOut + g) * kCu + 2 * t4) =
+                  make_float2(acc2[oy][2 * i], acc2[oy][2 * i + 1]);
+        __syncwarp();
+        const size_t piece0 = (static_cast<size_t>(b) * K + 2 * q) * kOut * kOut;
+        const int pieces = min(2, K - 2 * q) * kOut * kOut;
+        for (int j = lane; j < 2 * pieces; j += 32)
+          *reinterpret_cast<float4*>(out + (piece0 + j / 2) * C + c0 + 4 * (j & 1)) =
+              *reinterpret_cast<const float4*>(st + 4 * j);
       }
     }
   }
@@ -506,7 +577,9 @@ int launch(const void* f, const void* wy, const void* wx, void* out, int B, int 
 
 }  // namespace
 
-// The same arguments as roi_stage2.cu's entries.
+// f (B, Hp, Wp, C), wy (B, Kp, 7, Hp), wx (B, Kp, 7, Wp): bf16, contiguous;
+// out (B, K, 7, 7, C), or (B, K, 7, C, 7) for noxpose, f32 or (out_bf16,
+// noxpose only) bf16.
 #define M2DE_RESIDENT_ENTRY(name, variant)                                                 \
   extern "C" int name(const void* f, const void* wy, const void* wx, void* out, int B,     \
                       int K, int Kp, int C, int hp, int wp, int block_k, int out_bf16,     \
@@ -514,8 +587,9 @@ int launch(const void* f, const void* wy, const void* wx, void* out, int B, int 
     return launch<variant>(f, wy, wx, out, B, K, Kp, C, hp, wp, block_k, out_bf16, stream); \
   }
 
-// native.py compiles this source once per entry, with -DM2DE_STAGE2_VARIANT=0
-// or 3 (one nvcc each, in parallel); without the macro one object holds both.
+// native.py compiles this source once per entry, with -DM2DE_STAGE2_VARIANT=0,
+// 1, 2 or 3 (one nvcc each, in parallel); without the macro one object holds
+// all four.
 #if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 0
 M2DE_RESIDENT_ENTRY(m2de_roi_stage2_retile, kRetile)
 
@@ -526,6 +600,12 @@ extern "C" int m2de_roi_stage2_resident_cs(int hp, int wp) { return resident_cs(
 extern "C" int m2de_roi_stage2_resident_smem_bytes(int hp, int wp) {
   return resident_bytes(resident_cs(hp, wp), hp, wp);
 }
+#endif
+#if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 1
+M2DE_RESIDENT_ENTRY(m2de_roi_stage2_transpose, kTranspose)
+#endif
+#if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 2
+M2DE_RESIDENT_ENTRY(m2de_roi_stage2_dotswap, kDotswap)
 #endif
 #if !defined(M2DE_STAGE2_VARIANT) || M2DE_STAGE2_VARIANT == 3
 M2DE_RESIDENT_ENTRY(m2de_roi_stage2_noxpose, kNoxpose)

@@ -3,8 +3,8 @@
 Each build unit, a ``csrc/*.cu`` source with its own flags, is compiled by
 its own ``nvcc -c`` (all started together), and the objects are linked into
 one shared library with a plain C interface, loaded with ``ctypes``.
-``roi_stage2.cu`` and ``roi_stage2_resident.cu`` are two units each, one per
-entry, so that their kernels compile in parallel. No source includes PyTorch's headers,
+``roi_stage2_resident.cu`` is four units, one per entry, so that its four
+kernels compile in parallel. No source includes PyTorch's headers,
 so a build takes seconds. The library lands in ``_build/<hash>/`` beside
 this file, keyed by a hash of the sources, the flags and the compiler, so an
 unchanged checkout builds once. The build happens at the first kernel call,
@@ -31,9 +31,9 @@ from typing import List
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-SOURCES = ('roi_align.cu', 'clean.cu', 'roi_stage2.cu', 'roi_stage2_resident.cu')
+SOURCES = ('roi_align.cu', 'clean.cu', 'roi_stage2_resident.cu')
 # the stage-2 entries each source holds (0 retile, 1 transpose, 2 dotswap, 3 noxpose)
-_STAGE2_ENTRIES = {'roi_stage2.cu': (1, 2), 'roi_stage2_resident.cu': (0, 3)}
+_STAGE2_ENTRIES = {'roi_stage2_resident.cu': (0, 1, 2, 3)}
 # (source, extra nvcc flags), one nvcc -c each: the stage-2 sources once per entry
 UNITS = tuple((src, flags) for src in SOURCES for flags in (
     [(f'-DM2DE_STAGE2_VARIANT={v}',) for v in _STAGE2_ENTRIES[src]]
@@ -143,8 +143,6 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
                           i, i,                # block_k, out_bf16
                           p]                   # stream
         entry.restype = i
-    lib.m2de_roi_stage2_smem_bytes.argtypes = [i, i, i, i]  # variant, block_k, Hp, Wp
-    lib.m2de_roi_stage2_smem_bytes.restype = i
     for entry in (lib.m2de_roi_stage2_resident_cs, lib.m2de_roi_stage2_resident_smem_bytes):
         entry.argtypes = [i, i]                          # Hp, Wp
         entry.restype = i

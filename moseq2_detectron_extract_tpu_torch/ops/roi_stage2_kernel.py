@@ -1,9 +1,8 @@
 '''The ROIAlign stage-2 experiment's four layouts: the tensor-core CUDA
-kernels, their plain version, launch plan and dispatching entry. retile and
-noxpose run the loop that keeps one image's pyramid channel slice in shared
-memory (``csrc/roi_stage2_resident.cu``, design ``'resident'``); transpose
-and dotswap the loop that streams F tiles (``csrc/roi_stage2.cu``, design
-``'streaming'``).
+kernels, their plain version, launch plan and dispatching entry. All four
+run one loop (``csrc/roi_stage2_resident.cu``) that keeps one image's
+pyramid channel slice in shared memory while its warps walk the image's
+ROIs two at a time; they differ in stage 2 and the epilogue.
 
 Replaces the Pallas TPU kernel bodies of ``benchmarks/roi_stage2_exp.py``
 (``_kernel_retile_peroy``, ``_kernel_transpose``, ``_kernel_dotswap``,
@@ -31,14 +30,12 @@ VARIANTS = ('retile', 'transpose', 'dotswap', 'noxpose')
 BLOCK_KS = (8, 16)
 OUTPUT_SIZE = 7           # the kernels' output size
 MMA_DEPTH = 16            # ΣH and Wmax are padded to this (mma.m16n8k16)
-THREADS = 256             # 8 warps a block, in both designs
+THREADS = 256             # 8 warps a block
 MAX_SMEM_BYTES = 232448   # shared memory one block may use on an H100
-RESIDENT = ('retile', 'noxpose')   # the variants on the F-resident loop
 WARPS = THREADS // 32
-PAIR = 2                  # ROIs a resident warp walks together, whatever block_k is
-UNIT_CHANNELS = 8         # channels of one resident F plane and T column
-_STREAM_CHANNELS = 16     # channels per block of the streaming loop
-_STREAM_F_STAGES = 3      # its cp.async ring of (16 h, 16 w, 16 c) F tiles
+PAIR = 2                  # ROIs a warp walks together, whatever block_k is
+UNIT_CHANNELS = 8         # channels of one F plane and T column
+CHANNEL_MULTIPLE = 16     # channels must be a positive multiple (the C launcher checks it too)
 
 # launches of each variant's CUDA kernel since the counts were last set to 0
 launch_count = dict.fromkeys(VARIANTS, 0)
@@ -46,21 +43,15 @@ launch_count = dict.fromkeys(VARIANTS, 0)
 
 class Stage2Plan(NamedTuple):
     '''How a kernel splits the work: one block of THREADS threads per
-    (image, slice of ``cs`` channels), its F slice resident, each warp
-    walking pairs of the image's ROIs (design ``'resident'``), or per
-    (image, block of ``block_k`` ROIs, slice of 16 channels) streaming F
-    tiles (``'streaming'``).'''
-    design: str                  # 'resident' or 'streaming'
-    grid: Tuple[int, int, int]   # (channel slices, ROI blocks, images); resident: 1 ROI block
+    (slice of ``cs`` channels, image), its F slice resident in shared
+    memory, its warps walking the image's ``pairs`` ROI pairs.'''
+    grid: Tuple[int, int, int]   # (channel slices, 1, images)
     blocks: int
     cs: int                      # channels per block
-    f_stages: int                # F copies in flight: the 3-tile ring, or the slice once (1)
-    roi_blocks: int              # ROI blocks one block walks: Kp / 2 pairs (resident) or 1
+    pairs: int                   # ROI pairs a block walks: Kp / 2
     kp: int                      # ROIs padded to a multiple of block_k
     hp: int                      # ΣH padded to the mma depth
     wp: int                      # Wmax padded to the mma depth
-    m_pad: int                   # stage-1 rows (i, oy) of a ROI block (resident: oy to 8)
-    passes: int                  # stage-1 passes over a ROI block's rows
     smem_bytes: int
 
 
@@ -69,7 +60,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 def resident_smem_bytes(cs: int, hp: int, wp: int) -> int:
-    '''Shared memory of a resident block: the warps' mbarriers (128 B), the F
+    '''Shared memory of a block: the warps' mbarriers (128 B), the F
     slice as cs / 8 planes of (h, w, 8 channels) with h rows padded by 8
     elements, and each warp's own Wy and Wx rows (2 ROIs x 8 rows, padded by
     8 elements) and T tile (16 rows x 16 w x 8 channels).'''
@@ -78,7 +69,7 @@ def resident_smem_bytes(cs: int, hp: int, wp: int) -> int:
 
 
 def resident_cs(hp: int, wp: int) -> int:
-    '''Channels per resident block: 16 where everything fits, else 8.'''
+    '''Channels per block: 16 where everything fits, else 8.'''
     return 16 if resident_smem_bytes(16, hp, wp) <= MAX_SMEM_BYTES else UNIT_CHANNELS
 
 
@@ -94,38 +85,25 @@ def padded_sizes(rois: int, h_total: int, wmax: int, block_k: int) -> Tuple[int,
 def launch_plan(variant: str, batch: int, rois: int, channels: int, h_total: int,
                 wmax: int, block_k: int) -> Stage2Plan:
     '''The plan of one launch; raises ValueError for what the kernels do not
-    take. The shared-memory bytes are the C entry's
-    ``m2de_roi_stage2_smem_bytes``: for the resident loop
-    :func:`resident_smem_bytes`; for the streaming loop Wy and Wx of the ROI
-    block (rows padded by 8 elements), the F ring and the T tile (16 w rows
-    of 16 + 8 channels for each row of the block).'''
+    take. The variant does not enter: all four run the same loop. The
+    channels per block and shared-memory bytes are the C entries'
+    ``m2de_roi_stage2_resident_cs`` and ``m2de_roi_stage2_resident_smem_bytes``.'''
     if variant not in VARIANTS:
         raise ValueError(f'variant must be one of {VARIANTS}, got {variant!r}')
     kp, hp, wp = padded_sizes(rois, h_total, wmax, block_k)
-    if channels < _STREAM_CHANNELS or channels % _STREAM_CHANNELS:
-        raise ValueError(f'channels must be a positive multiple of {_STREAM_CHANNELS}, '
+    if channels < CHANNEL_MULTIPLE or channels % CHANNEL_MULTIPLE:
+        raise ValueError(f'channels must be a positive multiple of {CHANNEL_MULTIPLE}, '
                          f'got {channels}')
     if batch > 65535:
         raise ValueError(f'at most 65535 images, got {batch}')
-    if variant in RESIDENT:
-        cs = resident_cs(hp, wp)
-        plan = Stage2Plan('resident', (channels // cs, 1, batch), channels // cs * batch, cs,
-                          1, kp // PAIR, kp, hp, wp, 2 * 8, 1, resident_smem_bytes(cs, hp, wp))
-        what = f'an {cs}-channel slice of'
-    else:
-        m_pad = _round_up(block_k * OUTPUT_SIZE, 16)
-        smem = 16 + 2 * (m_pad * (hp + 8) + block_k * 8 * (wp + 8)
-                         + _STREAM_F_STAGES * 16 * (16 * _STREAM_CHANNELS + 8)
-                         + m_pad * 16 * (_STREAM_CHANNELS + 8))
-        grid = (channels // _STREAM_CHANNELS, kp // block_k, batch)
-        plan = Stage2Plan('streaming', grid, grid[0] * grid[1] * grid[2], _STREAM_CHANNELS,
-                          _STREAM_F_STAGES, 1, kp, hp, wp, m_pad, 1, smem)
-        what = f'at block_k {block_k},'
-    if plan.smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f'{what} a pyramid of {h_total} stacked rows and {wmax} columns '
-                         f'needs {plan.smem_bytes} B of shared memory per block; the card '
+    cs = resident_cs(hp, wp)
+    smem = resident_smem_bytes(cs, hp, wp)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f'an {cs}-channel slice of a pyramid of {h_total} stacked rows and '
+                         f'{wmax} columns needs {smem} B of shared memory per block; the card '
                          f'has {MAX_SMEM_BYTES}')
-    return plan
+    return Stage2Plan((channels // cs, 1, batch), channels // cs * batch, cs, kp // PAIR, kp,
+                      hp, wp, smem)
 
 
 def _check_call(variant: str, output_size: int, out_dtype: torch.dtype) -> None:
@@ -138,10 +116,11 @@ def _check_call(variant: str, output_size: int, out_dtype: torch.dtype) -> None:
 
 
 def tile_counts(wy: torch.Tensor, wx: torch.Tensor, block_k: int):
-    '''Per ROI block (B, Kp / block_k): the h tiles and the w tiles (of 16)
-    that a kernel's block walks, from the lowest to the highest column where
-    any of its Wy (B, Kp, 7, Hp), resp. Wx (B, Kp, 7, Wp), rows is nonzero;
-    0 for a block whose weights are all zero.'''
+    '''Per group of ``block_k`` ROIs (B, Kp / block_k): the h tiles and the
+    w tiles (of 16) from the lowest to the highest column where any of its
+    Wy (B, Kp, 7, Hp), resp. Wx (B, Kp, 7, Wp), rows is nonzero; 0 for a
+    group whose weights are all zero. The kernels' warps walk groups of
+    :data:`PAIR` ROIs.'''
     def tiles(weights):
         b, kp, _, size = weights.shape
         hit = (weights.reshape(b, kp // block_k, -1, size) != 0).any(2)
@@ -159,31 +138,18 @@ def mma_count(variant: str, wy: torch.Tensor, wx: torch.Tensor, block_k: int,
     multiply-adds each), counted from :func:`tile_counts` as the kernel walks
     its tiles.
 
-    Resident (retile, noxpose): a warp walks the tiles of two ROIs at a time
-    (:func:`tile_counts` with block 2); per ROI pair and 8 channels, stage 1
-    issues 16 n8 tiles of its m16 row tile for each (w tile, h tile); stage
-    2, for each w tile, 4 per ROI for noxpose (its oy pairs) and 2 per oy
-    for retile's block-diagonal product, 8 and 14. block_k does not enter.
-
-    Streaming (transpose, dotswap): per ROI block and 16 channels, stage 1
-    issues (rows / 16) x 32 n8 tiles for each (h tile, w tile); stage 2, for
-    each w tile, one per (ROI, oy) for dotswap and, for transpose, one per
-    (row tile, ROI it holds, column tile).'''
-    if variant in RESIDENT:
-        n_ht, n_wt = tile_counts(wy, wx, PAIR)
-        steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
-        units = channels // UNIT_CHANNELS
-        stage2 = PAIR * 4 if variant == 'noxpose' else OUTPUT_SIZE * 2
-        return steps * 16 * units, w_tiles * stage2 * units
-    n_ht, n_wt = tile_counts(wy, wx, block_k)
+    A warp walks the tiles of two ROIs at a time (:func:`tile_counts` with
+    block 2); per ROI pair and 8 channels, stage 1 issues 16 n8 tiles of its
+    m16 row tile for each (w tile, h tile), the same for all four variants;
+    stage 2, for each w tile, 4 per ROI for dotswap and noxpose (their oy
+    pairs) and 2 per oy for the block-diagonal product of retile and
+    transpose (transpose loads oy 7, T's zero row, but does not multiply
+    it), 8 and 14. block_k does not enter.'''
+    n_ht, n_wt = tile_counts(wy, wx, PAIR)
     steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
-    rows = block_k * OUTPUT_SIZE
-    roi_tiles = sum((min(m + 15, rows - 1) // OUTPUT_SIZE) - m // OUTPUT_SIZE + 1
-                    for m in range(0, rows, 16))
-    slices = channels // _STREAM_CHANNELS
-    stage1 = steps * (_round_up(rows, 16) // 16) * 32
-    stage2 = w_tiles * (roi_tiles * 2 * OUTPUT_SIZE if variant == 'transpose' else rows)
-    return stage1 * slices, stage2 * slices
+    units = channels // UNIT_CHANNELS
+    stage2 = PAIR * 4 if variant in ('dotswap', 'noxpose') else OUTPUT_SIZE * 2
+    return steps * 16 * units, w_tiles * stage2 * units
 
 
 def stage2_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor,

@@ -228,13 +228,13 @@ def test_cuda_roi_stage2_refuses_what_it_does_not_take(cuda_device):
 def test_cuda_roi_stage2_shared_memory_formula_agrees(cuda_device):
     from moseq2_detectron_extract_tpu_torch import native
     lib = native.load_library()
-    for i, variant in enumerate(roi_stage2_kernel.VARIANTS):
+    for variant in roi_stage2_kernel.VARIANTS:
         for bk in (8, 16):
             for h, w in ((75, 40), (120, 64), (45, 24)):
                 plan = roi_stage2_kernel.launch_plan(variant, 4, 16, 256, h, w, bk)
-                assert lib.m2de_roi_stage2_smem_bytes(i, bk, plan.hp, plan.wp) == plan.smem_bytes
-                if plan.design == 'resident':
-                    assert lib.m2de_roi_stage2_resident_cs(plan.hp, plan.wp) == plan.cs
+                assert lib.m2de_roi_stage2_resident_smem_bytes(plan.hp, plan.wp) == \
+                    plan.smem_bytes
+                assert lib.m2de_roi_stage2_resident_cs(plan.hp, plan.wp) == plan.cs
 
 
 def plain_from_inputs(f_stack, wy, wx, rois, variant, dtype):
@@ -263,3 +263,37 @@ def test_cuda_roi_stage2_image_of_zero_weights(cuda_device, variant, dtype, canv
     torch.cuda.synchronize()
     assert not ours[1].any()
     torch.testing.assert_close(ours.float(), plain.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+TWIN_CASES = [(16, 16, 256, 160, 8),    # the box shape: 16 channels a block
+              (2, 21, 48, 256, 16),     # the experiment's canvas: 8 channels a block; K odd
+              (3, 13, 32, 160, 8)]
+
+
+def twin_outputs(device, variants, b, k, c, canvas, block_k):
+    feats, boxes = random_pyramid(b, k, c, canvas=canvas, seed=b + k + c)
+    levels = [torch.from_numpy(f).to(device, torch.bfloat16) for f in feats]
+    inputs = roi_stage2_kernel.stage2_inputs(levels, torch.from_numpy(boxes).to(device), 7,
+                                             block_k)
+    outs = [roi_stage2_kernel.roi_stage2_cuda(*inputs, k, v, block_k) for v in variants]
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize('b,k,c,canvas,block_k', TWIN_CASES)
+def test_cuda_dotswap_is_noxpose_permuted(cuda_device, b, k, c, canvas, block_k):
+    '''Bit for bit: the two issue the same mma in the same order and differ
+    only in the layout they store.'''
+    dot, nox = twin_outputs(cuda_device, ('dotswap', 'noxpose'), b, k, c, canvas, block_k)
+    assert dot.shape == (b, k, 7, 7, c) and nox.shape == (b, k, 7, c, 7)
+    assert torch.equal(dot, nox.transpose(3, 4))
+
+
+@pytest.mark.parametrize('b,k,c,canvas,block_k', TWIN_CASES)
+def test_cuda_transpose_is_retile(cuda_device, b, k, c, canvas, block_k):
+    '''Bit for bit: transpose loads T over oy pairs where retile loads one
+    oy at a time, and issues retile's mma, each output summed in the same
+    order.'''
+    tra, ret = twin_outputs(cuda_device, ('transpose', 'retile'), b, k, c, canvas, block_k)
+    assert tra.shape == ret.shape == (b, k, 7, 7, c)
+    assert torch.equal(tra, ret)

@@ -130,42 +130,38 @@ BOX = (16, 16, 256, 75, 40)           # the main path's box shape: b, k, c, sum 
 EXP = (64, 256, 256, 120, 64)         # the experiment's shape
 
 
-@pytest.mark.parametrize('variant,shape,bk,design,cs,grid,kp,hp,wp,m_pad,passes,smem,walks', [
-    # the streaming loop (transpose, dotswap): one block per (16 channels, ROI block, image)
-    ('dotswap', BOX, 8, 'streaming', 16, (16, 2, 16), 16, 80, 48, 64, 1, 92944, 1),
-    ('transpose', EXP, 16, 'streaming', 16, (16, 16, 64), 256, 128, 64, 112, 1, 160272, 1),
-    # the resident loop (retile, noxpose): one block per (cs channels, image),
-    # its warps walking the image's ROIs two at a time at either block_k
-    ('retile', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
-    ('retile', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
-    ('noxpose', BOX, 8, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
-    ('noxpose', BOX, 16, 'resident', 16, (16, 1, 16), 16, 80, 48, 16, 1, 195200, 8),
-    ('retile', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
-    ('retile', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
-    ('noxpose', EXP, 8, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
-    ('noxpose', EXP, 16, 'resident', 8, (32, 1, 64), 256, 128, 64, 16, 1, 219264, 128),
+@pytest.mark.parametrize('variant,shape,bk,cs,grid,kp,hp,wp,smem,pairs', [
+    # one block per (cs channels, image), its warps walking the image's ROIs
+    # two at a time at either block_k, the same plan for every variant
+    ('dotswap', BOX, 8, 16, (16, 1, 16), 16, 80, 48, 195200, 8),
+    ('transpose', BOX, 8, 16, (16, 1, 16), 16, 80, 48, 195200, 8),
+    ('retile', BOX, 8, 16, (16, 1, 16), 16, 80, 48, 195200, 8),
+    ('retile', BOX, 16, 16, (16, 1, 16), 16, 80, 48, 195200, 8),
+    ('noxpose', BOX, 8, 16, (16, 1, 16), 16, 80, 48, 195200, 8),
+    ('noxpose', BOX, 16, 16, (16, 1, 16), 16, 80, 48, 195200, 8),
+    ('transpose', EXP, 16, 8, (32, 1, 64), 256, 128, 64, 219264, 128),
+    ('dotswap', EXP, 8, 8, (32, 1, 64), 256, 128, 64, 219264, 128),
+    ('retile', EXP, 8, 8, (32, 1, 64), 256, 128, 64, 219264, 128),
+    ('retile', EXP, 16, 8, (32, 1, 64), 256, 128, 64, 219264, 128),
+    ('noxpose', EXP, 8, 8, (32, 1, 64), 256, 128, 64, 219264, 128),
+    ('noxpose', EXP, 16, 8, (32, 1, 64), 256, 128, 64, 219264, 128),
     # K not a multiple of block_k
-    ('noxpose', (2, 13, 32, 75, 40), 8, 'resident', 16, (2, 1, 2), 16, 80, 48, 16, 1, 195200, 8),
-    ('retile', (1, 21, 16, 45, 24), 16, 'resident', 16, (1, 1, 1), 32, 48, 32, 16, 1, 108160,
-     16),
+    ('noxpose', (2, 13, 32, 75, 40), 8, 16, (2, 1, 2), 16, 80, 48, 195200, 8),
+    ('retile', (1, 21, 16, 45, 24), 16, 16, (1, 1, 1), 32, 48, 32, 108160, 16),
 ])
-def test_launch_plan(variant, shape, bk, design, cs, grid, kp, hp, wp, m_pad, passes, smem,
-                     walks):
+def test_launch_plan(variant, shape, bk, cs, grid, kp, hp, wp, smem, pairs):
     b, k, c, h, w = shape
     plan = rs.launch_plan(variant, b, k, c, h, w, bk)
-    assert (plan.design, plan.cs, plan.grid, plan.kp, plan.hp, plan.wp, plan.m_pad,
-            plan.passes, plan.smem_bytes, plan.roi_blocks) == \
-        (design, cs, grid, kp, hp, wp, m_pad, passes, smem, walks)
+    assert (plan.cs, plan.grid, plan.kp, plan.hp, plan.wp, plan.smem_bytes, plan.pairs) == \
+        (cs, grid, kp, hp, wp, smem, pairs)
     assert plan.blocks == grid[0] * grid[1] * grid[2]
-    assert plan.f_stages == (1 if design == 'resident' else 3)
     assert plan.grid[0] * plan.cs == c
     assert plan.hp % rs.MMA_DEPTH == 0 and plan.wp % rs.MMA_DEPTH == 0
     assert 0 <= plan.hp - h < 16 and 0 <= plan.wp - w < 16 and 0 <= plan.kp - k < bk
     assert plan.smem_bytes <= rs.MAX_SMEM_BYTES
-    if design == 'resident':
-        assert plan.smem_bytes == rs.resident_smem_bytes(plan.cs, hp, wp)
-        assert plan.cs == 8 or rs.resident_smem_bytes(16, hp, wp) <= rs.MAX_SMEM_BYTES
-        assert plan.cs == 16 or rs.resident_smem_bytes(16, hp, wp) > rs.MAX_SMEM_BYTES
+    assert plan.smem_bytes == rs.resident_smem_bytes(plan.cs, hp, wp)
+    assert plan.cs == 8 or rs.resident_smem_bytes(16, hp, wp) <= rs.MAX_SMEM_BYTES
+    assert plan.cs == 16 or rs.resident_smem_bytes(16, hp, wp) > rs.MAX_SMEM_BYTES
 
 
 def test_resident_smem_at_the_experiments_shape():
@@ -182,6 +178,7 @@ def test_resident_smem_at_the_experiments_shape():
     (('blockdiag', 1, 8, 256, 75, 40, 8), 'variant'),
     (('dotswap', 1, 8, 256, 75, 40, 4), 'block_k'),
     (('dotswap', 1, 8, 24, 75, 40, 8), 'channels'),
+    # from the shared-memory budget of the F slice, whatever block_k is
     (('transpose', 1, 8, 256, 480, 256, 16), 'shared memory'),
     # the 8-channel slice of a pyramid of 256 stacked rows does not fit
     (('noxpose', 1, 8, 256, 256, 64, 8), '8-channel slice'),
@@ -228,54 +225,55 @@ def test_tile_counts_and_mma_count(block_k):
             else:
                 expect = (0, 0)
             assert (int(n_ht[b, kb]), int(n_wt[b, kb])) == expect
-    steps, w_tiles = int((n_ht * n_wt).sum()), int(n_wt.sum())
+    steps = int((n_ht * n_wt).sum())
     assert steps > 0 and int(n_ht[1, -1]) == 0
-    m_tiles = -(-block_k * 7 // 16)
-    rows = block_k * 7
-    roi_tiles = sum(len({r // 7 for r in range(m, min(m + 16, rows))})
-                    for m in range(0, rows, 16))
-    assert rs.mma_count('dotswap', wy, wx, block_k, 32) == \
-        (2 * steps * m_tiles * 32, 2 * w_tiles * rows)
-    assert rs.mma_count('transpose', wy, wx, block_k, 32) == \
-        (2 * steps * m_tiles * 32, 2 * w_tiles * roi_tiles * 14)
-    # the resident loop: a warp walks the tiles of 2 ROIs at a time whatever
-    # block_k is; per ROI pair and 8 channels, 16 stage-1 mma per (w tile, h
-    # tile); per w tile 8 stage-2 mma for noxpose, 14 for retile's
-    # block-diagonal product
+    # a warp walks the tiles of 2 ROIs at a time whatever block_k is; per ROI
+    # pair and 8 channels, 16 stage-1 mma per (w tile, h tile); per w tile 8
+    # stage-2 mma for dotswap and noxpose, 14 for the block-diagonal product
+    # of retile and transpose
     p_ht, p_wt = rs.tile_counts(wy, wx, 2)
     p_steps, p_w_tiles = int((p_ht * p_wt).sum()), int(p_wt.sum())
-    assert rs.mma_count('noxpose', wy, wx, block_k, 32) == \
-        (4 * p_steps * 16, 4 * p_w_tiles * 8)
-    assert rs.mma_count('retile', wy, wx, block_k, 32) == \
-        (4 * p_steps * 16, 4 * p_w_tiles * 14)
-    # one pass over all rows, with the ROI pair's finer skip: no more than
-    # dotswap's stage 1 at block_k 8
-    assert rs.mma_count('retile', wy, wx, block_k, 32)[0] == \
-        rs.mma_count('noxpose', wy, wx, block_k, 32)[0] <= \
-        rs.mma_count('dotswap', wy, wx, 8, 32)[0]
+    for variant in ('dotswap', 'noxpose'):
+        assert rs.mma_count(variant, wy, wx, block_k, 32) == \
+            (4 * p_steps * 16, 4 * p_w_tiles * 8)
+    for variant in ('retile', 'transpose'):
+        assert rs.mma_count(variant, wy, wx, block_k, 32) == \
+            (4 * p_steps * 16, 4 * p_w_tiles * 14)
+    # a pair's tiles lie inside its group's: no more steps than block_k / 2
+    # pairs walking the group's tiles
+    assert p_steps <= block_k // 2 * steps
+
+
+def test_mma_count_pairs_the_twins():
+    '''transpose issues retile's mma and dotswap noxpose's, on the same
+    weights, at both block_k; all four share stage 1.'''
+    tf, tb = port_exp.make_inputs(2, 19, 48, 256, seed=12)
+    _, wy, wx = rs.stage2_inputs(tf, tb, 7, 8)
+    wy[0, 5:9] = 0
+    wx[0, 5:9] = 0
+    counts = {(v, k): rs.mma_count(v, wy, wx, k, 48) for v in rs.VARIANTS for k in (8, 16)}
+    for k in (8, 16):
+        assert counts[('transpose', k)] == counts[('retile', k)] == counts[('retile', 8)]
+        assert counts[('dotswap', k)] == counts[('noxpose', k)] == counts[('noxpose', 8)]
+        assert len({counts[(v, k)][0] for v in rs.VARIANTS}) == 1
+        assert counts[('retile', k)][1] * 8 == counts[('noxpose', k)][1] * 14 > 0
 
 
 def kernel_walk(variant, wy, wx, block_k, channels):
     '''A mirror of a kernel's loops: for each block (channel slice, image),
-    the ROI blocks it walks (for the resident loop, the pairs of ROIs its
-    8 warps walk), each one's
-    nonzero h and w tile ranges, then per unit of channels (8 resident, 16
-    streaming) the w tiles and, inside, the h tiles. Returns the visits, a
-    Counter of (image, ROI, h tile, w tile, channel), and the (stage 1, stage
-    2) mma the loops issue.'''
+    the pairs of ROIs its 8 warps walk, each pair's nonzero h and w tile
+    ranges, then per 8 channels the w tiles and, inside, the h tiles.
+    Returns the visits, a Counter of (image, ROI, h tile, w tile, channel),
+    and the (stage 1, stage 2) mma the loops issue.'''
     b, kp, _, hp = wy.shape
     wp = wx.shape[-1]
     plan = rs.launch_plan(variant, b, kp, channels, hp, wp, block_k)
-    resident = plan.design == 'resident'
-    rois = rs.PAIR if resident else block_k
-    unit = rs.UNIT_CHANNELS if resident else plan.cs
-    rows = block_k * 7
-    held = [len({r // 7 for r in range(m, min(m + 16, rows))}) for m in range(0, rows, 16)]
+    rois, unit = rs.PAIR, rs.UNIT_CHANNELS
     visits, stage1, stage2 = Counter(), 0, 0
     for cslice in range(plan.grid[0]):
         for img in range(b):
-            for blk in range(kp // rois):
-                sel = slice(blk * rois, (blk + 1) * rois)
+            for pair in range(plan.pairs):
+                sel = slice(pair * rois, (pair + 1) * rois)
                 h = torch.nonzero(wy[img, sel].reshape(-1, hp).any(0)).flatten()
                 w = torch.nonzero(wx[img, sel].reshape(-1, wp).any(0)).flatten()
                 if not len(h) or not len(w):
@@ -283,20 +281,15 @@ def kernel_walk(variant, wy, wx, block_k, channels):
                 for u in range(plan.cs // unit):
                     c0 = cslice * plan.cs + u * unit
                     for wt in range(int(w.min()) // 16, int(w.max()) // 16 + 1):
-                        for _ in range(plan.passes):
-                            for ht in range(int(h.min()) // 16, int(h.max()) // 16 + 1):
-                                visits.update((img, roi, ht, wt, c)
-                                              for roi in range(blk * rois, (blk + 1) * rois)
-                                              for c in range(c0, c0 + unit))
-                                stage1 += 16 if resident else len(held) * 32
-                        if variant == 'noxpose':
+                        for ht in range(int(h.min()) // 16, int(h.max()) // 16 + 1):
+                            visits.update((img, roi, ht, wt, c)
+                                          for roi in range(pair * rois, (pair + 1) * rois)
+                                          for c in range(c0, c0 + unit))
+                            stage1 += 16
+                        if variant in ('dotswap', 'noxpose'):
                             stage2 += 2 * 4                 # 2 ROIs x 4 oy pairs
-                        elif variant == 'retile':
-                            stage2 += 7 * 2                 # 7 oy x 2 k tiles
-                        elif variant == 'transpose':
-                            stage2 += sum(held) * 14
                         else:
-                            stage2 += rows
+                            stage2 += 7 * 2                 # 7 oy x 2 k tiles
     return visits, (stage1, stage2)
 
 
