@@ -96,11 +96,11 @@
 //      at a stride of 7.
 //    - retile, transpose and dotswap write (i, oy, ox, c): a block's 8
 //      channels of one (i, oy, ox) are a 32-byte piece, pieces C x 4 bytes
-//      apart. retile and transpose stage the pair's 98 pieces in the T tile
-//      as (i, oy, ox, 8 channels) and write them with 16-byte stores, two
-//      lanes a piece. dotswap stores from its accumulators, 4 bytes a lane:
-//      the 8 lanes of one ox and oy pair hold one piece's 8 channels, so a
-//      warp's store fills four 32-byte sectors.
+//      apart. One epilogue serves the three: the pair's 98 pieces are staged
+//      in the T tile as (i, oy, ox, 8 channels) and written with 16-byte
+//      stores, two lanes a piece, whichever accumulator layout they came
+//      from ((i, ox) x channels for retile and transpose, (oy, channel) x ox
+//      for dotswap).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -508,29 +508,27 @@ __global__ void __launch_bounds__(kThreads, 1)
           bulk_store(out + (row * C + c0) * kOut, st + (i * kOut + oy) * 8 * kOut,
                      8 * kOut * sizeof(OutT));
         }
-      } else if constexpr (V == kDotswap) {
-        // (oy, channel g) x (ox pair) straight from the accumulators: 4 bytes
-        // a lane, a warp's 8 lanes of one ox one 32-byte piece
-        const size_t roi0 = static_cast<size_t>(b) * K + 2 * q;
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = p / 4, oy = 2 * (p % 4) + (e >> 1), ox = 2 * t4 + (e & 1);
-            if (oy >= kOut || ox >= kOut || 2 * q + i >= K) continue;
-            out[(((roi0 + i) * kOut + oy) * kOut + ox) * C + c0 + g] = acc2[p][e];
-          }
       } else {
         // The pair's 98 (i, oy, ox) pieces of 8 channels (32 bytes) staged in
         // the T tile, then 16-byte stores, two lanes a piece.
         float* st = reinterpret_cast<float*>(tw);
+        if constexpr (kBlockDiag) {    // rows (i, ox = g), columns channels 2 t4, 2 t4 + 1
 #pragma unroll
-        for (int oy = 0; oy < kOut; ++oy)
+          for (int oy = 0; oy < kOut; ++oy)
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            if (g < kOut)
-              *reinterpret_cast<float2*>(st + ((i * kOut + oy) * kOut + g) * kCu + 2 * t4) =
-                  make_float2(acc2[oy][2 * i], acc2[oy][2 * i + 1]);
+            for (int i = 0; i < 2; ++i)
+              if (g < kOut)
+                *reinterpret_cast<float2*>(st + ((i * kOut + oy) * kOut + g) * kCu + 2 * t4) =
+                    make_float2(acc2[oy][2 * i], acc2[oy][2 * i + 1]);
+        } else {                       // rows (oy, channel g), columns ox 2 t4, 2 t4 + 1
+#pragma unroll
+          for (int p = 0; p < 8; ++p)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = p / 4, oy = 2 * (p % 4) + (e >> 1), ox = 2 * t4 + (e & 1);
+              if (oy < kOut && ox < kOut) st[((i * kOut + oy) * kOut + ox) * kCu + g] = acc2[p][e];
+            }
+        }
         __syncwarp();
         const size_t piece0 = (static_cast<size_t>(b) * K + 2 * q) * kOut * kOut;
         const int pieces = min(2, K - 2 * q) * kOut * kOut;
