@@ -27,7 +27,7 @@
 // What bounds it on an H100. The function moves bytes: the taps its boxes
 // touch, 32 fp32 operations per output element (PERF.md, row 1). This dense
 // form does far more work: stage 1 multiplies every row of the ROIs' level
-// bands. PR 6's loop streamed F tiles from L2 through a cp.async ring and
+// bands. A loop that streamed F tiles from L2 through a cp.async ring
 // issued its mma at about a tenth of the tensor-core peak: every warp waited
 // on a cp.async group and a block barrier behind every 16 mma. Like the TPU
 // kernel, which copies one image's pyramid into VMEM once (at kb == 0) and
