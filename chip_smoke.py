@@ -54,18 +54,39 @@ Phases, each printed with its elapsed seconds as it starts:
    time); then the
    same 4-frame input through the port on the card and on the CPU (plain
    versions, f32 model) as a reference check;
+4b. the session path: ``synthetic.write_raw_session`` writes a raw session
+   of 1,100 Kinect-size frames (424x512, 477 MB) into a temporary directory
+   (deleted at the end); ``Session`` and ``extract.prepare_session`` find
+   its background, ROI and true depth on the card with the extract CLI's
+   defaults (the wall time printed); ``extract.extract_chunks`` runs its
+   chunks of 1000 (the tail of 100 padded to 1000) through the fast160
+   predictor with both kernels' launch counts set to 0 just before and read
+   just after (3 ROIAlign launches per detection batch, 1 clean per
+   chunk), printing per chunk the host's read+prep ms, ``process_chunk``'s
+   ms (ended by a synchronize) and frames/s over the true frames, then the
+   session's frames/s from disk, the detections and peak device memory;
+   then ``prepare_session`` once more on the card under cProfile (its wall
+   time warm, and the host functions that take it), and on the CPU, which
+   must give the same ROI, background and true depth and the plane to
+   1e-5; then chunk 0 once more: one read of its raw frames, the C++ host
+   prep, which must equal its plain numpy version bit for bit, and
+   ``process_chunk`` on it under ``torch.profiler`` (the device's busy
+   share);
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
-   experiment run), then the result line.
+   experiment run; ROIAlign's and the clean's ``launches`` those of phase
+   4's chunk, ``session_launches`` those of phase 4b), then the result line.
 
 It exits non-zero, without a result line, when CUDA is unavailable, when
 the port's package is not beside it, or when any phase fails.
 '''
 import argparse
+import cProfile
 import functools
 import json
 import os
+import pstats
 import statistics
 import subprocess
 import sys
@@ -105,6 +126,10 @@ FRAMES = 64                        # frames per chunk
 BATCH = 16                         # frames per detection batch
 REPS = 20                          # timed calls per kernel measurement
 CHUNKS = 5                         # timed chunks of the main path
+SESSION_FRAMES = 1100              # frames of the raw session of phase 4b
+SESSION_CHUNK = 1000               # the extract CLI's chunk_size
+PLANE_TOL = 1e-5                   # card vs CPU RANSAC plane (f32, another order of sums)
+FIND_ROI_TOP = 8                   # functions printed from find_roi's host profile
 TOP_KERNELS = 12                   # kernel names printed from the profiled chunk
 
 
@@ -526,6 +551,179 @@ def reference_check(model_dir: str, chunk, config, devices=('cuda', 'cpu')):
     return box_err, score_err, int(same.sum())
 
 
+def tool_versions() -> None:
+    '''First lines of ``g++ --version`` (the host prep's compiler) and
+    ``ffmpeg -version`` (compressed video, which the port does not read).'''
+    import shutil
+    for tool, flag in (('g++', '--version'), ('ffmpeg', '-version')):
+        path = shutil.which(tool)
+        if path is None:
+            print(f'{tool}: not found on PATH', flush=True)
+            continue
+        out = subprocess.run([path, flag], capture_output=True, text=True, timeout=60,
+                             check=False)
+        print(f'{tool}: {path}: {(out.stdout or out.stderr).splitlines()[0]}', flush=True)
+
+
+def check_session(predictor, card: str, seed: int) -> dict:
+    '''Phase 4b: a raw session on disk through ``prepare_session`` and
+    ``extract_chunks``; the card's ROI against the CPU's and the C++ prep
+    against the plain one. Returns the path's kernel launches.'''
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import extract
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.ops.preprocess import (prep_raw_frames_host,
+                                                                   prep_raw_frames_plain)
+    from moseq2_detectron_extract_tpu_torch.synthetic import write_raw_session
+
+    tmp = tempfile.mkdtemp(prefix='m2de-session-')
+    try:
+        t = time.perf_counter()
+        path = write_raw_session(tmp, SESSION_FRAMES, 424, 512, seed=seed)
+        phase(f'wrote {SESSION_FRAMES} frames of 424x512 ({os.path.getsize(path) / 1e6:.0f} MB)'
+              f' in {time.perf_counter() - t:.1f} s')
+        config = {**extract.DEFAULT_CONFIG, 'chunk_size': SESSION_CHUNK, 'chunk_overlap': 0,
+                  'read_block_frames': 32, 'min_height': 0.0, 'max_height': 100.0,
+                  'feature_window': 160}
+        session = Session(path, frame_trim=config['frame_trim'])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prepared = extract.prepare_session(session, config, device='cuda')
+        torch.cuda.synchronize()
+        roi_s = time.perf_counter() - t
+        roi = prepared['roi']
+        phase(f'find_roi (prepare_session, cuda): {roi_s * 1e3:.1f} ms wall; background from '
+              f'{len(range(0, session.nframes, 500))} frames, ROI {int(roi.sum())} px, true '
+              f'depth {prepared["true_depth"]}, plane {np.round(session.plane, 5).tolist()} '
+              f'[{card}]')
+
+        real_produce = extract.produce_chunks
+        host_s = []
+
+        def timed_produce(*args):
+            chunks = real_produce(*args)
+            while True:
+                t = time.perf_counter()
+                item = next(chunks, None)
+                host_s.append(time.perf_counter() - t)
+                if item is None:
+                    return
+                yield item
+
+        roi_align_kernel.launch_count = 0
+        clean_kernel.launch_count = 0
+        torch.cuda.reset_peak_memory_stats()
+        extract.produce_chunks = timed_produce
+        rows, found, frames, busy_s = [], 0, 0, 0.0
+        chunk0 = None
+        try:
+            t_prev = time.perf_counter()
+            for out in extract.extract_chunks(session, predictor, prepared,
+                                              tracker=extract.make_tracker()):
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t_prev
+                n = out['nframes']
+                rows.append((host_s[-1], total - host_s[-1], n))
+                busy_s += total
+                frames += n
+                inf = out['inference']
+                shape = (SESSION_CHUNK, 1) + tuple(out['chunk'].shape[1:])
+                if tuple(inf['masks'].shape) != shape:
+                    raise AssertionError(f'masks {tuple(inf["masks"].shape)} != {shape}')
+                for key in ('boxes', 'scores', 'keypoints'):
+                    if not bool(torch.isfinite(inf[key]).all()):
+                        raise AssertionError(f'session chunk: non-finite {key}')
+                cleaned = out['feat_dispatch']['cleaned_frames']
+                crop = min(160, *out['chunk'].shape[1:])
+                if tuple(cleaned.shape) != (SESSION_CHUNK, crop, crop):
+                    raise AssertionError(f'cleaned windows {tuple(cleaned.shape)}')
+                found += int((out['num_instances'][:n] > 0).sum())
+                if chunk0 is None:
+                    chunk0 = (out['frame_idxs'], out['chunk'])
+                del out, inf, cleaned
+                t_prev = time.perf_counter()
+        finally:
+            extract.produce_chunks = real_produce
+        launches = {'roi_align': roi_align_kernel.launch_count,
+                    'clean': clean_kernel.launch_count}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, (host, dev, n) in enumerate(rows):
+            phase(f'session chunk {i}: {n} true frames of {SESSION_CHUNK}; read+prep '
+                  f'{host * 1e3:.1f} ms (host), process_chunk {dev * 1e3:.1f} ms (ended by a '
+                  f'synchronize), {n / (host + dev):.1f} frames/s [{card}]')
+        phase(f'session: {frames} frames from disk in {busy_s:.3f} s = {frames / busy_s:.1f} '
+              f'frames/s through process_chunk ({frames / (busy_s + roi_s):.1f} with find_roi); '
+              f'detections found in {found} of {frames} frames; launches {launches}; peak '
+              f'memory {peak_gib:.2f} GiB [{card}]')
+        batches = sum(-(-SESSION_CHUNK // BATCH) for _ in rows)
+        if launches != {'roi_align': 3 * batches, 'clean': len(rows)}:
+            raise AssertionError(f'session launches {launches}; expected roi_align '
+                                 f'{3 * batches} (3 per batch), clean {len(rows)}')
+        if len(rows) != 2 or frames != SESSION_FRAMES:
+            raise AssertionError(f'{len(rows)} chunks of {frames} frames')
+        if found < 0.9 * frames:
+            raise AssertionError(f'the mouse was found in only {found} of {frames} frames')
+
+        warm_session = Session(path, frame_trim=config['frame_trim'])
+        profiler = cProfile.Profile()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        profiler.enable()
+        extract.prepare_session(warm_session, config, device='cuda')
+        torch.cuda.synchronize()
+        profiler.disable()
+        warm_s = time.perf_counter() - t
+        top = pstats.Stats(profiler).sort_stats('tottime').stats
+        worst = sorted(top.items(), key=lambda kv: -kv[1][2])[:FIND_ROI_TOP]
+        phase(f'find_roi again (a new Session, cuda, under cProfile): {warm_s * 1e3:.1f} ms wall '
+              f'(first {roi_s * 1e3:.1f}); host time by function (own s): ' + ', '.join(
+                  f'{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) {st[2]:.3f}'
+                  for fn, st in worst) + f' [{card}]')
+
+        t = time.perf_counter()
+        cpu_session = Session(path, frame_trim=config['frame_trim'])
+        cpu = extract.prepare_session(cpu_session, config, device='cpu')
+        cpu_s = time.perf_counter() - t
+        plane_err = float(np.abs(cpu_session.plane - session.plane).max())
+        same = {'roi': bool(np.array_equal(cpu['roi'], roi)),
+                'bground_im': bool(np.array_equal(cpu['bground_im'], prepared['bground_im'])),
+                'true_depth': cpu['true_depth'] == prepared['true_depth']}
+        phase(f'prepare_session on the CPU ({cpu_s:.2f} s): equal to the card\'s {same}, plane '
+              f'max abs err {plane_err:.2e} (tol {PLANE_TOL})')
+        if not all(same.values()) or plane_err > PLANE_TOL:
+            raise AssertionError('the card\'s ROI discovery differs from the CPU\'s')
+
+        idxs, chunk = chunk0
+        t = time.perf_counter()
+        (_, raw), = list(session.index(np.asarray(idxs) - session.first_frame_idx,
+                                       chunk_size=len(idxs)))
+        read_s = time.perf_counter() - t
+        kwargs = dict(bground_im=session.bground_im, roi=session.roi, vmin=config['min_height'],
+                      vmax=config['max_height'], dtype='uint8')
+        t = time.perf_counter()
+        cxx = prep_raw_frames_host(raw, **kwargs)
+        cxx_s = time.perf_counter() - t
+        t = time.perf_counter()
+        plain = prep_raw_frames_plain(raw, **kwargs)
+        plain_s = time.perf_counter() - t
+        equal = bool(np.array_equal(cxx, plain)) and bool(np.array_equal(cxx, chunk[:len(idxs)]))
+        phase(f'chunk 0 on the host: one read of its {len(idxs)} raw frames {read_s * 1e3:.1f} '
+              f'ms; prep ({raw.shape} {raw.dtype} -> {cxx.shape} uint8): C++ {cxx_s * 1e3:.1f} '
+              f'ms, plain numpy {plain_s * 1e3:.1f} ms, bit for bit equal (and to the chunk the '
+              f'path ran): {equal} [{card}]')
+        if not equal:
+            raise AssertionError('the C++ host prep differs from the plain version')
+        del raw, cxx, plain
+        profile_chunk(chunk, predictor, config, extract.make_tracker(), card)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -575,6 +773,7 @@ def main() -> int:
     phase('1/5 card')
     card = card_query()
     print(card, flush=True)
+    tool_versions()
 
     phase('2/5 build kernels (nvcc -> ctypes; started with the script, beside the torch import)')
     from moseq2_detectron_extract_tpu_torch import native
@@ -680,16 +879,21 @@ def main() -> int:
           f'{box_err:.4f} px, scores {score_err:.2e}, cleaned windows equal at '
           f'{n_same} of 4 shared origins')
 
+    phase('4b/5 session path: write_raw_session + prepare_session + extract_chunks')
+    session_launches = check_session(predictor, card, args.seed)
+
     phase('5/5 report')
     kernels = [
         {'name': 'roi_align', 'route': 'cuda', 'source': f'{PKG}/csrc/roi_align.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_roi_align.py:35',
-         'launches': launches['roi_align'], 'max_abs_err': roi['max_abs_err'],
+         'launches': launches['roi_align'], 'session_launches': session_launches['roi_align'],
+         'max_abs_err': roi['max_abs_err'],
          'ms': roi['ms'], 'plain_ms': roi['plain_ms'], 'bound_ms': roi['bound_ms'],
          'bound_by': roi['bound_by'], 'library_ms': None},
         {'name': 'clean', 'route': 'cuda', 'source': f'{PKG}/csrc/clean.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_clean.py:74',
-         'launches': launches['clean'], 'max_abs_err': clean['max_abs_err'],
+         'launches': launches['clean'], 'session_launches': session_launches['clean'],
+         'max_abs_err': clean['max_abs_err'],
          'ms': clean['ms'], 'plain_ms': clean['plain_ms'], 'bound_ms': clean['bound_ms'],
          'bound_by': clean['bound_by'], 'library_ms': None},
     ]

@@ -1,24 +1,34 @@
-'''Extraction of one chunk through the device path.
+'''Extraction of a session through the device path.
 
-The port's counterpart of what ``moseq2_detectron_extract_tpu/extract.py``
-runs per chunk through its pipeline: ``InferenceStep`` (device prep and
+The port's counterpart of ``moseq2_detectron_extract_tpu/extract.py``:
+``prepare_session`` is ``extract_session``'s ROI discovery (lines 63-83),
+``extract_chunks`` its frame producer and, per chunk, ``process_chunk``:
+what the reference's pipeline runs as ``InferenceStep`` (device prep and
 detection), ``SelectInstancesStep`` (selection and window gather) and
-``dispatch_instance_features`` (window clean and moments). Session IO, ROI
-discovery, the host brain and the writers come in later slices.
+``dispatch_instance_features`` (window clean and moments). The host brain
+and the writers come in later slices.
 '''
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-from moseq2_detectron_extract_tpu_torch.pipeline.steps import (run_inference,
+from moseq2_detectron_extract_tpu_torch.device import resolve_device
+from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
+from moseq2_detectron_extract_tpu_torch.pipeline.steps import (produce_chunks, run_inference,
                                                                select_instances)
 from moseq2_detectron_extract_tpu_torch.proc.features import dispatch_instance_features
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
 
-# the extract CLI's defaults (cli.py:58-59, pipeline/steps.py:166-169)
+# the extract CLI's defaults (cli.py:46-64, pipeline/steps.py:166-169)
 DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
-                  'expected_instances': 1}
+                  'expected_instances': 1,
+                  'bg_roi_dilate': (10, 10), 'bg_roi_shape': 'ellipse', 'bg_roi_index': 0,
+                  'bg_roi_weights': (1, .1, 1), 'bg_roi_depth_range': (650, 750),
+                  'bg_roi_gradient_filter': False, 'bg_roi_gradient_threshold': 3000,
+                  'bg_roi_gradient_kernel': 7, 'bg_roi_fill_holes': True,
+                  'use_plane_bground': False, 'frame_dtype': 'uint8', 'chunk_size': 1000,
+                  'chunk_overlap': 0, 'frame_trim': (0, 0)}
 
 
 def make_tracker() -> CentroidTracker:
@@ -50,3 +60,53 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
     data['feat_dispatch'] = dispatch_instance_features(
         data['sel_masks'], data['raw_windows'], window_origins=data['win_origins'])
     return data
+
+
+def prepare_session(session: Session, config: Optional[Dict] = None, device='cuda') -> Dict:
+    '''Find the session's background, ROI and true depth on ``device``
+    (``Session.find_roi`` with the config's ``bg_roi_*`` and
+    ``use_plane_bground``, cached in ``config['output_dir']`` when it is
+    set), and return the config with ``nframes``, ``true_depth``, ``roi``,
+    ``bground_im``, ``first_frame``, ``first_frame_idx`` and ``timestamps``.
+
+    ``frame_trim`` belongs to the session: ``Session(path, frame_trim)``.
+    '''
+    config = {**DEFAULT_CONFIG, **(config or {})}
+    session.find_roi(bg_roi_dilate=config['bg_roi_dilate'],
+                     bg_roi_shape=config['bg_roi_shape'],
+                     bg_roi_index=config['bg_roi_index'],
+                     bg_roi_weights=config['bg_roi_weights'],
+                     bg_roi_depth_range=config['bg_roi_depth_range'],
+                     bg_roi_gradient_filter=config['bg_roi_gradient_filter'],
+                     bg_roi_gradient_threshold=config['bg_roi_gradient_threshold'],
+                     bg_roi_gradient_kernel=config['bg_roi_gradient_kernel'],
+                     bg_roi_fill_holes=config['bg_roi_fill_holes'],
+                     use_plane_bground=config['use_plane_bground'],
+                     cache_dir=config.get('output_dir'), device=resolve_device(device))
+    config.update({'nframes': session.nframes, 'true_depth': session.true_depth,
+                   'roi': session.roi, 'first_frame': session.first_frame,
+                   'first_frame_idx': session.first_frame_idx,
+                   'bground_im': session.bground_im,
+                   'timestamps': session.load_timestamps(Stream.DEPTH)})
+    return config
+
+
+def extract_chunks(session: Session, predictor, config: Optional[Dict] = None,
+                   tracker: Optional[CentroidTracker] = None) -> Iterator[Dict]:
+    '''Each chunk of a prepared session (``prepare_session`` first) through
+    ``process_chunk`` on ``predictor.device``, with one tracker across the
+    chunks.
+
+    Yields ``process_chunk``'s output with ``frame_idxs``, ``offset`` (the
+    leading frames a previous chunk already gave), ``nframes`` (the chunk's
+    true frames; the rest of ``chunk`` is padding) and ``chunk`` (the
+    prepped frames).
+    '''
+    config = {**DEFAULT_CONFIG, **(config or {})}
+    resolve_device(predictor.device)
+    if tracker is None:
+        tracker = make_tracker()
+    for item in produce_chunks(session, config):
+        out = process_chunk(item['chunk'], predictor, config, tracker=tracker)
+        out.update(item, nframes=len(item['frame_idxs']))
+        yield out

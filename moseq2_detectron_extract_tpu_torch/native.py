@@ -12,6 +12,10 @@ never at import.
 
 A failed build raises with nvcc's stderr; there is no fallback.
 
+The host prep's C++ core, ``csrc/prep_host.cpp``, is built the same way
+with ``g++`` (nvcc's host compiler) into its own library beside them
+(``build_host_library``); a failed build raises with g++'s stderr.
+
 Every ``nvcc`` gets its own copy of the environment (``env=``). Without it
 the child reads the C ``environ`` array while it starts, and a thread that
 sets a variable meanwhile (``import torch`` does, and ``chip_smoke.py``
@@ -42,7 +46,12 @@ LIB_NAME = 'libm2de_kernels.so'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+HOST_SOURCE = os.path.join(CSRC_DIR, 'prep_host.cpp')
+HOST_LIB_NAME = 'libm2de_prep_host.so'
+HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
+
 _lock = threading.Lock()
+_host_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -167,3 +176,57 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = load_library().m2de_cuda_error_string(rc).decode()
         raise RuntimeError(f'{what}: CUDA error {rc} ({msg})')
+
+
+def find_host_cxx() -> str:
+    '''Path of ``g++`` on $PATH.'''
+    found = shutil.which('g++')
+    if not found:
+        raise RuntimeError('g++ not found on $PATH; the host prep (csrc/prep_host.cpp) '
+                           'cannot be built')
+    return found
+
+
+def build_host_library(source: str = HOST_SOURCE) -> str:
+    '''Build the host prep library from ``source`` with g++ unless this
+    source hash is built; its path. Raises with g++'s stderr on a failure.'''
+    cxx = find_host_cxx()
+    digest = hashlib.sha256()
+    for part in (cxx, ' '.join(HOST_CXX_FLAGS)):
+        digest.update(part.encode())
+    with open(source, 'rb') as fh:
+        digest.update(fh.read())
+    out_dir = os.path.join(BUILD_DIR, 'host-' + digest.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, HOST_LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=out_dir, prefix='tmp-')
+    try:
+        tmp_lib = os.path.join(work, HOST_LIB_NAME)
+        cmd = [cxx, *HOST_CXX_FLAGS, source, '-o', tmp_lib]
+        result = subprocess.run(cmd, capture_output=True, text=True, check=False,
+                                env=dict(os.environ))
+        if result.returncode != 0:
+            raise RuntimeError(f'g++ failed:\n{" ".join(cmd)}\n{result.stderr}')
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path
+
+
+@functools.lru_cache(maxsize=None)
+def _load_host() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_host_library())
+    u8, i32 = ctypes.POINTER(ctypes.c_ubyte), ctypes.POINTER(ctypes.c_int32)
+    i, l = ctypes.c_int, ctypes.c_long
+    lib.prep_frames_native.argtypes = [u8, l, l, i32, i32, l, l, l,   # frames, strides, bg, roi, t h w
+                                       i, i, i, i, i, u8]           # vmin, lo, hi, sentinel, out
+    lib.prep_frames_native.restype = i
+    return lib
+
+
+def load_host_library() -> ctypes.CDLL:
+    '''The host prep library, built on first use.'''
+    with _host_lock:
+        return _load_host()

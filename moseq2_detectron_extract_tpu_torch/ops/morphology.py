@@ -3,11 +3,15 @@
 Port of ``moseq2_detectron_extract_tpu/ops/morphology.py``: cv2 border
 semantics (the border never wins a min/max; the median replicates edges).
 
-The 9x9 elliptical structuring element is cv2's
-``getStructuringElement(MORPH_ELLIPSE, (9, 9))`` written out (57 taps). The
-JAX package computes it with cv2 when cv2 is importable and otherwise with
-a formula that gives a different, 49-tap element; the port needs neither.
+The elliptical structuring elements of the clean (9x9, 57 taps) and of the
+ROI dilation (10x10, 83 taps) are cv2's ``getStructuringElement(
+MORPH_ELLIPSE, size)`` written out. The JAX package computes them with cv2
+when cv2 is importable and otherwise with a formula that gives different
+elements (49 and 60 taps); the port needs neither. Other sizes follow
+cv2's own rule (``make_ellipse_strel``).
 '''
+from typing import Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -24,6 +28,53 @@ ELLIPSE_9X9 = np.array([
     [0, 1, 1, 1, 1, 1, 1, 1, 0],
     [0, 0, 0, 0, 1, 0, 0, 0, 0],
 ], dtype=np.uint8)
+
+# cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (10, 10)): the ROI dilation's default
+ELLIPSE_10X10 = np.array([
+    [0, 0, 0, 0, 0, 1, 0, 0, 0, 0],
+    [0, 0, 1, 1, 1, 1, 1, 1, 1, 0],
+    [0, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [1, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [0, 1, 1, 1, 1, 1, 1, 1, 1, 1],
+    [0, 0, 1, 1, 1, 1, 1, 1, 1, 0],
+], dtype=np.uint8)
+
+_ELLIPSES = {(9, 9): ELLIPSE_9X9, (10, 10): ELLIPSE_10X10}
+
+
+def make_rect_strel(size: Tuple[int, int]) -> np.ndarray:
+    '''Rectangular structuring element of size (w, h).'''
+    return np.ones((size[1], size[0]), dtype=np.uint8)
+
+
+def make_ellipse_strel(size: Tuple[int, int]) -> np.ndarray:
+    '''Elliptical structuring element of size (w, h), by cv2's rule: row i
+    spans c +- round(c * sqrt(1 - (i - r)**2 / r**2)) with r = h // 2 and
+    c = w // 2 (round half to even).'''
+    w, h = size
+    out = np.zeros((h, w), np.uint8)
+    r, c = h // 2, w // 2
+    inv_r2 = 1.0 / (r * r) if r else 0.0
+    for i in range(h):
+        dy = i - r
+        if abs(dy) <= r:
+            dx = int(np.rint(c * np.sqrt((r * r - dy * dy) * inv_r2)))
+            out[i, max(c - dx, 0):min(c + dx + 1, w)] = 1
+    return out
+
+
+def select_strel(shape: str = 'e', size: Tuple[int, int] = (10, 10)) -> np.ndarray:
+    '''Structuring element by shape code ('e'llipse or 'r'ect) and (w, h).'''
+    size = (int(size[0]), int(size[1]))
+    if shape and shape[0].lower() == 'r':
+        return make_rect_strel(size)
+    if size in _ELLIPSES:
+        return _ELLIPSES[size].copy()
+    return make_ellipse_strel(size)
 
 
 def strel_offsets(strel: np.ndarray):
@@ -77,9 +128,21 @@ def morph_open(frames: torch.Tensor, strel: np.ndarray, iterations: int = 1) -> 
 
 def median_blur_3x3(frames: torch.Tensor) -> torch.Tensor:
     '''3x3 median over (N, H, W) frames with replicated edges (cv2.medianBlur).'''
+    return median_blur(frames, 3)
+
+
+def median_blur(frames: torch.Tensor, ksize: int = 3) -> torch.Tensor:
+    '''k x k median (odd k) over (N, H, W) frames with replicated edges.
+
+    The frames are padded in f32, exact for integers up to 2**24 (depth
+    and uint8 frames).
+    '''
+    if ksize <= 1:
+        return frames
+    r = ksize // 2
     h, w = frames.shape[1], frames.shape[2]
     x = frames[:, None].float() if not frames.dtype.is_floating_point else frames[:, None]
-    padded = F.pad(x, (1, 1, 1, 1), mode='replicate')[:, 0].to(frames.dtype)
+    padded = F.pad(x, (r, r, r, r), mode='replicate')[:, 0].to(frames.dtype)
     windows = torch.stack([padded[:, dy:dy + h, dx:dx + w]
-                           for dy in range(3) for dx in range(3)])
-    return torch.sort(windows, dim=0).values[4]
+                           for dy in range(ksize) for dx in range(ksize)])
+    return torch.sort(windows, dim=0).values[(ksize * ksize) // 2]

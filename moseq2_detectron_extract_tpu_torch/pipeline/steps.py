@@ -1,22 +1,54 @@
-'''Per-chunk device steps of extraction: inference, then instance selection.
+'''Steps of extraction: the host's chunks of prepped frames, then per chunk
+inference and instance selection on the device.
 
 Port of ``moseq2_detectron_extract_tpu/pipeline/steps.py``:
+``ProduceFramesStep`` (lines 40-86) as the generator ``produce_chunks``;
 ``InferenceStep.process`` (lines 112-155, the ``device_input='full'``
 branch) and ``SelectInstancesStep._select_instances`` (lines 200-310, the
 branch with the depth chunk on the device), as functions of one chunk. The
 pipeline threads, the instance log and the host-side sentinel zeroing for
-the preview are not part of this slice.
+the preview are not ported yet.
 '''
-from typing import Dict
+from functools import partial
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
+from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
+
 from moseq2_detectron_extract_tpu_torch.ops.instances import (gather_selected_windows,
                                                               window_origins)
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import (decode_prepped_frames,
+                                                               prep_raw_frames_host,
                                                                scale_raw_frames)
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
+
+
+def produce_chunks(session: Session, config: Dict) -> Iterator[Dict]:
+    '''The session's frames in chunks of ``config['chunk_size']``
+    overlapping by ``chunk_overlap``, read and host-prepped
+    ``read_block_frames`` (default 32) frames at a time with the session's
+    background and ROI (``Session.find_roi`` first).
+
+    Yields ``frame_idxs`` (the chunk's frames), ``chunk`` (prepped frames;
+    with ``pad_chunks``, the default, a short tail chunk repeats its last
+    frame up to ``chunk_size``) and ``offset`` (0 for the first chunk, then
+    ``chunk_overlap``: the frames the previous chunk already gave).
+    '''
+    chunk_size = config['chunk_size']
+    iterator = session.iterate(chunk_size=chunk_size, chunk_overlap=config['chunk_overlap'],
+                               streams=(Stream.DEPTH,),
+                               block_frames=config.get('read_block_frames', 32))
+    iterator.attach_filter(Stream.DEPTH, partial(
+        prep_raw_frames_host, bground_im=session.bground_im, roi=session.roi,
+        vmin=config['min_height'], vmax=config['max_height'], dtype=config['frame_dtype']))
+    for n, (frame_idxs, chunk) in enumerate(iterator):
+        if chunk.shape[0] < chunk_size and config.get('pad_chunks', True):
+            pad = chunk_size - chunk.shape[0]
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+        yield {'frame_idxs': np.asarray(frame_idxs), 'chunk': chunk,
+               'offset': 0 if n == 0 else config['chunk_overlap']}
 
 
 def run_inference(chunk: torch.Tensor, predictor, config: Dict) -> Dict:

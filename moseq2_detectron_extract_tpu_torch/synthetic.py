@@ -3,12 +3,44 @@
 Frames look like the host prep's output (``prep_raw_frames_host``): heights
 above the floor in uint8, zero on the floor and outside the arena, and
 Kinect dropout pixels sentinel-encoded as 255. Made with numpy from a seed.
+
+``write_raw_session`` writes the same mouse as a raw MoSeq session on disk
+(``depth.dat``, ``metadata.json``, ``depth_ts.txt``): a floor at
+``FLOOR_DEPTH`` inside a circular arena ringed by walls at ``WALL_DEPTH``,
+so that the host prep of its frames gives chunks like these.
 '''
-from typing import Optional, Tuple
+import json
+import os
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 MOUSE_HEIGHT = 50.0      # body height above the floor
+FLOOR_DEPTH = 700        # mm from the camera
+WALL_DEPTH = 500
+
+
+def _mouse_heights(n: int, height: int, width: int, rng: np.random.Generator,
+                   axes: Optional[Tuple[float, float]], sweep: float) -> Iterator[np.ndarray]:
+    '''(height, width) f32 heights above the floor of a mouse walking an arc
+    of ``sweep`` radians over ``n`` frames.'''
+    side = min(height, width)
+    a, b = axes if axes is not None else (0.11 * side, 0.055 * side)
+    radius = max(0.0, 0.5 * side - a - 30.0) * 0.6
+    phase = rng.uniform(0, 2 * np.pi)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    for i in range(n):
+        t = phase + sweep * i / max(n - 1, 1)
+        cx = width / 2 + radius * np.cos(t)
+        cy = height / 2 + radius * np.sin(t)
+        heading = t + np.pi / 2 + rng.normal(0, 0.05)
+        ca, sa = np.cos(heading), np.sin(heading)
+        u = (xx - cx) * ca + (yy - cy) * sa          # along the body
+        v = -(xx - cx) * sa + (yy - cy) * ca
+        body = (u / a) ** 2 + (v / b) ** 2 <= 1.0
+        head = (u - 0.6 * a) ** 2 + v ** 2 <= (0.6 * b) ** 2
+        frame = np.where(body, MOUSE_HEIGHT, 0.0) + np.where(head & body, 0.36 * MOUSE_HEIGHT, 0.0)
+        yield frame + np.where(body, rng.normal(0, 1.0, frame.shape), 0.0)
 
 
 def make_sentinel_chunk(n: int, height: int, width: int, seed: int = 0,
@@ -22,25 +54,38 @@ def make_sentinel_chunk(n: int, height: int, width: int, seed: int = 0,
     exactly 0. Dropouts land anywhere with probability ``dropout_rate``.
     '''
     rng = np.random.default_rng(seed)
-    side = min(height, width)
-    a, b = axes if axes is not None else (0.11 * side, 0.055 * side)
-    radius = max(0.0, 0.5 * side - a - 30.0) * 0.6
-    phase = rng.uniform(0, 2 * np.pi)
-    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
     frames = np.zeros((n, height, width), np.float32)
-    for i in range(n):
-        t = phase + 0.6 * np.pi * i / max(n - 1, 1)
-        cx = width / 2 + radius * np.cos(t)
-        cy = height / 2 + radius * np.sin(t)
-        heading = t + np.pi / 2 + rng.normal(0, 0.05)
-        ca, sa = np.cos(heading), np.sin(heading)
-        u = (xx - cx) * ca + (yy - cy) * sa          # along the body
-        v = -(xx - cx) * sa + (yy - cy) * ca
-        body = (u / a) ** 2 + (v / b) ** 2 <= 1.0
-        head = (u - 0.6 * a) ** 2 + v ** 2 <= (0.6 * b) ** 2
-        frame = np.where(body, MOUSE_HEIGHT, 0.0) + np.where(head & body, 0.36 * MOUSE_HEIGHT, 0.0)
-        frame = frame + np.where(body, rng.normal(0, 1.0, frame.shape), 0.0)
+    for i, frame in enumerate(_mouse_heights(n, height, width, rng, axes, 0.6 * np.pi)):
         frames[i] = frame
     out = np.clip(np.round(frames), 0, 254).astype(np.uint8)
     out[rng.random(out.shape) < dropout_rate] = 255
     return out
+
+
+def write_raw_session(dirname: str, nframes: int, height: int = 424, width: int = 512,
+                      seed: int = 0, dropout_rate: float = 0.001) -> str:
+    '''Write a raw session of ``nframes`` (height, width) frames into
+    ``dirname``: ``depth.dat`` ('<u2' mm), ``metadata.json`` and
+    ``depth_ts.txt`` (30 frames/s); returns the path of ``depth.dat``.
+
+    The mouse (``make_sentinel_chunk``'s) walks three quarters of a circle
+    over the session, so that every 500th frame finds it elsewhere and their
+    median is the bare arena. Raw 0 marks a dropout.
+    '''
+    os.makedirs(dirname, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    arena = (xx - width / 2) ** 2 + (yy - height / 2) ** 2 < (min(height, width) / 2 - 4) ** 2
+    ground = np.where(arena, FLOOR_DEPTH, WALL_DEPTH).astype(np.float32)
+    path = os.path.join(dirname, 'depth.dat')
+    with open(path, 'wb') as fh:
+        for mouse in _mouse_heights(nframes, height, width, rng, None, 1.5 * np.pi):
+            frame = np.round(ground - mouse).astype('<u2')
+            frame[rng.random(frame.shape) < dropout_rate] = 0
+            fh.write(frame.tobytes())
+    with open(os.path.join(dirname, 'metadata.json'), 'w', encoding='utf-8') as fh:
+        json.dump({'DepthResolution': [width, height], 'SubjectName': 'synthetic',
+                   'SessionName': 'synthetic-session'}, fh)
+    np.savetxt(os.path.join(dirname, 'depth_ts.txt'), np.arange(nframes) * (1000.0 / 30.0),
+               fmt='%.3f')
+    return path

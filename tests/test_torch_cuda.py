@@ -15,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from moseq2_detectron_extract_tpu_torch.extract import process_chunk
+from moseq2_detectron_extract_tpu_torch.extract import (extract_chunks, prepare_session,
+                                                        process_chunk)
+from moseq2_detectron_extract_tpu_torch.io.session import Session
 from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
 from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
 from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel, roi_stage2_kernel
 from moseq2_detectron_extract_tpu_torch.ops.roi_align import separable_batched_roi_align
-from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk
+from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk, write_raw_session
 
 BF16_TOL = 2.0 ** -6
 
@@ -138,9 +140,8 @@ def test_cuda_clean_shared_memory_formula_agrees(cuda_device):
         assert lib.m2de_clean_smem_bytes(plan.tile_h, plan.tile_w) == plan.smem_bytes
 
 
-def test_cuda_process_chunk_matches_cpu(cuda_device):
-    '''A small random f32 model: the card (kernels) against the CPU (plain
-    versions) through the whole slice.'''
+def small_model():
+    '''A small random f32 model: its config and weights.'''
     torch.manual_seed(0)
     cfg = ModelConfig(image_size=64, min_size_test=64, max_size_test=64,
                       resnet_stage_blocks=(1, 1, 1, 1), resnet_width=16,
@@ -148,7 +149,13 @@ def test_cuda_process_chunk_matches_cpu(cuda_device):
                       keypoint_conv_dims=(32,), rpn_pre_nms_topk_test=32,
                       rpn_post_nms_topk_test=8, test_detections_per_image=1,
                       amp_dtype='float32')
-    state = MaskKeypointRCNN(cfg).state_dict()
+    return cfg, MaskKeypointRCNN(cfg).state_dict()
+
+
+def test_cuda_process_chunk_matches_cpu(cuda_device):
+    '''A small random f32 model: the card (kernels) against the CPU (plain
+    versions) through the whole slice.'''
+    cfg, state = small_model()
     chunk = make_sentinel_chunk(4, 96, 128, seed=0)
     config = {'min_height': 0, 'max_height': 100, 'feature_window': 64}
     outs = {}
@@ -166,6 +173,55 @@ def test_cuda_process_chunk_matches_cpu(cuda_device):
     np.testing.assert_array_equal(gpu['win_origins'], cpu['win_origins'])
     assert torch.equal(gpu['feat_dispatch']['cleaned_frames'].cpu(),
                        cpu['feat_dispatch']['cleaned_frames'])
+
+
+@pytest.fixture
+def raw_session(tmp_path):
+    '''A small raw session on disk, 20 frames of 96 x 128: its background
+    is frame 0's, where the mouse leaves a hole in the floor's region that
+    the ROI's fill closes.'''
+    return write_raw_session(str(tmp_path), 20, height=96, width=128, seed=3)
+
+
+def test_cuda_prepare_session_matches_cpu(cuda_device, raw_session):
+    '''The background median, RANSAC and dilation on the card and on the
+    CPU: the same background, ROI and true depth; the plane to 1e-5.'''
+    found = []
+    for dev in (cuda_device, torch.device('cpu')):
+        session = Session(raw_session)
+        found.append((prepare_session(session, {}, device=dev), session.plane))
+    (gpu, gpu_plane), (cpu, cpu_plane) = found
+    np.testing.assert_array_equal(gpu['bground_im'], cpu['bground_im'])
+    np.testing.assert_array_equal(gpu['roi'], cpu['roi'])
+    assert gpu['true_depth'] == cpu['true_depth'] == 700.0
+    np.testing.assert_allclose(gpu_plane, cpu_plane, atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_extract_chunks_matches_cpu(cuda_device, raw_session):
+    '''The session path with a small random f32 model: the same prepped
+    chunks, and detections as in test_cuda_process_chunk_matches_cpu.'''
+    cfg, state = small_model()
+    config = {'chunk_size': 8, 'min_height': 0, 'max_height': 100, 'feature_window': 64}
+    outs = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (cuda_device, torch.device('cpu')):
+            session = Session(raw_session)
+            prepared = prepare_session(session, config, device=dev)
+            pred = Predictor(cfg, state, batch_size=4, score_threshold=0.0, device=dev)
+            outs.append(list(extract_chunks(session, pred, prepared)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert len(outs[0]) == len(outs[1]) == 3
+    for gpu, cpu in zip(*outs):
+        np.testing.assert_array_equal(gpu['chunk'], cpu['chunk'])
+        np.testing.assert_array_equal(gpu['frame_idxs'], cpu['frame_idxs'])
+        torch.testing.assert_close(gpu['inference']['boxes'].cpu(), cpu['inference']['boxes'],
+                                   rtol=1e-3, atol=0.05)
+        np.testing.assert_array_equal(gpu['win_origins'], cpu['win_origins'])
+        assert torch.equal(gpu['feat_dispatch']['cleaned_frames'].cpu(),
+                           cpu['feat_dispatch']['cleaned_frames'])
 
 
 STAGE2_RUNS = [('retile', torch.float32), ('transpose', torch.float32),

@@ -1,6 +1,7 @@
-'''The port imports neither JAX nor cv2/h5py/yaml/click nor the JAX package,
-and runs ``process_chunk`` and the stage-2 experiment's check on the CPU
-with all of them blocked.'''
+'''The port imports neither JAX nor cv2/h5py/yaml/click/PIL/tqdm nor the JAX
+package, and runs ``process_chunk``, the session path (a raw session
+written, ``prepare_session``, one prepped chunk) and the stage-2
+experiment's check on the CPU with all of them blocked.'''
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, 'moseq2_detectron_extract_tpu_torch')
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2', 'h5py', 'yaml',
-           'click', 'moseq2_detectron_extract_tpu')
+           'click', 'PIL', 'tqdm', 'moseq2_detectron_extract_tpu')
 
 _SCRIPT = r'''
 import importlib, pkgutil, sys
@@ -52,6 +53,17 @@ out = process_chunk(make_sentinel_chunk(3, 96, 128, seed=0), pred,
                     {'min_height': 0, 'max_height': 100, 'feature_window': 64})
 assert out['feat_dispatch']['cleaned_frames'].shape == (3, 64, 64)
 assert out['inference']['masks'].shape == (3, 1, 96, 128)
+import tempfile
+from moseq2_detectron_extract_tpu_torch.extract import prepare_session
+from moseq2_detectron_extract_tpu_torch.io.session import Session
+from moseq2_detectron_extract_tpu_torch.pipeline.steps import produce_chunks
+from moseq2_detectron_extract_tpu_torch.synthetic import write_raw_session
+with tempfile.TemporaryDirectory() as tmp:
+    session = Session(write_raw_session(tmp, 12, height=96, width=128, seed=1))
+    config = prepare_session(session, {'chunk_size': 8, 'output_dir': tmp}, device='cpu')
+    assert config['roi'].any() and config['true_depth'] == 700.0, config['true_depth']
+    chunk = next(produce_chunks(session, config))['chunk']
+    assert chunk.shape[0] == 8 and str(chunk.dtype) == 'uint8', (chunk.shape, chunk.dtype)
 from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp
 errors = roi_stage2_exp.main(device='cpu', check_shape=(1, 8, 16, 64))['errors']
 assert len(errors) == 5 and max(errors.values()) < 0.05, errors
