@@ -58,7 +58,8 @@ Phases, each printed with its elapsed seconds as it starts:
    of 1,100 Kinect-size frames (424x512, 477 MB) into a temporary directory
    (deleted at the end); ``Session`` and ``extract.prepare_session`` find
    its background, ROI and true depth on the card with the extract CLI's
-   defaults (the wall time printed); ``extract.extract_chunks`` runs its
+   defaults (the wall time printed; the session's floor is tilted and
+   rough); ``extract.extract_chunks`` runs its
    chunks of 1000 (the tail of 100 padded to 1000) through the fast160
    predictor with both kernels' launch counts set to 0 just before and read
    just after (3 ROIAlign launches per detection batch, 1 clean per
@@ -67,8 +68,11 @@ Phases, each printed with its elapsed seconds as it starts:
    session's frames/s from disk, the detections and peak device memory;
    then ``prepare_session`` once more on the card under cProfile (its wall
    time warm, and the host functions that take it), and on the CPU, which
-   must give the same ROI, background and true depth and the plane to
-   1e-5; then chunk 0 once more: one read of its raw frames and the C++
+   must give the same ROI, background and true depth and the plane (unit
+   normal to 1e-5, d to 1e-3 mm); ``get_roi`` on the card and on the CPU
+   on ``synthetic.rough_arena`` backgrounds of 424x512, where the RANSAC's
+   accept rule weighs near hypotheses, must agree in the same way; then
+   chunk 0 once more: one read of its raw frames and the C++
    host prep, which must equal its plain numpy version bit for bit;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
@@ -126,7 +130,8 @@ REPS = 20                          # timed calls per kernel measurement
 CHUNKS = 5                         # timed chunks of the main path
 SESSION_FRAMES = 1100              # frames of the raw session of phase 4b
 SESSION_CHUNK = 1000               # the extract CLI's chunk_size
-PLANE_TOL = 1e-5                   # card vs CPU RANSAC plane (f32, another order of sums)
+PLANE_TOL = (1e-5, 1e-3)           # card vs CPU RANSAC plane: unit normal, d in mm
+ROUGH_SEEDS = (0, 1, 2)            # rough_arena backgrounds held card against CPU
 FIND_ROI_TOP = 8                   # functions printed from find_roi's host profile
 TOP_KERNELS = 12                   # kernel names printed from the profiled chunk
 
@@ -563,6 +568,13 @@ def tool_versions() -> None:
         print(f'{tool}: {path}: {(out.stdout or out.stderr).splitlines()[0]}', flush=True)
 
 
+def plane_errors(plane, ref):
+    '''Max abs differences of two [a, b, c, d] planes: unit normal, d.'''
+    import numpy as np
+    diff = np.abs(np.asarray(plane, np.float64) - np.asarray(ref, np.float64))
+    return float(diff[:3].max()), float(diff[3])
+
+
 def check_session(predictor, card: str, seed: int) -> dict:
     '''Phase 4b: a raw session on disk through ``prepare_session`` and
     ``extract_chunks``; the card's ROI against the CPU's and the C++ prep
@@ -576,7 +588,8 @@ def check_session(predictor, card: str, seed: int) -> dict:
     from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
     from moseq2_detectron_extract_tpu_torch.ops.preprocess import (prep_raw_frames_host,
                                                                    prep_raw_frames_plain)
-    from moseq2_detectron_extract_tpu_torch.synthetic import write_raw_session
+    from moseq2_detectron_extract_tpu_torch.proc.roi import get_roi
+    from moseq2_detectron_extract_tpu_torch.synthetic import rough_arena, write_raw_session
 
     tmp = tempfile.mkdtemp(prefix='m2de-session-')
     try:
@@ -686,14 +699,26 @@ def check_session(predictor, card: str, seed: int) -> dict:
         cpu_session = Session(path, frame_trim=config['frame_trim'])
         cpu = extract.prepare_session(cpu_session, config, device='cpu')
         cpu_s = time.perf_counter() - t
-        plane_err = float(np.abs(cpu_session.plane - session.plane).max())
+        plane_err = plane_errors(session.plane, cpu_session.plane)
         same = {'roi': bool(np.array_equal(cpu['roi'], roi)),
                 'bground_im': bool(np.array_equal(cpu['bground_im'], prepared['bground_im'])),
                 'true_depth': cpu['true_depth'] == prepared['true_depth']}
         phase(f'prepare_session on the CPU ({cpu_s:.2f} s): equal to the card\'s {same}, plane '
-              f'max abs err {plane_err:.2e} (tol {PLANE_TOL})')
-        if not all(same.values()) or plane_err > PLANE_TOL:
+              f'max abs err (normal, d) {plane_err[0]:.2e}, {plane_err[1]:.2e} (tol {PLANE_TOL})')
+        if not all(same.values()) or plane_err[0] > PLANE_TOL[0] or plane_err[1] > PLANE_TOL[1]:
             raise AssertionError('the card\'s ROI discovery differs from the CPU\'s')
+        for rough_seed in ROUGH_SEEDS:
+            image = rough_arena(424, 512, rough_seed)
+            (gpu_rois, gpu_plane), (cpu_rois, cpu_plane) = (
+                get_roi(image, device=dev) for dev in ('cuda', 'cpu'))
+            same_rois = len(gpu_rois) == len(cpu_rois) and all(
+                np.array_equal(a, b) for a, b in zip(gpu_rois, cpu_rois))
+            plane_err = plane_errors(gpu_plane, cpu_plane)
+            phase(f'get_roi on rough_arena(424, 512, seed {rough_seed}): {len(gpu_rois)} ROIs, '
+                  f'equal to the CPU\'s: {same_rois}; plane max abs err (normal, d) '
+                  f'{plane_err[0]:.2e}, {plane_err[1]:.2e}')
+            if not same_rois or plane_err[0] > PLANE_TOL[0] or plane_err[1] > PLANE_TOL[1]:
+                raise AssertionError('the card\'s get_roi differs from the CPU\'s on a rough floor')
 
         idxs, chunk = chunk0
         t = time.perf_counter()

@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import List
+from typing import Callable, List
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -49,10 +49,6 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 HOST_SOURCE = os.path.join(CSRC_DIR, 'prep_host.cpp')
 HOST_LIB_NAME = 'libm2de_prep_host.so'
 HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
-
-_lock = threading.Lock()
-_host_lock = threading.Lock()
-
 
 def find_nvcc() -> str:
     '''Path of ``nvcc``: $CUDA_HOME/bin, then $PATH, then /usr/local/cuda.'''
@@ -84,6 +80,38 @@ def _build_key(nvcc: str) -> str:
     return digest.hexdigest()[:16]
 
 
+def _build_once(key: str, lib_name: str, build: Callable[[str, str], None]) -> str:
+    '''Path of ``BUILD_DIR/<key>/<lib_name>``. Unless it exists, ``build(work,
+    tmp_lib)`` makes ``tmp_lib`` in a scratch directory ``work`` beside it,
+    and the library is swapped in whole; the scratch directory goes either
+    way, so a failed build leaves nothing a later call would take for built.'''
+    out_dir = os.path.join(BUILD_DIR, key)
+    lib_path = os.path.join(out_dir, lib_name)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    work = tempfile.mkdtemp(dir=out_dir, prefix='tmp-')
+    try:
+        tmp_lib = os.path.join(work, lib_name)
+        build(work, tmp_lib)
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path
+
+
+def _loaded_once(load: Callable[[], ctypes.CDLL]) -> Callable[[], ctypes.CDLL]:
+    '''``load`` run at the first call, under a lock of its own, and kept.'''
+    lock = threading.Lock()
+    cached = functools.lru_cache(maxsize=None)(load)
+
+    @functools.wraps(load)
+    def loaded() -> ctypes.CDLL:
+        with lock:
+            return cached()
+    return loaded
+
+
 def build_library() -> str:
     '''Build the kernel library unless this source hash is built; its path.
 
@@ -92,14 +120,10 @@ def build_library() -> str:
     kept in ``build.log`` beside the library.
     '''
     nvcc = find_nvcc()
-    out_dir = os.path.join(BUILD_DIR, _build_key(nvcc))
-    lib_path = os.path.join(out_dir, LIB_NAME)
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(out_dir, exist_ok=True)
-    work = tempfile.mkdtemp(dir=out_dir, prefix='tmp-')
+    key = _build_key(nvcc)
     env = dict(os.environ)
-    try:
+
+    def build(work: str, tmp_lib: str) -> None:
         procs = []
         objs: List[str] = []
         for n, (src, flags) in enumerate(UNITS):
@@ -117,18 +141,16 @@ def build_library() -> str:
                 failed.append(f'{" ".join(cmd)}\n{stderr}')
         if failed:
             raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
-        tmp_lib = os.path.join(work, LIB_NAME)
         cmd = [nvcc, *NVCC_FLAGS, '-shared', *objs, '-o', tmp_lib]
         result = subprocess.run(cmd, capture_output=True, text=True, check=False, env=env)
         log.append(' '.join(cmd) + '\n' + result.stdout + result.stderr)
         if result.returncode != 0:
             raise RuntimeError(f'nvcc link failed:\n{" ".join(cmd)}\n{result.stderr}')
-        with open(os.path.join(out_dir, 'build.log'), 'w', encoding='utf-8') as fh:
+        with open(os.path.join(os.path.dirname(work), 'build.log'), 'w',
+                  encoding='utf-8') as fh:
             fh.write('\n'.join(log))
-        os.replace(tmp_lib, lib_path)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return lib_path
+
+    return _build_once(key, LIB_NAME, build)
 
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -160,15 +182,10 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _load() -> ctypes.CDLL:
-    return _configure(ctypes.CDLL(build_library()))
-
-
+@_loaded_once
 def load_library() -> ctypes.CDLL:
     '''The kernel library, built on first use.'''
-    with _lock:
-        return _load()
+    return _configure(ctypes.CDLL(build_library()))
 
 
 def check(rc: int, what: str) -> None:
@@ -196,27 +213,20 @@ def build_host_library(source: str = HOST_SOURCE) -> str:
         digest.update(part.encode())
     with open(source, 'rb') as fh:
         digest.update(fh.read())
-    out_dir = os.path.join(BUILD_DIR, 'host-' + digest.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, HOST_LIB_NAME)
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(out_dir, exist_ok=True)
-    work = tempfile.mkdtemp(dir=out_dir, prefix='tmp-')
-    try:
-        tmp_lib = os.path.join(work, HOST_LIB_NAME)
+
+    def build(_work: str, tmp_lib: str) -> None:
         cmd = [cxx, *HOST_CXX_FLAGS, source, '-o', tmp_lib]
         result = subprocess.run(cmd, capture_output=True, text=True, check=False,
                                 env=dict(os.environ))
         if result.returncode != 0:
             raise RuntimeError(f'g++ failed:\n{" ".join(cmd)}\n{result.stderr}')
-        os.replace(tmp_lib, lib_path)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return lib_path
+
+    return _build_once('host-' + digest.hexdigest()[:16], HOST_LIB_NAME, build)
 
 
-@functools.lru_cache(maxsize=None)
-def _load_host() -> ctypes.CDLL:
+@_loaded_once
+def load_host_library() -> ctypes.CDLL:
+    '''The host prep library, built on first use.'''
     lib = ctypes.CDLL(build_host_library())
     u8, i32 = ctypes.POINTER(ctypes.c_ubyte), ctypes.POINTER(ctypes.c_int32)
     i, l = ctypes.c_int, ctypes.c_long
@@ -224,9 +234,3 @@ def _load_host() -> ctypes.CDLL:
                                        i, i, i, i, i, u8]           # vmin, lo, hi, sentinel, out
     lib.prep_frames_native.restype = i
     return lib
-
-
-def load_host_library() -> ctypes.CDLL:
-    '''The host prep library, built on first use.'''
-    with _host_lock:
-        return _load_host()

@@ -7,8 +7,9 @@ The elliptical structuring elements of the clean (9x9, 57 taps) and of the
 ROI dilation (10x10, 83 taps) are cv2's ``getStructuringElement(
 MORPH_ELLIPSE, size)`` written out. The JAX package computes them with cv2
 when cv2 is importable and otherwise with a formula that gives different
-elements (49 and 60 taps); the port needs neither. Other sizes follow
-cv2's own rule (``make_ellipse_strel``).
+elements (49 and 60 taps); the port needs neither. ``select_strel`` makes
+every elliptical element by cv2's own rule (``make_ellipse_strel``), which
+gives these two.
 '''
 from typing import Tuple
 
@@ -43,8 +44,6 @@ ELLIPSE_10X10 = np.array([
     [0, 0, 1, 1, 1, 1, 1, 1, 1, 0],
 ], dtype=np.uint8)
 
-_ELLIPSES = {(9, 9): ELLIPSE_9X9, (10, 10): ELLIPSE_10X10}
-
 
 def make_rect_strel(size: Tuple[int, int]) -> np.ndarray:
     '''Rectangular structuring element of size (w, h).'''
@@ -72,8 +71,6 @@ def select_strel(shape: str = 'e', size: Tuple[int, int] = (10, 10)) -> np.ndarr
     size = (int(size[0]), int(size[1]))
     if shape and shape[0].lower() == 'r':
         return make_rect_strel(size)
-    if size in _ELLIPSES:
-        return _ELLIPSES[size].copy()
     return make_ellipse_strel(size)
 
 

@@ -5,9 +5,11 @@ above the floor in uint8, zero on the floor and outside the arena, and
 Kinect dropout pixels sentinel-encoded as 255. Made with numpy from a seed.
 
 ``write_raw_session`` writes the same mouse as a raw MoSeq session on disk
-(``depth.dat``, ``metadata.json``, ``depth_ts.txt``): a floor at
-``FLOOR_DEPTH`` inside a circular arena ringed by walls at ``WALL_DEPTH``,
-so that the host prep of its frames gives chunks like these.
+(``depth.dat``, ``metadata.json``, ``depth_ts.txt``) over ``arena_ground``:
+a tilted, rough floor near ``FLOOR_DEPTH`` inside a circular arena ringed by
+walls at ``WALL_DEPTH``, so that the host prep of its frames gives chunks
+like these, and the plane RANSAC of its background weighs hypotheses that
+really differ.
 '''
 import json
 import os
@@ -18,6 +20,8 @@ import numpy as np
 MOUSE_HEIGHT = 50.0      # body height above the floor
 FLOOR_DEPTH = 700        # mm from the camera
 WALL_DEPTH = 500
+FLOOR_TILT = (0.04, 0.02)  # mm per pixel along x and y (a camera a little off square)
+FLOOR_NOISE = 1.5          # mm, the floor's roughness: per pixel, fixed over a session
 
 
 def _mouse_heights(n: int, height: int, width: int, rng: np.random.Generator,
@@ -62,6 +66,37 @@ def make_sentinel_chunk(n: int, height: int, width: int, seed: int = 0,
     return out
 
 
+def arena_ground(height: int, width: int, rng: np.random.Generator,
+                 tilt: Tuple[float, float] = FLOOR_TILT,
+                 noise: float = FLOOR_NOISE) -> np.ndarray:
+    '''(height, width) f32 depth of the bare arena: inside a circle, a floor
+    at ``FLOOR_DEPTH`` at the centre, tilted by ``tilt`` mm per pixel along
+    (x, y) and rough by normal ``noise`` mm per pixel; walls at
+    ``WALL_DEPTH`` outside.'''
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    dx, dy = xx - width / 2, yy - height / 2
+    arena = dx ** 2 + dy ** 2 < (min(height, width) / 2 - 4) ** 2
+    floor = FLOOR_DEPTH + tilt[0] * dx + tilt[1] * dy \
+        + rng.normal(0, noise, (height, width)).astype(np.float32)
+    return np.where(arena, floor, np.float32(WALL_DEPTH)).astype(np.float32)
+
+
+def rough_arena(height: int, width: int, seed: int = 0, noise: float = 8.0) -> np.ndarray:
+    '''(height, width) f32 background on which the plane RANSAC weighs many
+    near hypotheses: ``arena_ground`` rough by ``noise`` mm (a quarter of
+    the RANSAC's 30-mm tolerance, so that planes through three floor points
+    differ in their inliers and mean distance), a box at 600 mm on the floor
+    (outside the depth range: a hole in the floor's region) and a ledge at
+    690 mm in a corner (within the tolerance: a second region).'''
+    rng = np.random.default_rng(seed)
+    image = arena_ground(height, width, rng, noise=noise)
+    by, bx, bh, bw = int(0.4 * height), int(0.47 * width), height // 12, width // 14
+    image[by:by + bh, bx:bx + bw] = 600.0
+    lh, lw = height // 9, width // 9
+    image[:lh, :lw] = 690.0 + rng.normal(0, 1.0, (lh, lw)).astype(np.float32)
+    return image
+
+
 def write_raw_session(dirname: str, nframes: int, height: int = 424, width: int = 512,
                       seed: int = 0, dropout_rate: float = 0.001) -> str:
     '''Write a raw session of ``nframes`` (height, width) frames into
@@ -74,9 +109,7 @@ def write_raw_session(dirname: str, nframes: int, height: int = 424, width: int 
     '''
     os.makedirs(dirname, exist_ok=True)
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:height, 0:width]
-    arena = (xx - width / 2) ** 2 + (yy - height / 2) ** 2 < (min(height, width) / 2 - 4) ** 2
-    ground = np.where(arena, FLOOR_DEPTH, WALL_DEPTH).astype(np.float32)
+    ground = arena_ground(height, width, rng)
     path = os.path.join(dirname, 'depth.dat')
     with open(path, 'wb') as fh:
         for mouse in _mouse_heights(nframes, height, width, rng, None, 1.5 * np.pi):

@@ -61,7 +61,7 @@ from moseq2_detectron_extract_tpu_torch.synthetic import write_raw_session
 with tempfile.TemporaryDirectory() as tmp:
     session = Session(write_raw_session(tmp, 12, height=96, width=128, seed=1))
     config = prepare_session(session, {'chunk_size': 8, 'output_dir': tmp}, device='cpu')
-    assert config['roi'].any() and config['true_depth'] == 700.0, config['true_depth']
+    assert config['roi'].any() and abs(config['true_depth'] - 700) < 5, config['true_depth']
     chunk = next(produce_chunks(session, config))['chunk']
     assert chunk.shape[0] == 8 and str(chunk.dtype) == 'uint8', (chunk.shape, chunk.dtype)
 from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp

@@ -29,6 +29,7 @@ from moseq2_detectron_extract_tpu_torch.ops.morphology import (ELLIPSE_9X9, ELLI
 from moseq2_detectron_extract_tpu_torch.ops.ransac import (plane_ransac, uniform,
                                                            weighted_choice, xla_cumsum)
 from moseq2_detectron_extract_tpu_torch.proc.roi import get_bground_im, get_roi, rank_max
+from moseq2_detectron_extract_tpu_torch.synthetic import rough_arena
 
 from tests.synthetic import make_background, write_synthetic_session
 
@@ -159,6 +160,20 @@ def test_get_roi_masks_match_jax(kwargs, writable_jax_dists):
     image = arena_image(seed=2)
     rois, plane = get_roi(image, device='cpu', **kwargs)
     ref_rois, ref_plane = jax_get_roi(image, **kwargs)
+    assert len(rois) == len(ref_rois) >= 2                 # the arena and the ledge
+    for ours, ref in zip(rois, ref_rois):
+        np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_allclose(plane[:3], np.asarray(ref_plane)[:3], atol=NORMAL_TOL)
+    np.testing.assert_allclose(plane[3], np.asarray(ref_plane)[3], atol=D_TOL)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_get_roi_matches_jax_where_planes_compete(seed, writable_jax_dists):
+    '''``rough_arena``: a floor rough by 8 mm, where the accept rule takes
+    several hypotheses in turn before it settles; the same ROIs and plane.'''
+    image = rough_arena(128, 192, seed)
+    rois, plane = get_roi(image, device='cpu')
+    ref_rois, ref_plane = jax_get_roi(image)
     assert len(rois) == len(ref_rois) >= 2                 # the arena and the ledge
     for ours, ref in zip(rois, ref_rois):
         np.testing.assert_array_equal(ours, ref)

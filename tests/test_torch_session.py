@@ -158,8 +158,9 @@ def test_short_read_raises(session_dir, tmp_path):
 
 
 def test_write_raw_session_reads_back(tmp_path):
-    '''The port's raw session: an arena floor at 700 ringed by walls at 500,
-    a mouse up to 68 mm above the floor, dropouts at 0, 30 frames/s.'''
+    '''The port's raw session: an arena floor near 700, tilted 0.04 and 0.02
+    mm per pixel and rough by 1.5 mm, ringed by walls at 500; a mouse up to
+    about 70 mm above the floor, dropouts at 0, 30 frames/s.'''
     dat = write_raw_session(str(tmp_path), 6, height=64, width=96, seed=2)
     session = Session(dat)
     assert session.nframes == 6 and session.depth_metadata['dims'] == (96, 64)
@@ -169,7 +170,15 @@ def test_write_raw_session_reads_back(tmp_path):
     arena = (xx - 48) ** 2 + (yy - 32) ** 2 < 28 ** 2
     seen = frames[:, ~arena]
     assert set(np.unique(seen)) == {0, 500}
-    inside = frames[:, arena]
-    assert set(np.unique(inside[(inside < 630) | (inside > 700)])) == {0}
-    assert (inside == 700).mean() > 0.5 and ((inside > 0) & (inside < 690)).any()
+    inside = frames[:, arena].astype(int)
+    floor = np.abs(inside - 700) <= 10
+    mouse = (inside > 0) & ~floor
+    assert floor.mean() > 0.5 and mouse.any()
+    assert ((inside[mouse] > 620) & (inside[mouse] < 690)).all()
+    # the floor: a least-squares plane gives the tilt, its residual the roughness
+    on = floor[0]
+    design = np.stack([xx[arena][on] - 48, yy[arena][on] - 32, np.ones(on.sum())], axis=1)
+    coef, *_ = np.linalg.lstsq(design, inside[0][on], rcond=None)
+    assert np.all(np.abs(coef - [0.04, 0.02, 700]) < [0.01, 0.01, 0.3]), coef
+    assert 1.2 < np.std(inside[0][on] - design @ coef) < 1.8
     np.testing.assert_allclose(session.load_timestamps(Stream.DEPTH)[1], 1000 / 30, atol=1e-3)
