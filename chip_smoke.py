@@ -59,21 +59,38 @@ Phases, each printed with its elapsed seconds as it starts:
    (deleted at the end); ``Session`` and ``extract.prepare_session`` find
    its background, ROI and true depth on the card with the extract CLI's
    defaults (the wall time printed; the session's floor is tilted and
-   rough); ``extract.extract_chunks`` runs its
-   chunks of 1000 (the tail of 100 padded to 1000) through the fast160
-   predictor with both kernels' launch counts set to 0 just before and read
-   just after (3 ROIAlign launches per detection batch, 1 clean per
-   chunk), printing per chunk the host's read+prep ms, ``process_chunk``'s
-   ms (ended by a synchronize) and frames/s over the true frames, then the
-   session's frames/s from disk, the detections and peak device memory;
-   then ``prepare_session`` once more on the card under cProfile (its wall
-   time warm, and the host functions that take it), and on the CPU, which
-   must give the same ROI, background and true depth and the plane (unit
-   normal to 1e-5, d to 1e-3 mm); ``get_roi`` on the card and on the CPU
-   on ``synthetic.rough_arena`` backgrounds of 424x512, where the RANSAC's
-   accept rule weighs near hypotheses, must agree in the same way; then
-   chunk 0 once more: one read of its raw frames and the C++
-   host prep, which must equal its plain numpy version bit for bit;
+   rough); ``extract.extract_chunks`` runs its chunks of 1000 (the tail of
+   100 padded to 1000) through the fast160 predictor, the host brain and the
+   output ops to ``fetch_results``, with both kernels' launch counts set to
+   0 just before and read just after (3 ROIAlign launches per detection
+   batch, 1 clean per chunk), printing per chunk the host's read+prep ms,
+   ``process_chunk``'s ms, ``process_features``' (the brain's moments
+   pull, EM init, ``smooth_update``, flip votes and angle filter from its
+   timers; the rest is the output ops with the device) and
+   ``fetch_results``' (each ended by a synchronize), then the session's
+   frames/s from disk through ``fetch_results`` beside the figure up to
+   ``process_chunk``, the detections and peak device memory, and checks
+   each chunk's fetched results (shapes, dtypes, finite features); then
+   the output ops on the card against the CPU on chunk 0's inputs (the
+   crops in f32 to 1e-3 and in uint8 equal but at .5 edges, the masks
+   and packed masks equal but at 0.5 edges, z, area and the 17 scalars and
+   keypoint dict equal, heights to 1e-5) and each op's device ms; the
+   session once more with ``pad_chunks`` False (frames/s, and the largest
+   difference of the smoothed centroid and orientation over the last true
+   frames against the padded run); the Kalman smoother backends on the
+   host (numpy and the C++ core at the point tracker's size, S 54, O 18,
+   T 1000, 5% of the rows missing, median ms of 5, held to each other to
+   1e-9, and the backend the port picks) and the angle filter's ms per 1000
+   frames; a session of 400 frames whose first 60 have no mouse, through
+   the whole path in chunks of 200 (missing rows; the trackers must end
+   finite); then ``prepare_session`` once more on the card under cProfile
+   (its wall time warm, and the host functions that take it), and on the
+   CPU, which must give the same ROI, background and true depth and the
+   plane (unit normal to 1e-5, d to 1e-3 mm); ``get_roi`` on the card and
+   on the CPU on ``synthetic.rough_arena`` backgrounds of 424x512, where the
+   RANSAC's accept rule weighs near hypotheses, must agree in the same way;
+   then chunk 0 once more: one read of its raw frames and the C++ host
+   prep, which must equal its plain numpy version bit for bit;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
@@ -130,6 +147,9 @@ REPS = 20                          # timed calls per kernel measurement
 CHUNKS = 5                         # timed chunks of the main path
 SESSION_FRAMES = 1100              # frames of the raw session of phase 4b
 SESSION_CHUNK = 1000               # the extract CLI's chunk_size
+ABSENT_SESSION = 400               # frames of the session with the mouse away at first
+ABSENT_FRAMES = 60                 # its leading frames without the mouse
+ABSENT_CHUNK = 200                 # its chunk size: two chunks, the first with missing rows
 PLANE_TOL = (1e-5, 1e-3)           # card vs CPU RANSAC plane: unit normal, d in mm
 ROUGH_SEEDS = (0, 1, 2)            # rough_arena backgrounds held card against CPU
 FIND_ROI_TOP = 8                   # functions printed from find_roi's host profile
@@ -466,9 +486,9 @@ def stage_times(chunk, predictor, config, tracker) -> dict:
     '''Wall seconds of each stage of ``process_chunk`` on one chunk (host
     clock, each stage ended by a synchronize).'''
     import torch
-    from moseq2_detectron_extract_tpu_torch.pipeline.steps import (run_inference,
+    from moseq2_detectron_extract_tpu_torch.pipeline.steps import (dispatch_window_features,
+                                                                   run_inference,
                                                                    select_instances)
-    from moseq2_detectron_extract_tpu_torch.proc.features import dispatch_instance_features
     times = {}
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -480,8 +500,7 @@ def stage_times(chunk, predictor, config, tracker) -> dict:
     torch.cuda.synchronize()
     times['select_and_gather'] = time.perf_counter() - t
     t = time.perf_counter()
-    dispatch_instance_features(data['sel_masks'], data['raw_windows'],
-                               window_origins=data['win_origins'])
+    dispatch_window_features(data, config)
     torch.cuda.synchronize()
     times['clean_and_moments'] = time.perf_counter() - t
     times['chunk'] = sum(times.values())
@@ -575,9 +594,316 @@ def plane_errors(plane, ref):
     return float(diff[:3].max()), float(diff[3])
 
 
+def drive_session(session, predictor, prepared: dict, card: str, label: str,
+                  keep_chunk0: bool = False) -> dict:
+    """The session's chunks through ``extract.extract_chunks`` (selection,
+    brain and output ops, to ``fetch_results``), each stage timed on the
+    host clock and ended by a synchronize: read+prep (the producer),
+    ``process_chunk``, ``process_features`` (the brain's host seconds from
+    its timers; the rest is the output ops' dispatch and device time) and
+    ``fetch_results``. Prints a line per chunk and one for the session, with
+    the kernels' launch counts set to 0 just before; checks each chunk's
+    fetched results. Returns the rows, launches, the last chunk's true
+    frames' smoothed centroid and orientation, and (``keep_chunk0``) chunk
+    0's inputs to the output ops."""
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import extract
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+
+    stages = {'produce': extract.produce_chunks, 'process_chunk': extract.process_chunk,
+              'process_features': extract.process_features,
+              'fetch_results': extract.fetch_results}
+    rows = []
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == 'process_features':
+                kwargs['timers'] = rows[-1]['brain']
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rows[-1][name] = time.perf_counter() - t
+            return out
+        return run
+
+    def timed_produce(*args):
+        chunks = stages['produce'](*args)
+        while True:
+            rows.append({'brain': {}})
+            t = time.perf_counter()
+            item = next(chunks, None)
+            rows[-1]['produce'] = time.perf_counter() - t
+            if item is None:
+                rows.pop()
+                return
+            yield item
+
+    roi_align_kernel.launch_count = 0
+    clean_kernel.launch_count = 0
+    torch.cuda.reset_peak_memory_stats()
+    extract.produce_chunks = timed_produce
+    for name in ('process_chunk', 'process_features', 'fetch_results'):
+        setattr(extract, name, timed(name, stages[name]))
+    found, frames, chunk0, last = 0, 0, None, None
+    chunk_size = prepared['chunk_size']
+    crop = tuple(prepared['crop_size'])
+    try:
+        t0 = time.perf_counter()
+        for out in extract.extract_chunks(session, predictor, prepared,
+                                          tracker=extract.make_tracker()):
+            n = out['nframes']
+            rows[-1]['frames'] = n
+            frames += n
+            m = out['chunk'].shape[0]
+            inf = out['inference']
+            shape = (m, 1) + tuple(out['chunk'].shape[1:])
+            if tuple(inf['masks'].shape) != shape:
+                raise AssertionError(f'masks {tuple(inf["masks"].shape)} != {shape}')
+            for key in ('boxes', 'scores', 'keypoints'):
+                if not bool(torch.isfinite(inf[key]).all()):
+                    raise AssertionError(f'session chunk: non-finite {key}')
+            window = min(prepared['feature_window'], *out['chunk'].shape[1:])
+            if tuple(out['feat_dispatch']['cleaned_frames'].shape) != (m, window, window):
+                raise AssertionError('cleaned windows '
+                                     f'{tuple(out["feat_dispatch"]["cleaned_frames"].shape)}')
+            has = out['num_instances'][:n] > 0
+            found += int(has.sum())
+            feats = out['features']['features']
+            expect = {'depth_frames': ((m, crop[1], crop[0]), np.uint8),
+                      'mask_frames': ((m, crop[1], crop[0]), np.uint8),
+                      'arena_mask_crops': ((m, window, window), np.uint8)}
+            for key, (shape, dtype) in expect.items():
+                if out[key].shape != shape or out[key].dtype != dtype:
+                    raise AssertionError(f'{key} {out[key].shape} {out[key].dtype}')
+            if len(out['scalars']) != 17 or len(out['keypoints']) != 8 * 12:
+                raise AssertionError('scalars or keypoint dict incomplete')
+            if not (np.isfinite(feats['centroid'][:n][has]).all()
+                    and np.isfinite(feats['orientation'][:n][has]).all()
+                    and np.isfinite(out['scalars']['height_ave_mm'][:n]).all()):
+                raise AssertionError('non-finite smoothed features of a found mouse')
+            last = (feats['centroid'][:n].copy(), feats['orientation'][:n].copy())
+            if keep_chunk0 and chunk0 is None:
+                fd = out['feat_dispatch']
+                chunk0 = {'chunk_dev': out['chunk_dev'], 'raw_windows': out['raw_windows'],
+                          'feat_masks': fd['feat_masks'], 'cleaned': fd['cleaned_frames'],
+                          'origins': out['win_origins'], 'features': feats,
+                          'keypoints': out['features']['keypoints'],
+                          'frame_idxs': out['frame_idxs'], 'chunk': out['chunk'],
+                          'config': prepared}
+            del out, inf
+        busy_s = time.perf_counter() - t0
+    finally:
+        for name, fn in stages.items():
+            setattr(extract, 'produce_chunks' if name == 'produce' else name, fn)
+    launches = {'roi_align': roi_align_kernel.launch_count, 'clean': clean_kernel.launch_count}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    upto = sum(r['produce'] + r['process_chunk'] for r in rows)
+    for i, r in enumerate(rows):
+        b = r['brain']
+        phase(f'{label} chunk {i}: {r["frames"]} true frames of {chunk_size}; read+prep '
+              f'{r["produce"] * 1e3:.1f} ms (host), process_chunk {r["process_chunk"] * 1e3:.1f},'
+              f' process_features {r["process_features"] * 1e3:.1f} (brain: moments pull '
+              f'{b.get("itf_moments", 0) * 1e3:.1f}, EM init {b.get("itf_em_init", 0) * 1e3:.1f},'
+              f' smooth_update {b.get("itf_kalman_smooth", 0) * 1e3:.1f}, flip votes '
+              f'{b.get("itf_flip_votes", 0) * 1e3:.1f}, angle filter '
+              f'{b.get("itf_angle_filter", 0) * 1e3:.1f}; output ops '
+              f'{(r["process_features"] - sum(b.values())) * 1e3:.1f} ms with the device), '
+              f'fetch_results {r["fetch_results"] * 1e3:.1f} ms (each ended by a synchronize) '
+              f'[{card}]')
+    phase(f'{label}: {frames} frames from disk in {busy_s:.3f} s = {frames / busy_s:.1f} '
+          f'frames/s through fetch_results ({frames / upto:.1f} up to process_chunk); '
+          f'detections found in {found} of {frames} frames; launches {launches}; peak memory '
+          f'{peak_gib:.2f} GiB [{card}]')
+    return {'rows': rows, 'launches': launches, 'found': found, 'frames': frames,
+            'busy_s': busy_s, 'last': last, 'chunk0': chunk0}
+
+
+def _half_edge(values, tol: float = 1e-3):
+    """Where f32 values sit within ``tol`` of a .5 edge of rounding."""
+    import torch
+    return (values - torch.floor(values) - 0.5).abs() <= tol
+
+
+def check_output_ops(chunk0: dict, card: str) -> None:
+    """The output ops on the card against the CPU, on chunk 0's inputs:
+    crop-and-rotate of the depth (f32 to 1e-3; uint8 equal but at .5 edges)
+    and of the feature masks (thresholded and packed: equal but at 0.5
+    edges), the z lookup, the height stats, the 17 scalars and the keypoint
+    dict on the same host inputs; then each op's device ms (CUDA events,
+    median of single calls)."""
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch.ops.instances import packbits_device
+    from moseq2_detectron_extract_tpu_torch.ops.warp import crop_and_rotate_frames
+    from moseq2_detectron_extract_tpu_torch.proc.keypoints import (dispatch_z_lookup,
+                                                                   keypoints_to_dict)
+    from moseq2_detectron_extract_tpu_torch.proc.scalars import (compute_scalars,
+                                                                 dispatch_scalar_stats)
+    config = chunk0['config']
+    crop = tuple(config['crop_size'])
+    feats = chunk0['features']
+    centroid, angles = feats['centroid'], feats['orientation']
+    local = centroid - np.asarray(chunk0['origins'])[:, ::-1]
+    masks_u8 = chunk0['feat_masks'].to(torch.uint8)
+    masked = chunk0['raw_windows'] * chunk0['feat_masks']
+
+    def ops(dev):
+        depth = crop_and_rotate_frames(chunk0['chunk_dev'].to(dev), centroid, angles, crop)
+        masks = crop_and_rotate_frames(masks_u8.to(dev), local, angles, crop)
+        return {'depth': depth, 'masks': masks, 'packed': packbits_device(masks > 0.5),
+                'z': dispatch_z_lookup(chunk0['keypoints'], chunk0['cleaned'].to(dev),
+                                       chunk0['origins']),
+                'stats': dispatch_scalar_stats(masked.to(dev), config['min_height'],
+                                               config['max_height'])}
+
+    gpu, cpu = ops('cuda'), ops('cpu')
+    crop_err = float((gpu['depth'].cpu() - cpu['depth']).abs().max())
+    u8 = [torch.clamp(torch.round(x), 0, 255).to(torch.uint8) for x in (gpu['depth'].cpu(),
+                                                                         cpu['depth'])]
+    u8_diff = u8[0] != u8[1]
+    depth_edges_only = bool((~u8_diff | _half_edge(cpu['depth'])).all())
+    mask_diff = (gpu['masks'].cpu() > 0.5) != (cpu['masks'] > 0.5)
+    at_half = (cpu['masks'] - 0.5).abs() <= 1e-3
+    mask_edges_only = bool((~mask_diff | at_half).all())
+    edge_bytes = torch.from_numpy(np.packbits(at_half.numpy(), axis=-1) > 0)
+    packed_equal = bool((gpu['packed'].cpu() == cpu['packed'])[~edge_bytes].all())
+    z_equal = bool(torch.equal(gpu['z'].cpu(), cpu['z']))
+    area_equal = bool(torch.equal(gpu['stats'][0].cpu(), cpu['stats'][0]))
+    h_gpu, h_cpu = gpu['stats'][1].cpu().double(), cpu['stats'][1].double()
+    height_rel = float(((h_gpu - h_cpu).abs() / h_cpu.abs().clamp(min=1e-12)).max())
+    true_depth = config['true_depth']
+    sc = [compute_scalars(None, feats, config['min_height'], config['max_height'], true_depth,
+                          height_stats=out['stats']) for out in (gpu, cpu)]
+    kd = [keypoints_to_dict(chunk0['keypoints'], None, centroid, angles, true_depth,
+                            frame_origins=chunk0['origins'], z_data=out['z']) for out in (gpu, cpu)]
+    scalars_equal = all(np.array_equal(sc[0][k], sc[1][k], equal_nan=True) for k in sc[1])
+    kpts_equal = all(np.array_equal(kd[0][k], kd[1][k], equal_nan=True) for k in kd[1])
+    phase(f'output ops, card vs CPU on chunk 0 ({tuple(cpu["depth"].shape)} crops from '
+          f'{tuple(chunk0["chunk_dev"].shape)}): crop max abs err {crop_err:.3e} (tol 1e-3); '
+          f'uint8 crops differing {int(u8_diff.sum())} of {u8_diff.numel()} px, all at .5 '
+          f'edges: {depth_edges_only}; masks differing {int(mask_diff.sum())} px, all at 0.5 '
+          f'edges: {mask_edges_only}; packed masks equal off edges: {packed_equal}; z equal: '
+          f'{z_equal}; area_px equal: {area_equal}; height_ave_mm max rel err '
+          f'{height_rel:.2e} (tol 1e-5); 17 scalars equal: {scalars_equal}; keypoint dict '
+          f'equal: {kpts_equal} [{card}]')
+    if not (crop_err <= 1e-3 and depth_edges_only and mask_edges_only and packed_equal
+            and z_equal and area_equal and height_rel <= 1e-5 and scalars_equal and kpts_equal):
+        raise AssertionError('the output ops on the card differ from the CPU')
+    chunk_dev, cleaned = chunk0['chunk_dev'], chunk0['cleaned']
+    masks_dev = masks_u8.to('cuda')
+    timings = {
+        'crop depth': lambda: crop_and_rotate_frames(chunk_dev, centroid, angles, crop),
+        'crop masks': lambda: crop_and_rotate_frames(masks_dev, local, angles, crop),
+        'pack masks': lambda: packbits_device(gpu['masks'] > 0.5),
+        'z lookup': lambda: dispatch_z_lookup(chunk0['keypoints'], cleaned, chunk0['origins']),
+        'height stats': lambda: dispatch_scalar_stats(masked, config['min_height'],
+                                                      config['max_height'])}
+    phase('output ops on chunk 0, device ms (CUDA events around single calls, median of 5, '
+          'host launch time included): ' + ', '.join(
+              f'{name} {wall_ms(fn, 5):.3f}' for name, fn in timings.items()) + f' [{card}]')
+
+
+def time_smoothers(card: str, seed: int) -> None:
+    """The smoother backends on this machine's host at the point tracker's
+    size (S 54, O 18), T 1000 with 5% of the rows missing: median ms of 5
+    for numpy and the C++ core (and steady with none missing), held to each
+    other to 1e-9; the backend the port picks; the angle filter's ms per
+    1000 frames."""
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.pipeline.steps import make_feature_trackers
+    from moseq2_detectron_extract_tpu_torch.proc import kalman
+    rng = np.random.default_rng(seed)
+    n = 1000
+    centroid = 200 + np.cumsum(rng.normal(0, 1.5, (n, 2)), axis=0)
+    kpts = centroid[:, None, :] + rng.normal(0, 4, (n, 8, 2))
+    angles = np.cumsum(rng.normal(0, 4, n)) % 360
+    point, angle = make_feature_trackers({'use_tracking': True, 'num_keypoints': 8})
+    t = time.perf_counter()
+    point.initialize([centroid, kpts])
+    em_s = time.perf_counter() - t
+    angle.initialize([angles])
+    obs, _ = point._obs_and_missing([centroid, kpts])
+    missing = rng.random(n) < 0.05
+    s_dim, o_dim = point.params.transition.shape[0], obs.shape[1]
+
+    def median_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t)
+        return 1e3 * statistics.median(times), out
+
+    ms = {}
+    ms['numpy'], numpy_out = median_ms(lambda: kalman.kalman_smooth(point.params, obs, missing,
+                                                                     backend='numpy'))
+    ms['native'], native_out = median_ms(lambda: kalman.kalman_smooth(point.params, obs,
+                                                                       missing, backend='native'))
+    ms['steady, none missing'], _ = median_ms(lambda: kalman.kalman_smooth(
+        point.params, obs, np.zeros(n, bool)))
+    err = max(float(np.abs(numpy_out[k] - native_out[k]).max())
+              for k in ('means', 'covs', 'lag_one_covs'))
+    scores = rng.uniform(0.2, 1.0, n)
+    filter_ms, _ = median_ms(lambda: kalman.angle_intervention_filter(
+        angle.params, angle.last_mean, angle.last_covar, angles, scores))
+    faster = min(('numpy', 'native'), key=ms.get)
+    phase(f'smoother backends on the host (S {s_dim}, O {o_dim}, T {n}, {int(missing.sum())} '
+          f'rows missing; median ms of 5): ' + ', '.join(f'{k} {v:.1f}' for k, v in ms.items())
+          + f'; native vs numpy max abs err {err:.2e} (tol 1e-9); faster with missing rows: '
+          f'{faster}; the port picks {kalman.MISSING_ROWS_BACKEND}; EM init (10 iterations, '
+          f'T {n}) {em_s * 1e3:.1f} ms; angle filter {filter_ms:.1f} ms per {n} frames; C++ '
+          f'fallbacks so far {kalman.native_fallbacks} [{card}]')
+    if err > 1e-9:
+        raise AssertionError('the C++ Kalman core differs from numpy')
+
+
+def check_absent_session(predictor, card: str, seed: int, tmp: str) -> None:
+    """A short session whose first frames have no mouse (its background is
+    frame 0, the bare arena) through the whole path: the point tracker then
+    smooths chunks with missing rows and both trackers must end finite."""
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch import extract
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.proc import kalman
+    from moseq2_detectron_extract_tpu_torch.synthetic import write_raw_session
+    absent = (0, ABSENT_FRAMES)
+    path = write_raw_session(os.path.join(tmp, 'absent'), ABSENT_SESSION, 424, 512,
+                             seed=seed + 1, absent=absent)
+    config = {**extract.DEFAULT_CONFIG, 'chunk_size': ABSENT_CHUNK, 'min_height': 0.0,
+              'max_height': 100.0, 'feature_window': 160}
+    session = Session(path)
+    prepared = extract.prepare_session(session, config, device='cuda')
+    trackers = extract.make_feature_trackers(prepared)
+    fallbacks = kalman.native_fallbacks
+    t = time.perf_counter()
+    missing, frames, empty_absent = 0, 0, 0
+    for out in extract.extract_chunks(session, predictor, prepared, feature_trackers=trackers):
+        n = out['nframes']
+        idx = out['frame_idxs']
+        none = out['num_instances'][:n] == 0
+        missing += int(none.sum())
+        empty_absent += int((none & (idx >= absent[0]) & (idx < absent[1])).sum())
+        frames += n
+    wall = time.perf_counter() - t
+    finite = all(np.isfinite(tr.last_mean).all() and np.isfinite(tr.last_covar).all()
+                 for tr in trackers)
+    phase(f'absent-mouse session: {frames} frames of 424x512 (no mouse in frames {absent[0]}-'
+          f'{absent[1] - 1}), chunks of {ABSENT_CHUNK}: {missing} frames without a detection '
+          f'({empty_absent} of the {absent[1] - absent[0]} empty ones), {frames / wall:.1f} '
+          f'frames/s through fetch_results; trackers finite: {finite}; C++ fallbacks '
+          f'{kalman.native_fallbacks - fallbacks} [{card}]')
+    if missing == 0 or not finite:
+        raise AssertionError('the absent-mouse session ran without missing rows or ended '
+                             'with a non-finite tracker state')
+
+
 def check_session(predictor, card: str, seed: int) -> dict:
     '''Phase 4b: a raw session on disk through ``prepare_session`` and
-    ``extract_chunks``; the card's ROI against the CPU's and the C++ prep
+    ``extract_chunks`` to ``fetch_results`` (padded, then unpadded); the
+    output ops on the card against the CPU; the smoother backends; a session
+    with the mouse away; the card's ROI against the CPU's and the C++ prep
     against the plain one. Returns the path's kernel launches.'''
     import shutil
     import tempfile
@@ -585,7 +911,6 @@ def check_session(predictor, card: str, seed: int) -> dict:
     import torch
     from moseq2_detectron_extract_tpu_torch import extract
     from moseq2_detectron_extract_tpu_torch.io.session import Session
-    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
     from moseq2_detectron_extract_tpu_torch.ops.preprocess import (prep_raw_frames_host,
                                                                    prep_raw_frames_plain)
     from moseq2_detectron_extract_tpu_torch.proc.roi import get_roi
@@ -612,72 +937,34 @@ def check_session(predictor, card: str, seed: int) -> dict:
               f'depth {prepared["true_depth"]}, plane {np.round(session.plane, 5).tolist()} '
               f'[{card}]')
 
-        real_produce = extract.produce_chunks
-        host_s = []
-
-        def timed_produce(*args):
-            chunks = real_produce(*args)
-            while True:
-                t = time.perf_counter()
-                item = next(chunks, None)
-                host_s.append(time.perf_counter() - t)
-                if item is None:
-                    return
-                yield item
-
-        roi_align_kernel.launch_count = 0
-        clean_kernel.launch_count = 0
-        torch.cuda.reset_peak_memory_stats()
-        extract.produce_chunks = timed_produce
-        rows, found, frames, busy_s = [], 0, 0, 0.0
-        chunk0 = None
-        try:
-            t_prev = time.perf_counter()
-            for out in extract.extract_chunks(session, predictor, prepared,
-                                              tracker=extract.make_tracker()):
-                torch.cuda.synchronize()
-                total = time.perf_counter() - t_prev
-                n = out['nframes']
-                rows.append((host_s[-1], total - host_s[-1], n))
-                busy_s += total
-                frames += n
-                inf = out['inference']
-                shape = (SESSION_CHUNK, 1) + tuple(out['chunk'].shape[1:])
-                if tuple(inf['masks'].shape) != shape:
-                    raise AssertionError(f'masks {tuple(inf["masks"].shape)} != {shape}')
-                for key in ('boxes', 'scores', 'keypoints'):
-                    if not bool(torch.isfinite(inf[key]).all()):
-                        raise AssertionError(f'session chunk: non-finite {key}')
-                cleaned = out['feat_dispatch']['cleaned_frames']
-                crop = min(160, *out['chunk'].shape[1:])
-                if tuple(cleaned.shape) != (SESSION_CHUNK, crop, crop):
-                    raise AssertionError(f'cleaned windows {tuple(cleaned.shape)}')
-                found += int((out['num_instances'][:n] > 0).sum())
-                if chunk0 is None:
-                    chunk0 = (out['frame_idxs'], out['chunk'])
-                del out, inf, cleaned
-                t_prev = time.perf_counter()
-        finally:
-            extract.produce_chunks = real_produce
-        launches = {'roi_align': roi_align_kernel.launch_count,
-                    'clean': clean_kernel.launch_count}
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        for i, (host, dev, n) in enumerate(rows):
-            phase(f'session chunk {i}: {n} true frames of {SESSION_CHUNK}; read+prep '
-                  f'{host * 1e3:.1f} ms (host), process_chunk {dev * 1e3:.1f} ms (ended by a '
-                  f'synchronize), {n / (host + dev):.1f} frames/s [{card}]')
-        phase(f'session: {frames} frames from disk in {busy_s:.3f} s = {frames / busy_s:.1f} '
-              f'frames/s through process_chunk ({frames / (busy_s + roi_s):.1f} with find_roi); '
-              f'detections found in {found} of {frames} frames; launches {launches}; peak '
-              f'memory {peak_gib:.2f} GiB [{card}]')
+        run = drive_session(session, predictor, prepared, card, 'session', keep_chunk0=True)
+        rows, launches, frames = run['rows'], run['launches'], run['frames']
         batches = sum(-(-SESSION_CHUNK // BATCH) for _ in rows)
         if launches != {'roi_align': 3 * batches, 'clean': len(rows)}:
             raise AssertionError(f'session launches {launches}; expected roi_align '
                                  f'{3 * batches} (3 per batch), clean {len(rows)}')
         if len(rows) != 2 or frames != SESSION_FRAMES:
             raise AssertionError(f'{len(rows)} chunks of {frames} frames')
-        if found < 0.9 * frames:
-            raise AssertionError(f'the mouse was found in only {found} of {frames} frames')
+        if run['found'] < 0.9 * frames:
+            raise AssertionError(f'the mouse was found in only {run["found"]} of {frames} frames')
+        chunk0 = run.pop('chunk0')
+        check_output_ops(chunk0, card)
+        chunk0 = (chunk0['frame_idxs'], chunk0['chunk'])
+
+        unpadded = drive_session(session, predictor, dict(prepared, pad_chunks=False), card,
+                                 'unpadded session')
+        (c_pad, o_pad), (c_unp, o_unp) = run['last'], unpadded['last']
+        gap = np.abs(o_pad - o_unp) % 360
+        phase(f'padded tail: the last chunk\'s {len(o_pad)} true frames, unpadded against '
+              f'padded: smoothed centroid max abs diff {np.nanmax(np.abs(c_pad - c_unp)):.4f} '
+              f'px, orientation {np.nanmax(np.minimum(gap, 360 - gap)):.4f} deg; session '
+              f'{unpadded["frames"] / unpadded["busy_s"]:.1f} frames/s unpadded, '
+              f'{frames / run["busy_s"]:.1f} padded [{card}]')
+        if unpadded['frames'] != frames or unpadded['rows'][-1]['frames'] != len(o_pad):
+            raise AssertionError('the unpadded session gave other chunks')
+
+        time_smoothers(card, seed)
+        check_absent_session(predictor, card, seed, tmp)
 
         warm_session = Session(path, frame_trim=config['frame_trim'])
         profiler = cProfile.Profile()

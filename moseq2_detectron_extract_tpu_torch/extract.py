@@ -2,11 +2,13 @@
 
 The port's counterpart of ``moseq2_detectron_extract_tpu/extract.py``:
 ``prepare_session`` is ``extract_session``'s ROI discovery (lines 63-83),
-``extract_chunks`` its frame producer and, per chunk, ``process_chunk``:
-what the reference's pipeline runs as ``InferenceStep`` (device prep and
-detection), ``SelectInstancesStep`` (selection and window gather) and
-``dispatch_instance_features`` (window clean and moments). The host brain
-and the writers come in later slices.
+``extract_chunks`` its frame producer and, per chunk, ``process_chunk``
+(what the reference's pipeline runs as ``InferenceStep``, device prep and
+detection, and ``SelectInstancesStep``, selection, the window gather, the
+window clean and moments and the height stats), then ``process_features``
+(``ProcessFeaturesStep``: the host brain and the output ops) and
+``fetch_results`` (``FetchResultsStep``: what the writers take). The
+writers come in a later slice.
 '''
 from typing import Dict, Iterator, Optional
 
@@ -15,12 +17,15 @@ import torch
 
 from moseq2_detectron_extract_tpu_torch.device import resolve_device
 from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
-from moseq2_detectron_extract_tpu_torch.pipeline.steps import (produce_chunks, run_inference,
-                                                               select_instances)
-from moseq2_detectron_extract_tpu_torch.proc.features import dispatch_instance_features
+from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers,
+                                                               dispatch_window_features,
+                                                               fetch_results,
+                                                               make_feature_trackers,
+                                                               process_features, produce_chunks,
+                                                               run_inference, select_instances)
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
 
-# the extract CLI's defaults (cli.py:46-64, pipeline/steps.py:166-169)
+# the extract CLI's defaults (cli.py:46-66, pipeline/steps.py:166-169, 319-393)
 DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
                   'expected_instances': 1,
                   'bg_roi_dilate': (10, 10), 'bg_roi_shape': 'ellipse', 'bg_roi_index': 0,
@@ -28,7 +33,9 @@ DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
                   'bg_roi_gradient_filter': False, 'bg_roi_gradient_threshold': 3000,
                   'bg_roi_gradient_kernel': 7, 'bg_roi_fill_holes': True,
                   'use_plane_bground': False, 'frame_dtype': 'uint8', 'chunk_size': 1000,
-                  'chunk_overlap': 0, 'frame_trim': (0, 0)}
+                  'chunk_overlap': 0, 'frame_trim': (0, 0), 'crop_size': (80, 80),
+                  'use_tracking': True, 'num_keypoints': 8, 'debug_feature_processing': False,
+                  'preview_arena_masks': True}
 
 
 def make_tracker() -> CentroidTracker:
@@ -44,9 +51,10 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
     ``chunk_u8`` is a numpy array or tensor of host-prepped frames whose
     dropout pixels hold 255; it is moved to ``predictor.device``. Pass the
     same ``tracker`` for consecutive chunks of a session. Returns the
-    selection's fields (see ``pipeline.steps.select_instances``) and
+    selection's fields (see ``pipeline.steps.select_instances``),
     ``feat_dispatch`` with ``cleaned_frames``, ``feat_masks`` and
-    ``feats_dev`` (centroid in frame coordinates, orientation, axis_length).
+    ``feats_dev`` (centroid in frame coordinates, orientation, axis_length)
+    and ``height_stats`` (see ``pipeline.steps.dispatch_window_features``).
     '''
     config = {**DEFAULT_CONFIG, **(config or {})}
     chunk = torch.as_tensor(np.asarray(chunk_u8)) if not torch.is_tensor(chunk_u8) \
@@ -57,9 +65,7 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
         tracker = make_tracker()
     data = run_inference(chunk, predictor, config)
     data = select_instances(data, config, tracker)
-    data['feat_dispatch'] = dispatch_instance_features(
-        data['sel_masks'], data['raw_windows'], window_origins=data['win_origins'])
-    return data
+    return dispatch_window_features(data, config)
 
 
 def prepare_session(session: Session, config: Optional[Dict] = None, device='cuda') -> Dict:
@@ -92,20 +98,33 @@ def prepare_session(session: Session, config: Optional[Dict] = None, device='cud
 
 
 def extract_chunks(session: Session, predictor, config: Optional[Dict] = None,
-                   tracker: Optional[CentroidTracker] = None) -> Iterator[Dict]:
+                   tracker: Optional[CentroidTracker] = None,
+                   feature_trackers: Optional[FeatureTrackers] = None) -> Iterator[Dict]:
     '''Each chunk of a prepared session (``prepare_session`` first) through
     ``process_chunk`` on ``predictor.device`` (CUDA unless the predictor was
-    made for the CPU), with one tracker across the chunks.
+    made for the CPU), then ``process_features`` and ``fetch_results``, with
+    one selection tracker and one pair of feature trackers
+    (``make_feature_trackers``) across the chunks.
 
     Yields ``process_chunk``'s output with ``frame_idxs``, ``offset`` (the
     leading frames a previous chunk already gave), ``nframes`` (the chunk's
     true frames; the rest of ``chunk`` is padding) and ``chunk`` (the
-    prepped frames).
+    prepped frames), and beside it what ``fetch_results`` gives the
+    writers: ``scalars``, ``keypoints``, ``depth_frames``, ``mask_frames``,
+    ``arena_mask_crops``, ``arena_mask_origins`` and ``features`` (with
+    ``features``, ``flips``, ``keypoints`` and ``num_instances``), over all
+    of the chunk's frames, padding included.
     '''
     config = {**DEFAULT_CONFIG, **(config or {})}
     if tracker is None:
         tracker = make_tracker()
+    if feature_trackers is None:
+        feature_trackers = make_feature_trackers(config)
     for item in produce_chunks(session, config):
         out = process_chunk(item['chunk'], predictor, config, tracker=tracker)
         out.update(item, nframes=len(item['frame_idxs']))
+        # the back end pops what it consumes from a copy, so the chunk's
+        # own outputs stay in the yielded dict beside the fetched results
+        fetched = fetch_results(process_features(dict(out), config, feature_trackers), config)
+        out.update({key: fetched[key] for key in fetched.keys() - out.keys()})
         yield out

@@ -1,7 +1,8 @@
 '''Chunk ranges, timestamps and session metadata.
 
 Port of ``moseq2_detectron_extract_tpu/io/util.py`` (``gen_batch_sequence``,
-lines 21-34; ``load_timestamps``, 111-132; ``load_metadata``, 135-140).
+lines 21-34; ``load_timestamps``, 111-132; ``load_metadata``, 135-140;
+``find_unused_file_path``, 149-157).
 '''
 import json
 import os
@@ -44,3 +45,14 @@ def load_metadata(path_or_file: Union[str, IO[bytes]]) -> dict:
         with open(path_or_file, 'r', encoding='utf-8') as fh:
             return json.load(fh)
     return json.load(path_or_file)
+
+
+def find_unused_file_path(path: str) -> str:
+    '''``path`` if unused, else ``stem.N.ext`` with the first free N.'''
+    if not os.path.exists(path):
+        return path
+    stem, ext = os.path.splitext(path)
+    i = 1
+    while os.path.exists(f'{stem}.{i}{ext}'):
+        i += 1
+    return f'{stem}.{i}{ext}'

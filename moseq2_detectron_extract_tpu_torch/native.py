@@ -12,9 +12,11 @@ never at import.
 
 A failed build raises with nvcc's stderr; there is no fallback.
 
-The host prep's C++ core, ``csrc/prep_host.cpp``, is built the same way
-with ``g++`` (nvcc's host compiler) into its own library beside them
-(``build_host_library``); a failed build raises with g++'s stderr.
+The host's C++ cores, ``csrc/prep_host.cpp`` (the host prep) and
+``csrc/kalman_host.cpp`` (the Kalman filter and smoother), are built the
+same way with ``g++`` (nvcc's host compiler), each into a library of its
+own beside them (``build_host_library``), with one loader each; a failed
+build raises with g++'s stderr.
 
 Every ``nvcc`` gets its own copy of the environment (``env=``). Without it
 the child reads the C ``environ`` array while it starts, and a thread that
@@ -48,6 +50,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 HOST_SOURCE = os.path.join(CSRC_DIR, 'prep_host.cpp')
 HOST_LIB_NAME = 'libm2de_prep_host.so'
+KALMAN_SOURCE = os.path.join(CSRC_DIR, 'kalman_host.cpp')
+KALMAN_LIB_NAME = 'libm2de_kalman_host.so'
 HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
 def find_nvcc() -> str:
@@ -204,9 +208,10 @@ def find_host_cxx() -> str:
     return found
 
 
-def build_host_library(source: str = HOST_SOURCE) -> str:
-    '''Build the host prep library from ``source`` with g++ unless this
-    source hash is built; its path. Raises with g++'s stderr on a failure.'''
+def build_host_library(source: str = HOST_SOURCE, lib_name: str = HOST_LIB_NAME) -> str:
+    '''Build the host library ``lib_name`` from ``source`` with g++ unless
+    this source hash is built; its path. Raises with g++'s stderr on a
+    failure.'''
     cxx = find_host_cxx()
     digest = hashlib.sha256()
     for part in (cxx, ' '.join(HOST_CXX_FLAGS)):
@@ -221,7 +226,7 @@ def build_host_library(source: str = HOST_SOURCE) -> str:
         if result.returncode != 0:
             raise RuntimeError(f'g++ failed:\n{" ".join(cmd)}\n{result.stderr}')
 
-    return _build_once('host-' + digest.hexdigest()[:16], HOST_LIB_NAME, build)
+    return _build_once('host-' + digest.hexdigest()[:16], lib_name, build)
 
 
 @_loaded_once
@@ -233,4 +238,19 @@ def load_host_library() -> ctypes.CDLL:
     lib.prep_frames_native.argtypes = [u8, l, l, i32, i32, l, l, l,   # frames, strides, bg, roi, t h w
                                        i, i, i, i, i, u8]           # vmin, lo, hi, sentinel, out
     lib.prep_frames_native.restype = i
+    return lib
+
+
+@_loaded_once
+def load_kalman_library() -> ctypes.CDLL:
+    '''The Kalman filter and smoother core, built on first use.'''
+    lib = ctypes.CDLL(build_host_library(KALMAN_SOURCE, KALMAN_LIB_NAME))
+    d, u8, i = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int
+    lib.kalman_filter_native.argtypes = [d, d, d, d, d, d,     # A, C, Q, R, mu0, S0
+                                         d, u8, i, i, i,       # obs, missing, T, S, O
+                                         d, d, d, d]           # means, covs, pred means, covs
+    lib.kalman_filter_native.restype = i
+    lib.kalman_smooth_native.argtypes = [d, d, d, d, d,        # A, filtered and predicted
+                                         i, i, d, d, d]        # T, S, out means, covs, lags
+    lib.kalman_smooth_native.restype = i
     return lib

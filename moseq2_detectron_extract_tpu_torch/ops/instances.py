@@ -2,7 +2,8 @@
 gather of the chosen instance's window.
 
 Port of ``moseq2_detectron_extract_tpu/ops/instances.py``
-(``nms_and_centers``, lines 16-51; ``window_origins``, ``gather_selected``
+(``nms_and_centers``, lines 16-51; ``packbits_device`` and
+``unpackbits_host``, lines 55-75; ``window_origins``, ``gather_selected``
 and ``gather_selected_windows``, lines 117-193).
 '''
 import numpy as np
@@ -48,6 +49,28 @@ def nms_and_centers(masks: torch.Tensor, scores: torch.Tensor,
     centers = torch.where((area > 0)[..., None], centers,
                           torch.full_like(centers, torch.nan))
     return keep, centers, iou
+
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def packbits_device(mask: torch.Tensor) -> torch.Tensor:
+    '''Pack a boolean (..., W) mask into (..., ceil(W/8)) uint8 on its
+    device, most significant bit first (``np.unpackbits``' order).'''
+    w = mask.shape[-1]
+    m = mask.to(torch.uint8)
+    pad = (-w) % 8
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+    m = m.reshape(m.shape[:-1] + (-1, 8))
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=mask.device)
+    return (m * weights).sum(dim=-1, dtype=torch.uint8)
+
+
+def unpackbits_host(packed, width: int) -> np.ndarray:
+    '''Inverse of :func:`packbits_device`: (..., width) uint8 0/1 numpy.'''
+    arr = packed.cpu().numpy() if torch.is_tensor(packed) else np.asarray(packed)
+    return np.unpackbits(arr, axis=-1)[..., :width]
 
 
 def window_origins(centers_xy, frame_shape, crop: int) -> np.ndarray:

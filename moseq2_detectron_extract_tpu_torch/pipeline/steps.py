@@ -1,16 +1,18 @@
 '''Steps of extraction: the host's chunks of prepped frames, then per chunk
-inference and instance selection on the device.
+inference, instance selection, the host brain and the output ops.
 
 Port of ``moseq2_detectron_extract_tpu/pipeline/steps.py``:
 ``ProduceFramesStep`` (lines 40-86) as the generator ``produce_chunks``;
 ``InferenceStep.process`` (lines 112-155, the ``device_input='full'``
-branch) and ``SelectInstancesStep._select_instances`` (lines 200-310, the
-branch with the depth chunk on the device), as functions of one chunk. The
-pipeline threads, the instance log and the host-side sentinel zeroing for
-the preview are not ported yet.
+branch), ``SelectInstancesStep._select_instances`` (lines 200-310, the
+branch with the depth chunk on the device) and its height-stats dispatch
+(181-190), ``ProcessFeaturesStep`` (311-401) and ``FetchResultsStep``
+(403-445), as functions of one chunk. The pipeline threads, the instance
+log and the host-side sentinel zeroing for the preview are not ported yet.
 '''
+import logging
 from functools import partial
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,11 +20,24 @@ import torch
 from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
 
 from moseq2_detectron_extract_tpu_torch.ops.instances import (gather_selected_windows,
+                                                              packbits_device, unpackbits_host,
                                                               window_origins)
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import (decode_prepped_frames,
                                                                prep_raw_frames_host,
                                                                scale_raw_frames)
+from moseq2_detectron_extract_tpu_torch.ops.warp import crop_and_rotate_frames
+from moseq2_detectron_extract_tpu_torch.proc.features import (dispatch_instance_features,
+                                                              finish_instance_features)
+from moseq2_detectron_extract_tpu_torch.proc.kalman import (KalmanTracker, KalmanTrackerAngle,
+                                                            KalmanTrackerNPoints2D,
+                                                            KalmanTrackerPoint2D)
+from moseq2_detectron_extract_tpu_torch.proc.keypoints import (dispatch_z_lookup,
+                                                               keypoints_to_dict)
+from moseq2_detectron_extract_tpu_torch.proc.scalars import (compute_scalars,
+                                                             dispatch_scalar_stats)
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
+
+FeatureTrackers = Optional[Tuple[KalmanTracker, KalmanTracker]]
 
 
 def produce_chunks(session: Session, config: Dict) -> Iterator[Dict]:
@@ -115,4 +130,115 @@ def select_instances(data: Dict, config: Dict, tracker: CentroidTracker) -> Dict
                 num_instances=num_instances, win_origins=origins,
                 sel_masks=mask_wins, sel_keypoints=sel_kpts,
                 raw_windows=raw_wins)
+    return data
+
+
+def dispatch_window_features(data: Dict, config: Dict) -> Dict:
+    '''The selected windows' clean and moments, then the height stats of
+    the raw windows under the feature masks, dispatched without a host sync.
+
+    Adds ``feat_dispatch`` (see ``proc.features.dispatch_instance_features``)
+    and ``height_stats`` (``proc.scalars.dispatch_scalar_stats``).
+    '''
+    data['feat_dispatch'] = dispatch_instance_features(
+        data['sel_masks'], data['raw_windows'], window_origins=data['win_origins'])
+    masked = data['raw_windows'] * data['feat_dispatch']['feat_masks']
+    data['height_stats'] = dispatch_scalar_stats(masked, config['min_height'],
+                                                 config['max_height'])
+    return data
+
+
+def make_feature_trackers(config: Dict) -> FeatureTrackers:
+    '''The brain's (point, angle) Kalman trackers, or None without
+    ``use_tracking``: the centroid and ``num_keypoints`` keypoints, and the
+    angle in degrees, each of order 3 (constant jerk).'''
+    if not config.get('use_tracking', True):
+        return None
+    point = KalmanTracker([KalmanTrackerPoint2D(order=3, delta_t=1.0),
+                           KalmanTrackerNPoints2D(config.get('num_keypoints', 8), order=3,
+                                                  delta_t=1.0)])
+    angle = KalmanTracker([KalmanTrackerAngle(order=3, delta_t=1.0, degrees=True)])
+    return point, angle
+
+
+def process_features(data: Dict, config: Dict, trackers: FeatureTrackers,
+                     timers: Optional[Dict[str, float]] = None) -> Dict:
+    '''The host brain on one chunk's window features, then the output ops
+    on the device, dispatched without a host sync.
+
+    Pops ``feat_dispatch`` and adds ``features`` (see
+    ``proc.features.finish_instance_features``; ``timers`` gains its host
+    seconds), ``z_dev`` (keypoint heights in the cleaned windows),
+    ``dev_cropped`` ((N, crop_h, crop_w) depth rotated upright, rounded and
+    clipped to ``frame_dtype``), ``dev_packed_masks`` (the feature masks
+    cropped the same way, bit-packed) and, with ``preview_arena_masks``,
+    ``dev_arena_packed`` (the feature-mask windows, bit-packed). Drops the
+    chunk's large device inputs (``chunk_dev``, ``sel_masks``,
+    ``raw_windows``, ``inference``).
+    '''
+    point_tracker, angle_tracker = trackers if trackers is not None else (None, None)
+    features = finish_instance_features(
+        data.pop('feat_dispatch'), data['sel_keypoints'], data['num_instances'],
+        point_tracker, angle_tracker, debug=config.get('debug_feature_processing', False),
+        debug_dir=config.get('output_dir', '.'), timers=timers)
+    data['features'] = features
+    n_true = len(data['frame_idxs'])
+    empty = np.flatnonzero(np.asarray(data['num_instances'])[:n_true] <= 0)
+    if len(empty):
+        logging.warning('No instances found for frames %s',
+                        np.asarray(data['frame_idxs'])[empty].tolist())
+    data['z_dev'] = dispatch_z_lookup(features['keypoints'], features['cleaned_frames'],
+                                      frame_origins=features['mask_origins'])
+
+    crop = tuple(config['crop_size'])
+    centroids = features['features']['centroid']
+    angles = features['features']['orientation']
+    # the feature masks are windows around each detection: crop them with
+    # window-local centroids (taps outside the window are zero)
+    mask_wins = features['masks'].to(torch.uint8)
+    local_centroids = np.asarray(centroids, dtype='float64') - \
+        np.asarray(data['win_origins'])[:, ::-1]
+    cropped = crop_and_rotate_frames(data['chunk_dev'], centroids, angles, crop)
+    cropped_masks = crop_and_rotate_frames(mask_wins, local_centroids, angles, crop)
+    data['dev_cropped'] = torch.clamp(torch.round(cropped), 0, 255).to(
+        getattr(torch, config['frame_dtype']))
+    data['dev_packed_masks'] = packbits_device(cropped_masks > 0.5)
+    if config.get('preview_arena_masks', True):
+        data['dev_arena_packed'] = packbits_device(mask_wins > 0)
+    for key in ('chunk_dev', 'sel_masks', 'raw_windows', 'inference'):
+        data.pop(key, None)
+    features.pop('cleaned_frames', None)
+    features.pop('masks', None)
+    return data
+
+
+def fetch_results(data: Dict, config: Dict) -> Dict:
+    '''Pull one chunk's device results to the host and assemble what the
+    writers take.
+
+    Pops ``height_stats``, ``z_dev``, ``dev_cropped``, ``dev_packed_masks``
+    and ``dev_arena_packed``; adds ``scalars`` (the 17 fields of
+    ``proc.scalars.compute_scalars``), ``keypoints`` (the dict of
+    ``proc.keypoints.keypoints_to_dict``), ``depth_frames`` ((N, crop_h,
+    crop_w) ``frame_dtype``), ``mask_frames`` ((N, crop_h, crop_w) uint8)
+    and, with the arena masks, ``arena_mask_crops`` ((N, c, c) uint8
+    windows) and ``arena_mask_origins`` ((N, 2 [y0, x0])).
+    '''
+    features = data['features']
+    true_depth = config['true_depth']
+    data['scalars'] = compute_scalars(
+        None, features['features'], min_height=config['min_height'],
+        max_height=config['max_height'], true_depth=true_depth,
+        height_stats=data.pop('height_stats'))
+    data['keypoints'] = keypoints_to_dict(
+        features['keypoints'], None, features['features']['centroid'],
+        features['features']['orientation'], true_depth=true_depth,
+        frame_origins=features['mask_origins'], z_data=data.pop('z_dev'))
+    data['depth_frames'] = data.pop('dev_cropped').cpu().numpy()
+    data['mask_frames'] = unpackbits_host(data.pop('dev_packed_masks'),
+                                          int(config['crop_size'][1])).astype('uint8')
+    arena_packed = data.pop('dev_arena_packed', None)
+    if arena_packed is not None:
+        data['arena_mask_crops'] = unpackbits_host(arena_packed, int(arena_packed.shape[1]))
+        data['arena_mask_origins'] = np.asarray(data['win_origins'])
     return data

@@ -1,0 +1,86 @@
+'''Angle helpers and the moving-median flip filter of the untracked path.
+
+Port of ``moseq2_detectron_extract_tpu/proc/angles.py`` (lines 16-95):
+``clamp_angles_deg``, ``angle_difference``, ``_move_median3``,
+``_move_median``, ``filter_angles`` and ``iterative_filter_angles``. The
+reference jits them in f32 (no x64) and iterates the filter in a
+``while_loop`` to a fixpoint under ``jnp.allclose``'s defaults; here they are
+f32 numpy with the same operations, the same fixpoint test and the same
+``max_iters``, so they give its numbers bit for bit.
+'''
+import numpy as np
+
+_F32 = np.float32
+
+
+def clamp_angles_deg(angles):
+    '''Clamp angles into [0, 360).'''
+    angles = np.asarray(angles)
+    return np.where(angles < 0, 360 + angles, angles) % 360
+
+
+def angle_difference(angles1, angles2):
+    '''Smallest signed difference angles2 - angles1 in degrees, in (-180, 180].'''
+    diff = (np.asarray(angles2) - np.asarray(angles1)) % 360
+    return np.where(diff > 180, -(360 - diff), diff)
+
+
+def _move_median3(a):
+    '''Trailing moving median, window 3, min_count 1 (bottleneck.move_median):
+    index 0 -> a[0]; index 1 -> mean(a[0], a[1]); index >= 2 -> median of 3.'''
+    n = a.shape[0]
+    prev1 = np.concatenate([a[:1], a[:-1]])
+    prev2 = np.concatenate([a[:1], a[:1], a[:-2]])
+    med3 = np.sort(np.stack([a, prev1, prev2]), axis=0)[1]
+    idx = np.arange(n)
+    out = np.where(idx >= 2, med3, a)
+    out = np.where(idx == 1, (a + prev1) / _F32(2.0), out)
+    return out
+
+
+def _move_median(a, window: int):
+    '''Trailing moving median with partial windows averaged like bottleneck
+    (min_count=1): NaN-padded history and a NaN-median.'''
+    if window == 3:
+        return _move_median3(a)
+    hist = [a]
+    for k in range(1, window):
+        hist.append(np.concatenate([np.full((k,), np.nan, a.dtype), a[:-k]]))
+    with np.errstate(invalid='ignore'):
+        return np.nanmedian(np.stack(hist), axis=0).astype(a.dtype)
+
+
+def filter_angles(angles, window: int = 3, tolerance: float = 60.0):
+    '''One pass of ~180-degree flip correction against a trailing moving
+    median (f32).'''
+    angles = np.asarray(angles, _F32)
+    eff_window = min(window, int(angles.shape[0]))
+    windows = _move_median(angles, eff_window)
+    diff = angles - windows
+    absdiff = np.abs(diff)
+    flips = (absdiff > _F32(180 - tolerance)) & (absdiff < _F32(180 + tolerance))
+    return np.where(flips, angles - _F32(180) * np.sign(diff), angles)
+
+
+def _isclose(a, b, rtol: float = 1e-5, atol: float = 1e-8):
+    '''``jnp.isclose`` in f32: |a - b| <= atol + rtol |b|, False where either
+    side is NaN or infinite, True where both are the same infinity.'''
+    with np.errstate(invalid='ignore'):
+        out = np.abs(a - b) <= _F32(atol) + _F32(rtol) * np.abs(b)
+        a_inf, b_inf = np.isinf(a), np.isinf(b)
+        out &= ~(a_inf | b_inf)
+        out |= a_inf & b_inf & (a == b)
+    return out
+
+
+def iterative_filter_angles(angles, window: int = 3, tolerance: float = 60.0,
+                            max_iters: int = 1000):
+    '''Iterate :func:`filter_angles` to a fixpoint (at most ``max_iters``
+    more passes). Returns (filtered_angles f32, flips), flips marking the
+    angles that ended up ~180 degrees from their input.'''
+    angles = np.asarray(angles, _F32)
+    last, curr, it = angles, filter_angles(angles, window, tolerance), 1
+    while it <= max_iters and not _isclose(curr, last).all():
+        last, curr, it = curr, filter_angles(curr, window, tolerance), it + 1
+    flips = _isclose(np.abs(curr - angles), _F32(180.0))
+    return curr, flips

@@ -1,20 +1,37 @@
-'''Feature stage of the selected detection windows: clean, then moments.
+'''Feature stage of the selected detection windows (clean, then moments)
+and the host brain that follows it.
 
 Port of ``moseq2_detectron_extract_tpu/proc/features.py`` (``clean_frames``,
-lines 46-80; ``_frame_features_nocc``; ``dispatch_instance_features``,
-lines 224-257). ``clean_frames`` takes the extract defaults (median 3,
-9x9-ellipse open x3, uint8) only, which is the fused clean: the CUDA kernel
-on the card, its bit-exact plain version on the CPU. Both follow the TPU
-kernel's zero halo, which equals the cv2-border ops path on zero-bordered
-frames.
+lines 46-80; ``_frame_features_nocc``; the flip votes and keypoint helpers,
+143-221; ``dispatch_instance_features``, 224-257;
+``finish_instance_features``, 260-403, with ``_dump_debug_rows``, 443).
+``clean_frames`` takes the extract defaults (median 3, 9x9-ellipse open x3,
+uint8) only, which is the fused clean: the CUDA kernel on the card, its
+bit-exact plain version on the CPU. Both follow the TPU kernel's zero halo,
+which equals the cv2-border ops path on zero-bordered frames.
+
+The brain is host work in f64: the Kalman trackers of ``proc.kalman``, the
+keypoint flip votes and the angle filter (``kalman.angle_intervention_filter``,
+or with ``debug`` the per-frame loop that writes ``flip_info.tsv``); without
+trackers, the flip votes and ``angles.iterative_filter_angles``.
 '''
-from typing import Dict
+import functools
+import logging
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from moseq2_detectron_extract_tpu_torch.io.util import find_unused_file_path
 from moseq2_detectron_extract_tpu_torch.ops.clean_kernel import fused_clean_frames
 from moseq2_detectron_extract_tpu_torch.ops.moments import mask_moment_features
+from moseq2_detectron_extract_tpu_torch.proc.angles import (angle_difference, clamp_angles_deg,
+                                                            iterative_filter_angles)
+from moseq2_detectron_extract_tpu_torch.proc.kalman import (KalmanTracker,
+                                                            angle_intervention_filter)
+from moseq2_detectron_extract_tpu_torch.proc.keypoints import rotate_points_batch
 
 
 def clean_frames(frames: torch.Tensor) -> torch.Tensor:
@@ -54,3 +71,235 @@ def dispatch_instance_features(masks: torch.Tensor, raw_frames: torch.Tensor,
         feats, feat_masks = frame_features_nocc(cleaned, model_masks, 3.0)
     return {'cleaned_frames': cleaned, 'feat_masks': feat_masks,
             'feats_dev': feats, 'window_origins': window_origins}
+
+
+def flips_from_keypoints(keypoints: np.ndarray, centroids: np.ndarray,
+                         angles: np.ndarray, length=80):
+    '''Front/rear keypoint-group vote on whether angles are flipped.
+    Returns (flips bool (N,), confidence (N,)).'''
+    front_keypoints = [0, 1, 2, 3]
+    rear_keypoints = [4, 5, 6]
+
+    rotated = rotate_points_batch(np.copy(keypoints), centroids, angles)
+    extent_x_min = centroids[:, 0] - (np.asarray(length) / 2)
+    extent_x_max = centroids[:, 0] + (np.asarray(length) / 2)
+    left_dist = np.abs(extent_x_min[:, None] - rotated[:, :, 0])
+    right_dist = np.abs(extent_x_max[:, None] - rotated[:, :, 0])
+    scores = np.where(left_dist < right_dist, -1, 1)
+    front_votes = np.mean(scores[:, front_keypoints], axis=1)
+    rear_votes = np.mean(scores[:, rear_keypoints], axis=1)
+    flips = front_votes < rear_votes
+
+    expected = np.where(flips[:, None], np.array([-1, 1]), np.array([1, -1]))
+    agree = (np.count_nonzero(scores[:, front_keypoints] == expected[:, 0, None], axis=1)
+             + np.count_nonzero(scores[:, rear_keypoints] == expected[:, 1, None], axis=1))
+    conf = agree / (len(front_keypoints) + len(rear_keypoints))
+    return flips, conf
+
+
+def calc_keypoint_keypoint_distance(keypoints: np.ndarray, metric: str = 'x') -> np.ndarray:
+    '''Pairwise keypoint distance matrix (..., K, K).'''
+    keypoints = np.asarray(keypoints, dtype=float)
+    x = keypoints[..., 0]
+    y = keypoints[..., 1]
+    if metric == 'euclidean':
+        dx = x[..., :, None] - x[..., None, :]
+        dy = y[..., :, None] - y[..., None, :]
+        return np.sqrt(dx ** 2 + dy ** 2)
+    if metric == 'x':
+        return x[..., :, None] - x[..., None, :]
+    if metric == 'y':
+        return y[..., :, None] - y[..., None, :]
+    raise ValueError(f'unknown metric {metric}')
+
+
+def get_expected_keypoint_alignment() -> np.ndarray:
+    '''Expected east-west sign matrix of the 7 keypoints before the tail tip.'''
+    return np.array([
+        [0, 1, 1, 1, 1, 1, 1],
+        [-1, 0, 0, 1, 1, 1, 1],
+        [-1, 0, 0, 1, 1, 1, 1],
+        [-1, -1, -1, 0, 1, 1, 1],
+        [-1, -1, -1, -1, 0, 0, 1],
+        [-1, -1, -1, -1, 0, 0, 1],
+        [-1, -1, -1, -1, -1, -1, 0],
+    ])
+
+
+def compute_keypoint_alignment_scores(keypoints: np.ndarray,
+                                      expected_alignment: Optional[np.ndarray] = None):
+    '''Fraction of the pairwise x-order expectations met.'''
+    if expected_alignment is None:
+        expected_alignment = get_expected_keypoint_alignment()
+    distances = calc_keypoint_keypoint_distance(keypoints)
+    signs = np.sign(distances)
+    masked = np.where(expected_alignment == 0, 0, signs)
+    axis = (1, 2) if keypoints.ndim == 3 else None
+    met = (np.count_nonzero(masked == expected_alignment, axis=axis)
+           - np.count_nonzero(expected_alignment == 0))
+    return met / np.count_nonzero(expected_alignment)
+
+
+def estimate_keypoint_rotation(keypoints: np.ndarray) -> np.ndarray:
+    '''Median frame-to-frame angular change of the keypoints.'''
+    angles = np.arctan2(keypoints[..., 1], keypoints[..., 0])
+    angles = np.asarray(clamp_angles_deg(np.rad2deg(angles)))
+    angles = np.diff(angles, axis=0, prepend=angles[0, None, ...])
+    angles = angles % 360
+    to_min = angles > 180
+    angles[to_min] = -(360 - angles[to_min])
+    return np.median(angles, axis=1)
+
+
+def _pull_features(feats_dev: Dict, keypoints):
+    '''The moments (N,) and (N, 2) and the (N, K, 3) keypoints, in one copy
+    to the host (in their widest dtype, so no value rounds), as f64 numpy.'''
+    parts = [torch.as_tensor(feats_dev['centroid']), torch.as_tensor(feats_dev['orientation']),
+             torch.as_tensor(feats_dev['axis_length']), torch.as_tensor(keypoints)]
+    n = parts[0].shape[0]
+    dev = parts[0].device
+    dtype = functools.reduce(torch.promote_types, [p.dtype for p in parts])
+    host = torch.cat([p.to(dev, dtype).reshape(n, -1) for p in parts], dim=1) \
+        .cpu().numpy().astype(float)
+    features = {'centroid': host[:, 0:2], 'orientation': host[:, 2],
+                'axis_length': host[:, 3:5]}
+    return features, host[:, 5:].reshape(tuple(parts[3].shape))
+
+
+def finish_instance_features(dispatched: Dict, keypoints, num_instances: np.ndarray,
+                             point_tracker: Optional[KalmanTracker],
+                             angle_tracker: Optional[KalmanTracker],
+                             debug: bool = False, debug_dir: str = '.',
+                             timers: Optional[Dict[str, float]] = None) -> Dict:
+    '''Pull the dispatched moments and run the host brain.
+
+    ``dispatched`` is ``dispatch_instance_features``' result; ``keypoints``
+    (N, K, 3 [x, y, score]) the selected keypoints (tensor or array). With
+    both trackers: Kalman smoothing of the centroid and keypoints (the
+    trackers initialise by EM on their first chunk), flip votes, then the
+    angle filter, which carries the angle tracker's state. Without: flip
+    votes and the iterative 180-degree filter.
+
+    ``timers`` gains host seconds under ``itf_moments``, ``itf_em_init``,
+    ``itf_kalman_smooth``, ``itf_flip_votes`` and ``itf_angle_filter``.
+    Returns ``cleaned_frames``, ``masks``, ``mask_origins``, ``features``
+    (f64 ``centroid`` and ``axis_length``, ``orientation`` in degrees),
+    ``flips``, ``keypoints`` and ``num_instances``.
+    '''
+    mark = [time.perf_counter()]
+
+    def _mark(name):
+        now = time.perf_counter()
+        if timers is not None:
+            timers[name] = timers.get(name, 0.0) + (now - mark[0])
+        mark[0] = now
+
+    features, keypoints = _pull_features(dispatched['feats_dev'], keypoints)
+    _mark('itf_moments')
+
+    with np.errstate(invalid='ignore'):
+        lengths = np.max(features['axis_length'], axis=1)
+        aspects = np.min(features['axis_length'], axis=1) / np.max(features['axis_length'], axis=1)
+    angles = np.array(clamp_angles_deg(-np.rad2deg(features['orientation'])))
+
+    if point_tracker is not None and angle_tracker is not None:
+        if not point_tracker.is_initialized:
+            point_tracker.initialize([features['centroid'], keypoints[:, :, :2]])
+            _mark('itf_em_init')
+        s_centroids, s_kpts = point_tracker.smooth_update(
+            [features['centroid'], keypoints[:, :, :2]])
+        features['centroid'] = np.asarray(s_centroids)
+        # keep the inferred tail tip: tracking lags the fast-moving tail
+        keypoints[:, :7, :2] = np.asarray(s_kpts)[:, :7, :]
+        _mark('itf_kalman_smooth')
+
+        orig_angles = np.copy(angles)
+        flips, flip_confs = flips_from_keypoints(keypoints, features['centroid'],
+                                                 angles, lengths)
+        angles[flips] = np.asarray(clamp_angles_deg(angles[flips] + 180))
+        post_kp_flip_angles = angles.copy()
+        rot_kpts = rotate_points_batch(np.copy(keypoints[:, :7, :2]),
+                                       features['centroid'], angles)
+        kpt_alignment_scores = compute_keypoint_alignment_scores(rot_kpts)
+        _mark('itf_flip_votes')
+
+        if not angle_tracker.is_initialized:
+            angle_tracker.initialize([angles])
+            _mark('itf_em_init')
+
+        if not debug:
+            out_angles, flip_deltas, last_mean, last_cov = angle_intervention_filter(
+                angle_tracker.params, angle_tracker.last_mean, angle_tracker.last_covar,
+                angles, kpt_alignment_scores, order=angle_tracker.items[0].order)
+            angle_tracker.last_mean = last_mean
+            angle_tracker.last_covar = last_cov
+            angles = out_angles
+            flips = np.logical_xor(flips, flip_deltas)
+        else:
+            kpt_rotations = estimate_keypoint_rotation(rot_kpts)
+            debug_rows = []
+            for i in range(angles.shape[0]):
+                p_next_angle, = angle_tracker.sample(1)
+                rel_angle_dist = float(np.asarray(
+                    angle_difference(p_next_angle, angles[[i]]))[0])
+
+                if kpt_alignment_scores[i] < 0.4:
+                    angles[i] = p_next_angle[0]
+                    intervention = 'low kp algn score, defer to sample'
+                elif np.abs(rel_angle_dist) > 140:
+                    angles[i] = float(np.asarray(clamp_angles_deg(angles[i] + 180)))
+                    flips[i] = ~flips[i]
+                    intervention = 'flip 180'
+                else:
+                    intervention = None
+
+                rel_angle_dist2 = float(np.asarray(
+                    angle_difference(p_next_angle, angles[[i]]))[0])
+                t_angle, = angle_tracker.filter_update([angles[[i]]])
+                debug_rows.append({
+                    'i': i, 'aspect': aspects[i],
+                    'kpt_flip_opinion': flips[i], 'kpt_flip_conf': flip_confs[i],
+                    'kpt_align_score': kpt_alignment_scores[i],
+                    'kpt_rotation': kpt_rotations[i],
+                    'angle_in': orig_angles[i],
+                    'post_kp_flip_angle': post_kp_flip_angles[i],
+                    'sample_angle': p_next_angle[0], 'filt_angle': t_angle[0],
+                    'rel_angle_dist': rel_angle_dist,
+                    'rel_angle_dist2': rel_angle_dist2,
+                    'intervention': intervention, 'angle_out': angles[i],
+                })
+            _dump_debug_rows(debug_rows, os.path.join(debug_dir, 'flip_info.tsv'))
+        features['orientation'] = np.array(angles)
+        _mark('itf_angle_filter')
+    else:
+        flips, _ = flips_from_keypoints(keypoints, features['centroid'], angles, lengths)
+        angles[flips] += 180
+        _mark('itf_flip_votes')
+        angles_f32, filter_flips = iterative_filter_angles(angles)
+        features['orientation'] = angles_f32
+        flips = np.logical_xor(flips, filter_flips)
+        _mark('itf_angle_filter')
+
+    return {
+        'cleaned_frames': dispatched['cleaned_frames'],
+        'masks': dispatched['feat_masks'],
+        'mask_origins': dispatched['window_origins'],
+        'features': features,
+        'flips': flips,
+        'keypoints': keypoints,
+        'num_instances': np.asarray(num_instances),
+    }
+
+
+def _dump_debug_rows(rows, path):
+    if not rows:
+        return
+    path = find_unused_file_path(path)
+    try:
+        keys = list(rows[0].keys())
+        with open(path, 'w', encoding='utf-8') as fh:
+            fh.write('\t'.join(keys) + '\n')
+            for row in rows:
+                fh.write('\t'.join(str(row[k]) for k in keys) + '\n')
+    except OSError:
+        logging.warning('could not write debug flip info to %s', path)

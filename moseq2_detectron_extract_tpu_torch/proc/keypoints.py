@@ -1,0 +1,117 @@
+'''Keypoint rotation, z heights and the writers' keypoint dict.
+
+Port of ``moseq2_detectron_extract_tpu/proc/keypoints.py``:
+``default_keypoint_names``, ``rotate_points_batch`` (line 71),
+``dispatch_z_lookup`` (103) and ``keypoints_to_dict`` (123). The z lookup
+gathers from the cleaned windows on their device; only the (N, K) values
+cross to the host.
+'''
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from moseq2_detectron_extract_tpu_torch.proc.util import convert_pxs_to_mm
+
+default_keypoint_names = [
+    'Nose',
+    'Left Ear',
+    'Right Ear',
+    'Neck',
+    'Left Hip',
+    'Right Hip',
+    'TailBase',
+    'TailTip',
+]
+
+
+def rotate_points_batch(points: np.ndarray, centers: np.ndarray, angles) -> np.ndarray:
+    '''Rotate (N, K, 2|3) points about (N, 2) ``centers`` by ``angles``
+    degrees (scalar or (N,)); a third column (scores) is carried through.'''
+    points = np.asarray(points, dtype=float).copy()
+    centers = np.asarray(centers, dtype=float)
+    angles_arr = np.broadcast_to(np.asarray(angles, dtype=float), (points.shape[0],))
+
+    theta = np.deg2rad(-angles_arr)
+    cos, sin = np.cos(theta), np.sin(theta)
+    rel_x = points[:, :, 0] - centers[:, None, 0]
+    rel_y = points[:, :, 1] - centers[:, None, 1]
+    points[:, :, 0] = cos[:, None] * rel_x - sin[:, None] * rel_y + centers[:, None, 0]
+    points[:, :, 1] = sin[:, None] * rel_x + cos[:, None] * rel_y + centers[:, None, 1]
+    return points
+
+
+def dispatch_z_lookup(keypoints: np.ndarray, frames: torch.Tensor,
+                      frame_origins=None) -> torch.Tensor:
+    '''The (N, K) depth of ``frames`` (N, H, W) under each keypoint, gathered
+    on the frames' device (the pixel at the keypoint's floor, clamped into
+    the frame). With ``frame_origins`` (N, 2 [y0, x0]) the frames are
+    windows and the keypoints are shifted into them.'''
+    keypoints = np.asarray(keypoints, dtype=float)
+    nframes = keypoints.shape[0]
+    with np.errstate(invalid='ignore'):
+        kp_x = np.nan_to_num(keypoints[:, :, 0])
+        kp_y = np.nan_to_num(keypoints[:, :, 1])
+        if frame_origins is not None:
+            origins = np.asarray(frame_origins)
+            kp_x = kp_x - origins[:, 1:2]
+            kp_y = kp_y - origins[:, 0:1]
+        x_idx = np.clip(np.floor(kp_x).astype(int), 0, frames.shape[2] - 1)
+        y_idx = np.clip(np.floor(kp_y).astype(int), 0, frames.shape[1] - 1)
+    dev = frames.device
+    rows = torch.arange(nframes, device=dev)[:, None]
+    return frames[rows, torch.as_tensor(y_idx, device=dev), torch.as_tensor(x_idx, device=dev)]
+
+
+def keypoints_to_dict(keypoints: np.ndarray, frames: Optional[torch.Tensor],
+                      centers: np.ndarray, angles: np.ndarray, true_depth: float = 673.1,
+                      keypoint_names: Optional[List[str]] = None,
+                      frame_origins=None, z_data=None) -> Dict[str, np.ndarray]:
+    '''Keypoints in 4 coordinate systems (reference and rotated, px and mm)
+    with z heights.
+
+    keypoints: (N, K, 3 [x, y, score]); centers: (N, 2); angles: (N,)
+    degrees. ``z_data`` takes a ``dispatch_z_lookup`` result (``frames``
+    may then be None); without it the lookup runs on ``frames`` here.
+    '''
+    if keypoint_names is None:
+        keypoint_names = default_keypoint_names
+
+    keypoints = np.asarray(keypoints, dtype=float)
+    nframes, nkp = keypoints.shape[0], keypoints.shape[1]
+
+    if z_data is None:
+        z_data = dispatch_z_lookup(keypoints, frames, frame_origins)
+    if torch.is_tensor(z_data):
+        z_data = z_data.cpu().numpy()
+    z_data = np.asarray(z_data, dtype=float)
+
+    with np.errstate(invalid='ignore'):
+        ref_kpts_px = keypoints.copy()
+        ref_kpts_mm = np.zeros_like(keypoints)
+        ref_kpts_mm[:, :, 2] = keypoints[:, :, 2]
+        ref_kpts_mm[:, :, :2] = convert_pxs_to_mm(
+            keypoints[:, :, :2].reshape(-1, 2), true_depth=true_depth).reshape(nframes, nkp, 2)
+
+        rot_kpts_px = rotate_points_batch(keypoints.copy(), centers, angles)
+        rot_kpts_px[:, :, :2] -= np.expand_dims(centers, axis=1)
+
+        centroid_mm = convert_pxs_to_mm(centers, true_depth=true_depth)
+        rot_kpts_mm = rotate_points_batch(ref_kpts_mm.copy(), centroid_mm, angles)
+        rot_kpts_mm[:, :, :2] -= np.expand_dims(centroid_mm, axis=1)
+
+    out = {}
+    for kpi, kpn in enumerate(keypoint_names):
+        out[f'reference/{kpn}_x_px'] = ref_kpts_px[:, kpi, 0]
+        out[f'reference/{kpn}_y_px'] = ref_kpts_px[:, kpi, 1]
+        out[f'reference/{kpn}_score'] = ref_kpts_px[:, kpi, 2]
+        out[f'reference/{kpn}_x_mm'] = ref_kpts_mm[:, kpi, 0]
+        out[f'reference/{kpn}_y_mm'] = ref_kpts_mm[:, kpi, 1]
+        out[f'reference/{kpn}_z_mm'] = z_data[:, kpi]
+        out[f'rotated/{kpn}_x_px'] = rot_kpts_px[:, kpi, 0]
+        out[f'rotated/{kpn}_y_px'] = rot_kpts_px[:, kpi, 1]
+        out[f'rotated/{kpn}_score'] = rot_kpts_px[:, kpi, 2]
+        out[f'rotated/{kpn}_x_mm'] = rot_kpts_mm[:, kpi, 0]
+        out[f'rotated/{kpn}_y_mm'] = rot_kpts_mm[:, kpi, 1]
+        out[f'rotated/{kpn}_z_mm'] = z_data[:, kpi]
+    return out

@@ -1,0 +1,25 @@
+'''Pixel to millimetre conversion of the Kinect v2's field of view.
+
+Port of ``moseq2_detectron_extract_tpu/proc/util.py:convert_pxs_to_mm``
+(lines 11-26).
+'''
+from typing import Tuple
+
+import numpy as np
+
+
+def convert_pxs_to_mm(coords: np.ndarray, resolution: Tuple[int, int] = (512, 424),
+                      field_of_view: Tuple[float, float] = (70.6, 60),
+                      true_depth: float = 673.1) -> np.ndarray:
+    '''(..., 2 [x, y]) pixel coordinates -> millimetres at ``true_depth``.'''
+    coords = np.asarray(coords)
+    cx = resolution[0] // 2
+    cy = resolution[1] // 2
+    xhat = coords[..., 0] - cx
+    yhat = coords[..., 1] - cy
+    f_w = resolution[0] / (2 * np.deg2rad(field_of_view[0] / 2))
+    f_h = resolution[1] / (2 * np.deg2rad(field_of_view[1] / 2))
+    out = np.zeros_like(coords, dtype=coords.dtype)
+    out[..., 0] = true_depth * xhat / f_w
+    out[..., 1] = true_depth * yhat / f_h
+    return out

@@ -47,20 +47,28 @@ def _mouse_heights(n: int, height: int, width: int, rng: np.random.Generator,
         yield frame + np.where(body, rng.normal(0, 1.0, frame.shape), 0.0)
 
 
+def _present(i: int, absent: Optional[Tuple[int, int]]) -> bool:
+    return absent is None or not absent[0] <= i < absent[1]
+
+
 def make_sentinel_chunk(n: int, height: int, width: int, seed: int = 0,
                         axes: Optional[Tuple[float, float]] = None,
-                        dropout_rate: float = 0.001) -> np.ndarray:
+                        dropout_rate: float = 0.001,
+                        absent: Optional[Tuple[int, int]] = None) -> np.ndarray:
     '''(n, height, width) uint8 frames of a mouse walking an arc.
 
     ``axes`` are the body ellipse's half axes in pixels (default 11% and
     5.5% of the shorter side). The body is ``MOUSE_HEIGHT`` high with a
     head bump 36% higher at its front end, plus unit noise; the floor is
     exactly 0. Dropouts land anywhere with probability ``dropout_rate``.
+    Frames ``absent[0] <= i < absent[1]`` show the bare floor (the mouse's
+    walk is drawn all the same, so the other frames do not change).
     '''
     rng = np.random.default_rng(seed)
     frames = np.zeros((n, height, width), np.float32)
     for i, frame in enumerate(_mouse_heights(n, height, width, rng, axes, 0.6 * np.pi)):
-        frames[i] = frame
+        if _present(i, absent):
+            frames[i] = frame
     out = np.clip(np.round(frames), 0, 254).astype(np.uint8)
     out[rng.random(out.shape) < dropout_rate] = 255
     return out
@@ -98,22 +106,27 @@ def rough_arena(height: int, width: int, seed: int = 0, noise: float = 8.0) -> n
 
 
 def write_raw_session(dirname: str, nframes: int, height: int = 424, width: int = 512,
-                      seed: int = 0, dropout_rate: float = 0.001) -> str:
+                      seed: int = 0, dropout_rate: float = 0.001,
+                      absent: Optional[Tuple[int, int]] = None) -> str:
     '''Write a raw session of ``nframes`` (height, width) frames into
     ``dirname``: ``depth.dat`` ('<u2' mm), ``metadata.json`` and
     ``depth_ts.txt`` (30 frames/s); returns the path of ``depth.dat``.
 
     The mouse (``make_sentinel_chunk``'s) walks three quarters of a circle
     over the session, so that every 500th frame finds it elsewhere and their
-    median is the bare arena. Raw 0 marks a dropout.
+    median is the bare arena. Raw 0 marks a dropout. In frames
+    ``absent[0] <= i < absent[1]`` the mouse is away: the bare arena
+    (``absent`` covering frame 0 makes a session shorter than 500 frames
+    find the bare arena as its background).
     '''
     os.makedirs(dirname, exist_ok=True)
     rng = np.random.default_rng(seed)
     ground = arena_ground(height, width, rng)
     path = os.path.join(dirname, 'depth.dat')
     with open(path, 'wb') as fh:
-        for mouse in _mouse_heights(nframes, height, width, rng, None, 1.5 * np.pi):
-            frame = np.round(ground - mouse).astype('<u2')
+        for i, mouse in enumerate(_mouse_heights(nframes, height, width, rng, None,
+                                                 1.5 * np.pi)):
+            frame = np.round(ground - mouse * _present(i, absent)).astype('<u2')
             frame[rng.random(frame.shape) < dropout_rate] = 0
             fh.write(frame.tobytes())
     with open(os.path.join(dirname, 'metadata.json'), 'w', encoding='utf-8') as fh:

@@ -9,7 +9,11 @@ Tolerances: ROIAlign kernel vs its plain version, 2 bf16 ulps (both
 compute in f32 and round to bf16 once; sums run in another order); the
 clean kernel is bit-exact; the stage-2 kernels vs their plain version, 2
 bf16 ulps (the same bf16 products summed in f32 in another order, so an
-element of T may round to the other bf16 neighbour).
+element of T may round to the other bf16 neighbour). The output ops on
+the card against the CPU: crop-and-rotate in f32 to 1e-3 (CUDA's ``cosf``
+and fused multiply-adds move a source coordinate by about 1e-6 px), the
+uint8 crops and the masks equal except at .5 (0.5) edges, the packed masks,
+z, pixel counts and heights equal.
 '''
 import numpy as np
 import pytest
@@ -22,7 +26,14 @@ from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
 from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
 from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel, roi_stage2_kernel
+from moseq2_detectron_extract_tpu_torch.ops.instances import packbits_device
 from moseq2_detectron_extract_tpu_torch.ops.roi_align import separable_batched_roi_align
+from moseq2_detectron_extract_tpu_torch.ops.warp import crop_and_rotate_frames
+from moseq2_detectron_extract_tpu_torch.pipeline.steps import (fetch_results,
+                                                               make_feature_trackers,
+                                                               process_features)
+from moseq2_detectron_extract_tpu_torch.proc.keypoints import dispatch_z_lookup
+from moseq2_detectron_extract_tpu_torch.proc.scalars import dispatch_scalar_stats
 from moseq2_detectron_extract_tpu_torch.proc.roi import get_roi
 from moseq2_detectron_extract_tpu_torch.synthetic import (make_sentinel_chunk, rough_arena,
                                                           write_raw_session)
@@ -246,6 +257,80 @@ def test_cuda_extract_chunks_matches_cpu(cuda_device, raw_session):
         np.testing.assert_array_equal(gpu['win_origins'], cpu['win_origins'])
         assert torch.equal(gpu['feat_dispatch']['cleaned_frames'].cpu(),
                            cpu['feat_dispatch']['cleaned_frames'])
+        assert list(gpu['scalars']) == list(cpu['scalars'])
+        assert gpu['depth_frames'].shape == cpu['depth_frames'].shape == (8, 80, 80)
+        np.testing.assert_array_equal(gpu['scalars']['area_px'], cpu['scalars']['area_px'])
+
+
+def _uint8_edges_only(ours, ref_f32, tol=1e-3):
+    '''The uint8 values of two f32 crops within ``tol`` differ only where
+    the reference sits within ``tol`` of a .5 edge.'''
+    a = torch.clamp(torch.round(ours), 0, 255).to(torch.uint8)
+    b = torch.clamp(torch.round(ref_f32), 0, 255).to(torch.uint8)
+    edge = (ref_f32 - torch.floor(ref_f32) - 0.5).abs() <= tol
+    return bool(((a == b) | edge).all()), int((a != b).sum())
+
+
+@pytest.mark.parametrize('n,h,w', [(16, 160, 160), (7, 60, 72)])
+def test_cuda_output_ops_match_cpu(cuda_device, n, h, w):
+    rng = np.random.default_rng(n)
+    frames = torch.from_numpy(rng.integers(0, 110, (n, h, w)).astype(np.uint8))
+    centers = np.stack([rng.uniform(-5, w + 5, n), rng.uniform(-5, h + 5, n)], axis=1)
+    centers[0] = np.nan
+    angles = rng.uniform(0, 360, n)
+    angles[1] = np.nan
+    gpu = crop_and_rotate_frames(frames.to(cuda_device), centers, angles)
+    cpu = crop_and_rotate_frames(frames, centers, angles)
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-3)
+    ok, _ = _uint8_edges_only(gpu.cpu(), cpu)
+    assert ok
+    masks = gpu > 0.5
+    assert torch.equal(packbits_device(masks).cpu(), packbits_device(masks.cpu()))
+    kpts = np.stack([rng.uniform(-3, w + 3, (n, 8)), rng.uniform(-3, h + 3, (n, 8)),
+                     rng.uniform(0, 1, (n, 8))], axis=-1)
+    kpts[2, 1] = np.nan
+    assert torch.equal(dispatch_z_lookup(kpts, frames.to(cuda_device)).cpu(),
+                       dispatch_z_lookup(kpts, frames))
+    for a, b in zip(dispatch_scalar_stats(frames.to(cuda_device), 0.0, 100.0),
+                    dispatch_scalar_stats(frames, 0.0, 100.0)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _on(data, dev):
+    '''A copy of a chunk's dict with every tensor on ``dev``.'''
+    if torch.is_tensor(data):
+        return data.to(dev)
+    if isinstance(data, dict):
+        return {k: _on(v, dev) for k, v in data.items()}
+    if isinstance(data, tuple):
+        return tuple(_on(v, dev) for v in data)
+    return data
+
+
+def test_cuda_back_end_matches_cpu(cuda_device):
+    '''``process_features`` + ``fetch_results`` on the card and on the CPU,
+    fed one chunk's CPU selection: the brain sees the same host values, so
+    everything but the crops is equal, and the crops are equal but at edges.'''
+    cfg, state = small_model()
+    config = {'min_height': 0, 'max_height': 100, 'feature_window': 64, 'crop_size': (80, 80),
+              'frame_dtype': 'uint8', 'true_depth': 700.0}
+    pred = Predictor(cfg, state, batch_size=4, score_threshold=0.0, device='cpu')
+    sel = dict(process_chunk(make_sentinel_chunk(8, 96, 128, seed=2), pred, config),
+               frame_idxs=np.arange(8))
+    outs = [fetch_results(process_features(_on(sel, dev), config, make_feature_trackers(config)),
+                          config) for dev in (cuda_device, torch.device('cpu'))]
+    gpu, cpu = outs
+    for key, value in cpu['scalars'].items():
+        np.testing.assert_array_equal(gpu['scalars'][key], value, err_msg=key)
+    for key, value in cpu['keypoints'].items():
+        np.testing.assert_array_equal(gpu['keypoints'][key], value, err_msg=key)
+    np.testing.assert_array_equal(gpu['features']['flips'], cpu['features']['flips'])
+    np.testing.assert_array_equal(gpu['arena_mask_crops'], cpu['arena_mask_crops'])
+    depth = crop_and_rotate_frames(sel['chunk_dev'], cpu['features']['features']['centroid'],
+                                   cpu['features']['features']['orientation'])
+    edge = (depth - torch.floor(depth) - 0.5).abs().numpy() <= 1e-3
+    assert ((gpu['depth_frames'] == cpu['depth_frames']) | edge).all()
+    assert (gpu['mask_frames'] != cpu['mask_frames']).mean() < 1e-3
 
 
 STAGE2_RUNS = [('retile', torch.float32), ('transpose', torch.float32),

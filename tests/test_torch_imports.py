@@ -1,7 +1,9 @@
 '''The port imports neither JAX nor cv2/h5py/yaml/click/PIL/tqdm nor the JAX
 package, and runs ``process_chunk``, the session path (a raw session
-written, ``prepare_session``, one prepped chunk) and the stage-2
-experiment's check on the CPU with all of them blocked.'''
+written, ``prepare_session``, one prepped chunk, then ``extract_chunks``
+through the host brain and the output ops, with the mouse away for a few
+frames), the C++ Kalman core and the stage-2 experiment's check on the CPU
+with all of them blocked.'''
 import ast
 import os
 import subprocess
@@ -64,6 +66,20 @@ with tempfile.TemporaryDirectory() as tmp:
     assert config['roi'].any() and abs(config['true_depth'] - 700) < 5, config['true_depth']
     chunk = next(produce_chunks(session, config))['chunk']
     assert chunk.shape[0] == 8 and str(chunk.dtype) == 'uint8', (chunk.shape, chunk.dtype)
+    from moseq2_detectron_extract_tpu_torch.extract import extract_chunks
+    session = Session(write_raw_session(tmp, 12, height=96, width=128, seed=1, absent=(0, 3)))
+    config = prepare_session(session, {'chunk_size': 8, 'output_dir': tmp,
+                                       'feature_window': 64}, device='cpu')
+    outs = list(extract_chunks(session, pred, config))
+    assert [o['depth_frames'].shape for o in outs] == [(8, 80, 80)] * 2
+    assert len(outs[0]['scalars']) == 17 and outs[1]['mask_frames'].dtype.name == 'uint8'
+import numpy as np
+from moseq2_detectron_extract_tpu_torch.proc import kalman
+params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),
+                             np.eye(3))
+smoothed = kalman.kalman_smooth(params, np.ones((5, 1)), np.array([0, 1, 0, 0, 0], bool),
+                                backend='native')
+assert np.isfinite(smoothed['means']).all()
 from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp
 errors = roi_stage2_exp.main(device='cpu', check_shape=(1, 8, 16, 64))['errors']
 assert len(errors) == 5 and max(errors.values()) < 0.05, errors

@@ -58,8 +58,13 @@ def both(tmp_path_factory):
                 output_dir=str(tmp_path_factory.mktemp('slice')))
     inference = InferenceStep('inference', config=jcfg)
     inference.initialize()
-    data = inference.process({'chunk': chunk.copy(), 'frame_idxs': np.arange(N),
-                              'offset': 0})
+    # InferenceStep zeroes the host chunk's sentinels in place right after it
+    # dispatches the device decode; on the CPU backend jnp.asarray may alias
+    # that buffer, so the decode could read the zeroed chunk. A read-only
+    # chunk makes the step zero a copy instead.
+    ref_chunk = chunk.copy()
+    ref_chunk.flags.writeable = False
+    data = inference.process({'chunk': ref_chunk, 'frame_idxs': np.arange(N), 'offset': 0})
     select = SelectInstancesStep('select', config=jcfg)
     select.initialize()
     ref = select.process(data)
