@@ -11,7 +11,9 @@ Phases, each printed with its elapsed seconds as it starts:
    torch imports;
 3. each kernel against its plain PyTorch version on the card at the main
    path's shapes: ROIAlign at batch 16 for the box (out 7, K 16), mask
-   (out 14, K 1) and keypoint (out 7, K 1) stages, to 2 bf16 ulps; the
+   (out 14, K 1) and keypoint (out 7, K 1) stages, to 2 bf16 ulps (the
+   distance in bf16 steps printed: both round the weights and the
+   intermediate T to bf16); the
    frame clean on (64, 160, 160) uint8, bit-exact. Times are device time
    per call from a ``torch.profiler`` trace of 20 calls (and, in the
    phase lines, the median CUDA-event time around single calls, which
@@ -91,11 +93,31 @@ Phases, each printed with its elapsed seconds as it starts:
    RANSAC's accept rule weighs near hypotheses, must agree in the same way;
    then chunk 0 once more: one read of its raw frames and the C++ host
    prep, which must equal its plain numpy version bit for bit;
+4c. the ``extract`` command (``cli.main`` in this process, ``--model``
+   the fast160 directory, the CLI's defaults: batch 10, chunks of 1000),
+   with both kernels' launch counts set to 0 just before and read just
+   after each run, on (a) phase 4b's session: the status must say
+   ``complete: true``; ``results_00.h5``, read back with the port's reader,
+   is held against phase 4b's serial ``extract_chunks`` results dataset by
+   dataset (the frames that differ printed per dataset; where any differ,
+   chunk 0 runs twice through ``process_chunk`` with cuDNN's default and
+   deterministic algorithms, and the CLI runs again with deterministic
+   ones, whose file must equal a serial run at the CLI's batch size bit for
+   bit); its timestamps, true depth, ROI, background and first frame against
+   ``prepare_session``'s; the keypoints TSV's rows and the instance log's
+   frames; and (b) a session of 4,000 frames (1.74 GB, written and deleted
+   here): the overall frames/s that ``extract_session`` logs, each stage's
+   ``busy_s``, ``cpu_s`` and chunks from the status file's ``stage_stats``,
+   the peak device memory, the file's size against its uncompressed bytes,
+   and the serial ``extract_chunks`` frames/s on the same session;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
    experiment run; ROIAlign's and the clean's ``launches`` those of phase
-   4's chunk, ``session_launches`` those of phase 4b), then the result line.
+   4's chunk, ``session_launches`` those of phase 4b and
+   ``extract_launches`` those of phase 4c (a); ROIAlign's ``max_ulps`` and
+   ``one_ulp`` its distance from the plain version in bf16 steps), then the
+   result line.
 
 It exits non-zero, without a result line, when CUDA is unavailable, when
 the port's package is not beside it, or when any phase fails.
@@ -147,6 +169,7 @@ REPS = 20                          # timed calls per kernel measurement
 CHUNKS = 5                         # timed chunks of the main path
 SESSION_FRAMES = 1100              # frames of the raw session of phase 4b
 SESSION_CHUNK = 1000               # the extract CLI's chunk_size
+LONG_SESSION_FRAMES = 4000         # phase 4c (b): 4 chunks of 1000, no tail
 ABSENT_SESSION = 400               # frames of the session with the mouse away at first
 ABSENT_FRAMES = 60                 # its leading frames without the mouse
 ABSENT_CHUNK = 200                 # its chunk size: two chunks, the first with missing rows
@@ -279,6 +302,16 @@ def roi_bound(levels, boxes, out: int, out_bytes: int = 2):
     return nbytes, out_elems * ROI_OPS_PER_OUTPUT
 
 
+def bf16_ulps(a, b):
+    '''Distance in bf16 steps between two bf16 tensors (ordered codes).'''
+    import torch
+
+    def code(x):
+        bits = x.to(torch.bfloat16).contiguous().view(torch.int16).long()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+    return (code(a) - code(b)).abs()
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -304,6 +337,17 @@ def check_kernels(rng, reps: int, card: str):
         if not bool((err <= allowed).all()):
             raise AssertionError(f'roi_align {stage}: kernel differs from plain version '
                                  f'(max abs err {float(err.max()):.3e})')
+        ulps = bf16_ulps(got, ref)
+        far = ulps >= 2
+        phase(f'roi_align {stage}: kernel against the plain version in bf16 ulps: max '
+              f'{int(ulps.max())}, {int((ulps == 1).sum())} elements one ulp off, '
+              f'{int(far.sum())} two or more (their max abs err '
+              f'{float(err[far].max()) if far.any() else 0.0:.3e}), of {ulps.numel()}')
+        if int((ulps >= 1).sum()) > 2e-3 * ulps.numel() or int(far.sum()) > 1e-3 * ulps.numel():
+            raise AssertionError(f'roi_align {stage}: more elements off the plain version than '
+                                 'the shared bf16 rounding allows (0.2%, 0.1% two ulps)')
+        roi['one_ulp'] = roi.get('one_ulp', 0) + int((ulps == 1).sum())
+        roi['max_ulps'] = max(roi.get('max_ulps', 0), int(ulps.max()))
         kernel = functools.partial(roi_align_kernel.roi_align_cuda, levels, boxes, out)
         plain = functools.partial(separable_batched_roi_align, levels, boxes, out,
                                   out_dtype=torch.bfloat16)
@@ -594,8 +638,25 @@ def plane_errors(plane, ref):
     return float(diff[:3].max()), float(diff[3])
 
 
+def written_rows(out: dict, first_frame_idx: int, into: dict) -> None:
+    '''What the results writer writes of one chunk of ``extract_chunks``:
+    the per-frame values of its true frames past its offset, at their rows
+    (frame less ``first_frame_idx``), gathered into ``into``.'''
+    import numpy as np
+    n, off = out['nframes'], out['offset']
+    rows = np.asarray(out['frame_idxs'][off:]) - first_frame_idx
+    values = {f'scalars/{k}': v for k, v in out['scalars'].items()}
+    values.update({f'keypoints/{k}': v for k, v in out['keypoints'].items()})
+    values.update({'frames': out['depth_frames'], 'frames_mask': out['mask_frames'] > 0,
+                   'metadata/extraction/flips': np.asarray(out['features']['flips'])})
+    for key, v in values.items():
+        v = np.asarray(v)[off:n]
+        into.setdefault(key, []).append((rows, v.astype('float32') if v.dtype.kind == 'f'
+                                         else v))
+
+
 def drive_session(session, predictor, prepared: dict, card: str, label: str,
-                  keep_chunk0: bool = False) -> dict:
+                  keep_chunk0: bool = False, keep_results: bool = False) -> dict:
     """The session's chunks through ``extract.extract_chunks`` (selection,
     brain and output ops, to ``fetch_results``), each stage timed on the
     host clock and ended by a synchronize: read+prep (the producer),
@@ -647,6 +708,7 @@ def drive_session(session, predictor, prepared: dict, card: str, label: str,
     for name in ('process_chunk', 'process_features', 'fetch_results'):
         setattr(extract, name, timed(name, stages[name]))
     found, frames, chunk0, last = 0, 0, None, None
+    results = {}
     chunk_size = prepared['chunk_size']
     crop = tuple(prepared['crop_size'])
     try:
@@ -684,6 +746,8 @@ def drive_session(session, predictor, prepared: dict, card: str, label: str,
                     and np.isfinite(out['scalars']['height_ave_mm'][:n]).all()):
                 raise AssertionError('non-finite smoothed features of a found mouse')
             last = (feats['centroid'][:n].copy(), feats['orientation'][:n].copy())
+            if keep_results:
+                written_rows(out, prepared['first_frame_idx'], results)
             if keep_chunk0 and chunk0 is None:
                 fd = out['feat_dispatch']
                 chunk0 = {'chunk_dev': out['chunk_dev'], 'raw_windows': out['raw_windows'],
@@ -717,7 +781,7 @@ def drive_session(session, predictor, prepared: dict, card: str, label: str,
           f'detections found in {found} of {frames} frames; launches {launches}; peak memory '
           f'{peak_gib:.2f} GiB [{card}]')
     return {'rows': rows, 'launches': launches, 'found': found, 'frames': frames,
-            'busy_s': busy_s, 'last': last, 'chunk0': chunk0}
+            'busy_s': busy_s, 'last': last, 'chunk0': chunk0, 'results': results}
 
 
 def _half_edge(values, tol: float = 1e-3):
@@ -899,12 +963,13 @@ def check_absent_session(predictor, card: str, seed: int, tmp: str) -> None:
                              'with a non-finite tracker state')
 
 
-def check_session(predictor, card: str, seed: int) -> dict:
+def check_session(predictor, card: str, seed: int, model_dir: str) -> dict:
     '''Phase 4b: a raw session on disk through ``prepare_session`` and
     ``extract_chunks`` to ``fetch_results`` (padded, then unpadded); the
     output ops on the card against the CPU; the smoother backends; a session
     with the mouse away; the card's ROI against the CPU's and the C++ prep
-    against the plain one. Returns the path's kernel launches.'''
+    against the plain one. Then phase 4c on the same session and on a longer
+    one. Returns the path's kernel launches, and phase 4c's.'''
     import shutil
     import tempfile
     import numpy as np
@@ -937,7 +1002,8 @@ def check_session(predictor, card: str, seed: int) -> dict:
               f'depth {prepared["true_depth"]}, plane {np.round(session.plane, 5).tolist()} '
               f'[{card}]')
 
-        run = drive_session(session, predictor, prepared, card, 'session', keep_chunk0=True)
+        run = drive_session(session, predictor, prepared, card, 'session', keep_chunk0=True,
+                            keep_results=True)
         rows, launches, frames = run['rows'], run['launches'], run['frames']
         batches = sum(-(-SESSION_CHUNK // BATCH) for _ in rows)
         if launches != {'roi_align': 3 * batches, 'clean': len(rows)}:
@@ -1027,6 +1093,209 @@ def check_session(predictor, card: str, seed: int) -> dict:
               f'path ran): {equal} [{card}]')
         if not equal:
             raise AssertionError('the C++ host prep differs from the plain version')
+
+        phase('4c/5 extract through the CLI: (a) the session above, (b) a 4,000-frame session')
+        extract_launches = check_extract(path, run['results'], prepared, card, seed, model_dir)
+        return launches, extract_launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _compare_file(h5_path: str, results: dict) -> dict:
+    '''Per dataset, the frames of the results file that differ from
+    ``results`` (``written_rows``), NaN equal to NaN.'''
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    differ = {}
+    with hdf5.File(h5_path, 'r') as r:
+        for key, parts in results.items():
+            data = r[key][()]
+            count = 0
+            for rows, values in parts:
+                got = data[rows]
+                same = (got == values) | ((got != got) & (values != values)) \
+                    if values.dtype.kind == 'f' else got == values
+                count += int((~same.reshape(len(rows), -1).all(axis=1)).sum())
+            if count:
+                differ[key] = count
+    return differ
+
+
+def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str):
+    '''``cli.main(['extract', path, '--model', model_dir, '--output-dir',
+    out_dir])`` with the launch counts set to 0 just before and read just
+    after; fails unless the status says ``complete: true``. Returns the
+    status, the launches, the wall seconds, the peak device memory and the
+    overall frames/s line that extract_session logged.'''
+    import torch
+    from moseq2_detectron_extract_tpu_torch import cli
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_kernel.launch_count = 0
+    clean_kernel.launch_count = 0
+    t = time.perf_counter()
+    rc = cli.main(['extract', path, '--model', model_dir, '--output-dir', out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {'roi_align': roi_align_kernel.launch_count, 'clean': clean_kernel.launch_count}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    status = read_yaml(os.path.join(out_dir, 'results_00.yaml'))
+    if rc != 0 or status.get('complete') is not True:
+        with open(os.path.join(out_dir, 'results_00.log'), encoding='utf-8') as fh:
+            print(fh.read()[-6000:], file=sys.stderr)
+        raise AssertionError(f'{label}: extract returned {rc}, status complete '
+                             f'{status.get("complete")!r}')
+    with open(os.path.join(out_dir, 'results_00.log'), encoding='utf-8') as fh:
+        logged = [line.strip() for line in fh if 'fps overall' in line]
+    phase(f'{label}: cli extract {wall:.2f} s wall; logged: {logged[-1] if logged else "none"}; '
+          f'launches {launches}; peak device memory {peak_gib:.2f} GiB [{card}]')
+    for name, st in status['stage_stats'].items():
+        phase(f'{label}: stage {name}: busy {st["busy_s"]} s, cpu {st["cpu_s"]} s, chunks '
+              f'{st["chunks"]}' + (f', sub_times {st["sub_times"]}' if 'sub_times' in st else '')
+              + f' [{card}]')
+    return status, launches, wall, peak_gib
+
+
+def _expected_launches(nframes: int, chunk: int, batch: int) -> dict:
+    chunks = -(-nframes // chunk)
+    return {'roi_align': 3 * chunks * -(-chunk // batch), 'clean': chunks}
+
+
+def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
+                  model_dir: str) -> dict:
+    '''Phase 4c: the ``extract`` command (``cli.main``, the CLI's defaults)
+    (a) on phase 4b's session: the results file read back with the port's
+    reader against phase 4b's serial ``extract_chunks`` results, dataset by
+    dataset (and, where they differ, against a serial run with the CLI's
+    batch size), its metadata against ``prepare_session``'s, the TSV and the
+    instance log; (b) on a 4,000-frame session (4 chunks of 1000, no tail):
+    frames/s, ``stage_stats``, peak memory and the file's size beside the
+    serial path's frames/s. Returns (a)'s launches.'''
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import extract
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+    from moseq2_detectron_extract_tpu_torch.synthetic import write_raw_session
+    from moseq2_detectron_extract_tpu_torch.cli import extract_parser
+
+    defaults = extract_parser().parse_args([path])
+    cli_batch = defaults.batch_size
+    tmp = tempfile.mkdtemp(prefix='m2de-extract-')
+    try:
+        out_a = os.path.join(tmp, 'a')
+        status, launches, _, _ = _run_cli(path, model_dir, out_a, card, '4c (a)')
+        expect = _expected_launches(SESSION_FRAMES, defaults.chunk_size, cli_batch)
+        if launches != expect:
+            raise AssertionError(f'4c (a) launches {launches}, expected {expect}')
+        h5_path = os.path.join(out_a, 'results_00.h5')
+        differ = _compare_file(h5_path, serial)
+        phase(f'4c (a): results_00.h5 against phase 4b\'s serial extract_chunks (batch '
+              f'{BATCH}): {len(serial)} per-frame datasets, '
+              + (f'{len(differ)} differ: {differ}' if differ else 'all equal bit for bit')
+              + f' [{card}]')
+        if differ:
+            # trace: is the card's forward repeatable, and does the file equal
+            # the serial path once cuDNN runs deterministic algorithms?
+            predictor = Predictor.from_model_dir(model_dir, batch_size=cli_batch,
+                                                 score_threshold=defaults.instance_threshold)
+            session = Session(path)
+            again = extract.prepare_session(session, {'chunk_size': defaults.chunk_size},
+                                            device='cuda')
+            chunk = next(extract.produce_chunks(session, again))['chunk']
+            for deterministic in (False, True):
+                torch.backends.cudnn.deterministic = deterministic
+                runs = [extract.process_chunk(chunk, predictor, again)['inference']
+                        for _ in range(2)]
+                gaps = {key: int((runs[0][key] != runs[1][key]).sum())
+                        for key in ('boxes', 'scores', 'masks', 'keypoints')}
+                kp_gap = float((runs[0]['keypoints'] - runs[1]['keypoints']).abs().max())
+                phase(f'4c (a): chunk 0 through process_chunk twice (batch {cli_batch}, '
+                      f'cudnn.deterministic {deterministic}): elements that differ {gaps}, '
+                      f'keypoints max abs diff {kp_gap:.3e} [{card}]')
+                del runs
+            try:
+                torch.backends.cudnn.deterministic = True
+                out_d = os.path.join(tmp, 'a-deterministic')
+                _run_cli(path, model_dir, out_d, card, '4c (a) deterministic')
+                results = {}
+                for out in extract.extract_chunks(session, predictor, again):
+                    written_rows(out, again['first_frame_idx'], results)
+                    del out
+            finally:
+                torch.backends.cudnn.deterministic = False
+            differ_d = _compare_file(os.path.join(out_d, 'results_00.h5'), results)
+            phase(f'4c (a): with cudnn.deterministic, the file against a serial run at the '
+                  f'CLI\'s batch size ({cli_batch}): ' + (f'{len(differ_d)} differ: {differ_d}'
+                                                         if differ_d else
+                                                         'all equal bit for bit') + f' [{card}]')
+            if differ_d:
+                raise AssertionError('the pipeline\'s file differs from the serial path with '
+                                     'deterministic cuDNN at the same batch size')
+        with hdf5.File(h5_path, 'r') as r:
+            meta = {'timestamps': r['timestamps'][()],
+                    'true_depth': r['metadata/extraction/true_depth'][()],
+                    'roi': r['metadata/extraction/roi'][()],
+                    'bground_im': r['metadata/extraction/background'][()],
+                    'first_frame': r['metadata/extraction/first_frame'][()]}
+            version = r['metadata/extraction/extract_version'][()]
+        same = {k: bool(np.array_equal(v, np.asarray(prepared[k]))) for k, v in meta.items()}
+        with open(os.path.join(out_a, 'keypoints_00.tsv'), encoding='utf-8') as fh:
+            tsv_rows = sum(1 for _ in fh) - 1
+        with open(os.path.join(out_a, 'instance_log.tsv'), encoding='utf-8') as fh:
+            logged = {line.split('\t')[0] for line in list(fh)[1:]}
+        phase(f'4c (a): metadata equal to prepare_session\'s {same}; {version}; keypoints TSV '
+              f'{tsv_rows} rows, instance log {len(logged)} frames, status complete '
+              f'{status["complete"]}')
+        if not all(same.values()) or tsv_rows != SESSION_FRAMES or len(logged) != SESSION_FRAMES:
+            raise AssertionError('4c (a): metadata, TSV or instance log wrong')
+
+        t = time.perf_counter()
+        long_path = write_raw_session(os.path.join(tmp, 'long'), LONG_SESSION_FRAMES, 424, 512,
+                                      seed=seed + 1)
+        phase(f'4c (b): wrote {LONG_SESSION_FRAMES} frames of 424x512 '
+              f'({os.path.getsize(long_path) / 1e9:.2f} GB) in {time.perf_counter() - t:.1f} s')
+        out_b = os.path.join(tmp, 'b')
+        status, launches_b, wall, peak = _run_cli(long_path, model_dir, out_b, card, '4c (b)')
+        expect = _expected_launches(LONG_SESSION_FRAMES, defaults.chunk_size, cli_batch)
+        if launches_b != expect:
+            raise AssertionError(f'4c (b) launches {launches_b}, expected {expect}')
+        h5_path = os.path.join(out_b, 'results_00.h5')
+        raw_bytes = 0
+        with hdf5.File(h5_path, 'r') as r:
+            for _, ds in r.visit_datasets():
+                if ds.shape is not None:
+                    raw_bytes += int(np.prod(ds.shape, dtype=np.int64)) * ds.dtype.itemsize
+            found = int(np.isfinite(r['scalars/centroid_x_px'][()]).sum())
+        size = os.path.getsize(h5_path)
+        phase(f'4c (b): {LONG_SESSION_FRAMES} frames at {LONG_SESSION_FRAMES / wall:.1f} '
+              f'frames/s (cli wall, find_roi and model load included); results_00.h5 '
+              f'{size / 1e6:.1f} MB of {raw_bytes / 1e6:.1f} MB uncompressed '
+              f'({raw_bytes / size:.2f}x); centroid found in {found} frames [{card}]')
+
+        predictor = Predictor.from_model_dir(model_dir, batch_size=cli_batch,
+                                             score_threshold=defaults.instance_threshold)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        session = Session(long_path)
+        prepared_b = extract.prepare_session(session, {'chunk_size': defaults.chunk_size},
+                                             device='cuda')
+        t_roi = time.perf_counter() - t
+        frames = 0
+        for out in extract.extract_chunks(session, predictor, prepared_b):
+            frames += out['nframes']
+            del out
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t
+        phase(f'4c (b): serial extract_chunks (batch {cli_batch}) on the same session: {frames} '
+              f'frames at {frames / serial_s:.1f} frames/s with find_roi ({t_roi:.2f} s), '
+              f'{frames / (serial_s - t_roi):.1f} without; the pipeline through the writer '
+              f'{LONG_SESSION_FRAMES / wall:.1f} [{card}]')
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1188,19 +1457,23 @@ def main() -> int:
           f'{n_same} of 4 shared origins')
 
     phase('4b/5 session path: write_raw_session + prepare_session + extract_chunks')
-    session_launches = check_session(predictor, card, args.seed)
+    session_launches, extract_launches = check_session(predictor, card, args.seed,
+                                                       args.model_dir)
 
     phase('5/5 report')
     kernels = [
         {'name': 'roi_align', 'route': 'cuda', 'source': f'{PKG}/csrc/roi_align.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_roi_align.py:35',
          'launches': launches['roi_align'], 'session_launches': session_launches['roi_align'],
-         'max_abs_err': roi['max_abs_err'],
+         'extract_launches': extract_launches['roi_align'],
+         'max_abs_err': roi['max_abs_err'], 'max_ulps': roi['max_ulps'],
+         'one_ulp': roi['one_ulp'],
          'ms': roi['ms'], 'plain_ms': roi['plain_ms'], 'bound_ms': roi['bound_ms'],
          'bound_by': roi['bound_by'], 'library_ms': None},
         {'name': 'clean', 'route': 'cuda', 'source': f'{PKG}/csrc/clean.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_clean.py:74',
          'launches': launches['clean'], 'session_launches': session_launches['clean'],
+         'extract_launches': extract_launches['clean'],
          'max_abs_err': clean['max_abs_err'],
          'ms': clean['ms'], 'plain_ms': clean['plain_ms'], 'bound_ms': clean['bound_ms'],
          'bound_by': clean['bound_by'], 'library_ms': None},

@@ -18,14 +18,23 @@
 // Layout. Four levels P2..P5, each an NHWC (B, H_l, W_l, C) bf16 view with
 // its own batch, row and column strides and channel stride 1 (a
 // channels_last NCHW tensor permuted to NHWC is such a view); boxes
-// (B, K, 4) f32; the output (B, K, out, out, C) bf16. Sums are f32; the
-// result is rounded to bf16 once.
+// (B, K, 4) f32; the output (B, K, out, out, C) bf16.
+//
+// Rounding, as the JAX package's inference pooling rounds (its separable
+// form on bf16 levels, roi_align.py:311-312 and :357-360, and the Pallas
+// kernel, pallas_roi_align.py:56-57): the interpolation weights are folded in
+// f32 (the two samples' taps of one row or column summed, then halved) and
+// rounded to bf16; the y interpolation of a column, T, is summed in f32 and
+// rounded to bf16; the x combination of the T values with the bf16 weights is
+// summed in f32 and rounded to bf16 once. Each product of two bf16 values is
+// exact in f32, so only the order of the f32 sums (ascending row and column
+// here) can differ from the reference's.
 //
 // What bounds it on an H100. The function moves bytes: 16 multiply-adds
 // (32 operations) per output element against 2 bytes written per element
 // and the taps read. Its M is out = 7 or 14 rows, far below the 64 rows of
-// a wgmma tile: a tensor-core form would pad M 5-9x, round the
-// interpolation weights to bf16 and still build them per ROI
+// a wgmma tile: a tensor-core form would pad M 5-9x and still build the
+// interpolation weights per ROI
 // (benchmarks/roi_stage2_exp.py fought this M = 7 problem on the TPU's
 // matrix unit). So the design aims at bytes, instructions and occupancy.
 //
@@ -49,18 +58,19 @@
 // strides do not allow 16-byte loads. The warps are independent: no shared
 // memory, no barrier.
 // 1. Each lane computes the ROI's level and the row's two y samples
-//    (rows y0, y1 and weights of each) itself, and lane j the j-th x sample
-//    of the segment; the coordinates are bit-identical to the plain
+//    (rows y0, y1 and the fraction of each) itself, and lane j the j-th x
+//    sample of the segment; the coordinates are bit-identical to the plain
 //    version's (round-to-nearest intrinsics, no fused multiply-add, the
-//    plain version's order).
+//    plain version's order). The row's four taps become at most four
+//    distinct rows with their folded bf16 weights (fold_taps).
 // 2. Walking the x samples in order, the warp computes the y-interpolated
-//    column Ty[x] = sum over the 4 (row, weight) pairs of w * f[row][x] (four
-//    16-byte loads, f32) for each column a sample touches, keeping the last
-//    two columns in registers: samples advance monotonically along x, so each
-//    column of the footprint is loaded and interpolated once per row oy.
-// 3. Each output is 0.5 * ((1 - fx) Ty[x0] + fx Ty[x1]) summed over its two
-//    x samples in f32 registers, rounded to bf16 and stored as 16 bytes per
-//    lane.
+//    column Ty[x] = bf16(sum over the distinct rows of w * f[row][x]) (four
+//    16-byte loads, f32 sums) for each column a sample touches, keeping the
+//    last two columns in registers: samples advance monotonically along x, so
+//    each column of the footprint is loaded and interpolated once per row oy.
+// 3. Each output folds its two x samples' four column taps the same way and
+//    sums w * Ty[x] over the distinct columns in f32 registers, rounded to
+//    bf16 and stored as 16 bytes per lane.
 // Footprints of any size take the same walk: there is no staged capacity.
 // The wrapper (ops/roi_align_kernel.py:launch_plan) splits each row into
 // segments of columns when the ROIs are few, so the K = 1 stages (16 ROIs a
@@ -99,6 +109,31 @@ __device__ __forceinline__ void sample_coord(float lo, float hi, int i, int s,
   *frac = __fsub_rn(c, fl);
   *c0 = static_cast<int>(fl);
   *c1 = min(*c0 + 1, size - 1);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The folded weights of one output's four taps along an axis: sample a's
+// (c[0], c[1]) with fraction fa and sample b's (c[2], c[3]) with fb. A tap's
+// weight is its row's (or column's) entry of ops/roi_align.py's
+// _fold_interp_weights, 0.5 * (wa + wb) with wa = [c0a == h] (1 - fa) +
+// [c1a == h] fa in f32, rounded to bf16; a tap whose row an earlier tap holds
+// gets 0, so each row counts once. The taps that keep a weight come in
+// ascending order (c[0] <= c[1], and c[2] is past c[1] unless it repeats c[0]).
+__device__ __forceinline__ void fold_taps(const int* c, float fa, float fb, float* w) {
+  const float ga = __fsub_rn(1.0f, fa), gb = __fsub_rn(1.0f, fb);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int h = c[e];
+    bool seen = false;
+#pragma unroll
+    for (int p = 0; p < e; ++p) seen |= c[p] == h;
+    const float wa = __fadd_rn(c[0] == h ? ga : 0.0f, c[1] == h ? fa : 0.0f);
+    const float wb = __fadd_rn(c[2] == h ? gb : 0.0f, c[3] == h ? fb : 0.0f);
+    w[e] = seen ? 0.0f : round_bf16(__fmul_rn(0.5f, __fadd_rn(wa, wb)));
+  }
 }
 
 // V bf16 channels of one tap: load as f32, store from f32.
@@ -173,19 +208,18 @@ roi_align_kernel(Pyramid pyr, int n_levels, int min_level, const float* __restri
   const Level& L = pyr.level[level - min_level];
   const float inv_stride = 1.0f / static_cast<float>(1 << level);
 
-  // this row's two y samples: 4 (row, weight) pairs, the weights halved
-  long long row_off[4];
-  float wy[4];
+  // this row's two y samples: 4 taps, their folded bf16 weights
+  int rows[4];
+  float fy[2];
 #pragma unroll
-  for (int sy = 0; sy < 2; ++sy) {
-    int y0, y1;
-    float fy;
-    sample_coord(by1, by2, 2 * oy + sy, s, inv_stride, L.height, &y0, &y1, &fy);
-    row_off[2 * sy] = y0 * L.sy;
-    row_off[2 * sy + 1] = y1 * L.sy;
-    wy[2 * sy] = 0.5f * (1.0f - fy);
-    wy[2 * sy + 1] = 0.5f * fy;
-  }
+  for (int sy = 0; sy < 2; ++sy)
+    sample_coord(by1, by2, 2 * oy + sy, s, inv_stride, L.height, &rows[2 * sy],
+                 &rows[2 * sy + 1], &fy[sy]);
+  float wy[4];
+  fold_taps(rows, fy[0], fy[1], wy);
+  long long row_off[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) row_off[e] = rows[e] * L.sy;
   // the segment's x samples, lane j holding samples j and j + 32
   const int j_begin = 2 * ox_begin;
   int xs0[2], xs1[2];
@@ -199,7 +233,8 @@ roi_align_kernel(Pyramid pyr, int n_levels, int min_level, const float* __restri
   }
 
   const __nv_bfloat16* feat = L.base + (roi / K) * L.sb + c;
-  // Ty of column x: the y interpolation of the row's 4 taps in that column
+  // Ty of column x: the y interpolation of the row's taps in that column,
+  // rounded to bf16
   auto column = [&](int x, float* t) {
 #pragma unroll
     for (int v = 0; v < V; ++v) t[v] = 0.0f;
@@ -212,6 +247,8 @@ roi_align_kernel(Pyramid pyr, int n_levels, int min_level, const float* __restri
 #pragma unroll
       for (int v = 0; v < V; ++v) t[v] += wy[e] * f[e][v];
     }
+#pragma unroll
+    for (int v = 0; v < V; ++v) t[v] = round_bf16(t[v]);
   };
   // the last two columns computed (the walk along x is monotone)
   float t_old[V] = {}, t_new[V] = {};
@@ -237,22 +274,29 @@ roi_align_kernel(Pyramid pyr, int n_levels, int min_level, const float* __restri
 
   __nv_bfloat16* dst = out + (static_cast<size_t>(roi) * out_size + oy) * out_size * C + c;
   for (int ox = ox_begin; ox < ox_end; ++ox) {
-    float acc[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+    // the output's two x samples: 4 column taps, their folded bf16 weights
+    int cols[4];
+    float fx[2];
 #pragma unroll
     for (int sx = 0; sx < 2; ++sx) {
       const int jj = 2 * (ox - ox_begin) + sx;   // the sample's index in the segment
       const int src = jj & 31;
       const bool high = jj >= 32;
-      const int x0 = __shfl_sync(0xffffffffu, high ? xs0[1] : xs0[0], src);
-      const int x1 = __shfl_sync(0xffffffffu, high ? xs1[1] : xs1[0], src);
-      const float fx = __shfl_sync(0xffffffffu, high ? xf[1] : xf[0], src);
-      float t0[V], t1[V];
-      get(x0, t0);
-      get(x1, t1);
+      cols[2 * sx] = __shfl_sync(0xffffffffu, high ? xs0[1] : xs0[0], src);
+      cols[2 * sx + 1] = __shfl_sync(0xffffffffu, high ? xs1[1] : xs1[0], src);
+      fx[sx] = __shfl_sync(0xffffffffu, high ? xf[1] : xf[0], src);
+    }
+    float wx[4];
+    fold_taps(cols, fx[0], fx[1], wx);
+    float acc[V];
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] += 0.5f * ((1.0f - fx) * t0[v] + fx * t1[v]);
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float t[V];
+      get(cols[e], t);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] += wx[e] * t[v];
     }
     if (live) Chan<V>::store(dst + static_cast<size_t>(ox) * C, acc);
   }

@@ -1,15 +1,24 @@
-'''Extraction of a session through the device path.
+'''Extraction of a session: the ``extract`` command's work.
 
 The port's counterpart of ``moseq2_detectron_extract_tpu/extract.py``:
-``prepare_session`` is ``extract_session``'s ROI discovery (lines 63-83),
-``extract_chunks`` its frame producer and, per chunk, ``process_chunk``
-(what the reference's pipeline runs as ``InferenceStep``, device prep and
-detection, and ``SelectInstancesStep``, selection, the window gather, the
-window clean and moments and the height stats), then ``process_features``
+``extract_session`` (lines 28-159) runs a session through the pipeline's
+threads and writes the results file, the keypoints TSV, the instance log
+and the status YAML; ``prepare_session`` is its ROI discovery (lines
+63-83); ``extract_chunks`` runs the same steps serially, chunk by chunk, in
+the caller's thread: the frame producer, ``process_chunk`` (what the
+reference's pipeline runs as ``InferenceStep``, device prep and detection,
+and ``SelectInstancesStep``, selection, the window gather, the window clean
+and moments and the height stats), then ``process_features``
 (``ProcessFeaturesStep``: the host brain and the output ops) and
 ``fetch_results`` (``FetchResultsStep``: what the writers take). The
-writers come in a later slice.
+preview writers are not ported.
 '''
+import logging
+import os
+import time
+import uuid
+from copy import deepcopy
+from datetime import timedelta
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -17,13 +26,21 @@ import torch
 
 from moseq2_detectron_extract_tpu_torch.device import resolve_device
 from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
-from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers,
+from moseq2_detectron_extract_tpu_torch.io.util import attach_file_logger, ensure_dir, write_yaml
+from moseq2_detectron_extract_tpu_torch.pipeline.pipeline import Pipeline, WorkerError
+from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers, FetchResultsStep,
+                                                               InferenceStep, ProcessFeaturesStep,
+                                                               ProduceFramesStep,
+                                                               ResultWriterStep,
+                                                               SelectInstancesStep,
                                                                dispatch_window_features,
                                                                fetch_results,
                                                                make_feature_trackers,
+                                                               make_tracker,
                                                                process_features, produce_chunks,
                                                                run_inference, select_instances)
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
+from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
 
 # the extract CLI's defaults (cli.py:46-66, pipeline/steps.py:166-169, 319-393)
 DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
@@ -36,11 +53,6 @@ DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
                   'chunk_overlap': 0, 'frame_trim': (0, 0), 'crop_size': (80, 80),
                   'use_tracking': True, 'num_keypoints': 8, 'debug_feature_processing': False,
                   'preview_arena_masks': True}
-
-
-def make_tracker() -> CentroidTracker:
-    '''The selection loop's tracker, with the extract settings.'''
-    return CentroidTracker(distance_threshold=50, hit_counter_max=3)
 
 
 def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
@@ -68,7 +80,8 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
     return dispatch_window_features(data, config)
 
 
-def prepare_session(session: Session, config: Optional[Dict] = None, device='cuda') -> Dict:
+def prepare_session(session: Session, config: Optional[Dict] = None, device='cuda',
+                    verbose: bool = False) -> Dict:
     '''Find the session's background, ROI and true depth on ``device``
     (``Session.find_roi`` with the config's ``bg_roi_*`` and
     ``use_plane_bground``, cached in ``config['output_dir']`` when it is
@@ -88,7 +101,8 @@ def prepare_session(session: Session, config: Optional[Dict] = None, device='cud
                      bg_roi_gradient_kernel=config['bg_roi_gradient_kernel'],
                      bg_roi_fill_holes=config['bg_roi_fill_holes'],
                      use_plane_bground=config['use_plane_bground'],
-                     cache_dir=config.get('output_dir'), device=resolve_device(device))
+                     cache_dir=config.get('output_dir'), verbose=verbose,
+                     device=resolve_device(device))
     config.update({'nframes': session.nframes, 'true_depth': session.true_depth,
                    'roi': session.roi, 'first_frame': session.first_frame,
                    'first_frame_idx': session.first_frame_idx,
@@ -128,3 +142,133 @@ def extract_chunks(session: Session, predictor, config: Optional[Dict] = None,
         fetched = fetch_results(process_features(dict(out), config, feature_trackers), config)
         out.update({key: fetched[key] for key in fetched.keys() - out.keys()})
         yield out
+
+
+def extract_session(session: Session, config: dict) -> str:
+    '''Extract one session through the pipeline's threads; returns the path
+    of its status YAML.
+
+    ``config`` holds the extract command's options (``cli.py``); ``device``
+    (default ``'cuda'``) runs the model and the device path, and
+    ``predictor`` may hand in a loaded Predictor. Writes into
+    ``output_dir`` (default: ``proc`` beside the session): ``results_NN.h5``,
+    ``keypoints_NN.tsv``, ``instance_log.tsv``, the ROI caches,
+    ``results_NN.log`` and ``results_NN.yaml`` (NN: ``bg_roi_index``). A
+    session whose status already says ``complete: true`` is skipped. A
+    failure of any step is logged, and the status keeps ``complete: false``:
+    read the status, not the return value, to know whether it ran.
+    '''
+    start_time = time.time()
+    config.setdefault('device', 'cuda')
+    if config.get('output_dir') is None:
+        config['output_dir'] = os.path.join(session.dirname, 'proc')
+    output_dir = ensure_dir(config['output_dir'])
+    attach_file_logger(os.path.join(output_dir, f"results_{config['bg_roi_index']:02d}.log"))
+
+    status_filename = os.path.join(output_dir, f"results_{config['bg_roi_index']:02d}.yaml")
+    if check_completion_status(status_filename):
+        logging.warning('WARNING: Session appears to already be extracted, so skipping!')
+        return status_filename
+
+    status_dict = {
+        'complete': False,
+        'skip': False,
+        'uuid': str(uuid.uuid4()),
+        'metadata': session.load_metadata(),
+        'parameters': _yaml_safe_config(config),
+    }
+    write_yaml(status_filename, status_dict)
+
+    try:
+        prepared = prepare_session(session, config, device=config['device'], verbose=True)
+        config.update({key: value for key, value in prepared.items() if key not in config})
+        config.update({key: prepared[key] for key in ('nframes', 'true_depth', 'roi',
+                                                      'first_frame', 'first_frame_idx',
+                                                      'bground_im', 'timestamps')})
+        config['status_dict'] = status_dict
+
+        pipeline = Pipeline(show_progress=config.get('show_progress', True))
+        produce = pipeline.add_step(' Read Depth Data', ProduceFramesStep, session=session,
+                                    config=config)
+        inference = pipeline.add_step(' Model Inference', InferenceStep, config=config)
+        select = pipeline.add_step(' Instance Select', SelectInstancesStep, config=config)
+        features = pipeline.add_step('Process Features', ProcessFeaturesStep,
+                                     show_progress=True, config=config)
+        fetch = pipeline.add_step('   Fetch Results', FetchResultsStep, config=config)
+        # the writer last: log_processing_status reads steps[-1]; its name is
+        # the reference's, spelling included, so that stage_stats keys agree
+        writer = pipeline.add_step('    Write Reults', ResultWriterStep, show_progress=True,
+                                   config=config)
+        pipeline.link(produce, inference)
+        pipeline.link(inference, select)
+        pipeline.link(select, features)
+        pipeline.link(features, fetch)
+        pipeline.link(fetch, writer)
+        pipeline.add_timed_callback(30.0, log_processing_status)
+
+        pipeline.start()
+        while pipeline.is_running():
+            time.sleep(0.1)
+        pipeline.shutdown()
+
+        status_dict['stage_stats'] = {
+            step.step_name.strip(): {
+                'busy_s': round(step.busy_seconds, 3),
+                'cpu_s': round(step.cpu_seconds, 3),
+                'chunks': step.items_processed,
+                **({'sub_times': {k: round(v, 3) for k, v in step.sub_times.items()}}
+                   if getattr(step, 'sub_times', None) else {}),
+            } for step in pipeline.steps
+        }
+    except WorkerError as work_error:
+        logging.error('')
+        logging.error('One or more workers encountered an error during extraction:\n')
+        for err in work_error.error_info:
+            logging.error('Worker "%s" raised an exception:\n%s', err.name.strip(), err.message)
+            logging.error('')
+    except Exception:  # noqa: BLE001 - logged; the status keeps complete: false
+        logging.error('')
+        logging.error('Error during extraction', exc_info=True)
+        logging.error('')
+    else:
+        status_dict['complete'] = True
+        write_yaml(status_filename, status_dict)
+        duration = time.time() - start_time
+        fps = session.nframes / max(duration, 1e-6)
+        logging.info('Finished processing %d frames in %s (approx. %.2f fps overall)',
+                     session.nframes, timedelta(seconds=round(duration)), fps)
+    return status_filename
+
+
+def _yaml_safe_config(config: dict) -> dict:
+    '''The config as the status file's ``parameters``: without the Predictor
+    and the session's arrays.'''
+    out = {}
+    for key, value in config.items():
+        if key in ('status_dict', 'predictor', 'roi', 'first_frame', 'bground_im',
+                   'timestamps'):
+            continue
+        try:
+            out[key] = deepcopy(value)
+        except Exception:  # noqa: BLE001 - a value that cannot be copied is kept as text
+            out[key] = str(value)
+    return out
+
+
+def log_processing_status(pipeline: Pipeline) -> None:
+    '''A status line for the log file: frames written, of the total, and
+    frames in progress.'''
+    producer = pipeline.progress.get_stats(pipeline.steps[0].step_name)
+    complete = pipeline.progress.get_stats(pipeline.steps[-1].step_name)
+    if producer is None or complete is None:
+        return
+    total = producer['total'] or 0
+    if total <= 0:
+        return
+    completed = complete['completed'] or 0
+    in_progress = (producer['completed'] or 0) - completed
+    nchar = len(str(total))
+    logging.info('Completed processing %s / %s frames (%s) in %s, another %s frames in progress',
+                 str(completed).rjust(nchar), total, f'{completed / total:.1%}'.rjust(6),
+                 timedelta(seconds=round(producer['elapsed'] or 0)),
+                 str(in_progress).rjust(nchar), extra={'nostream': True})

@@ -1,14 +1,24 @@
-'''Chunk ranges, timestamps and session metadata.
+'''Chunk ranges, timestamps, session metadata, the YAML and HDF5 helpers of
+the writers, and logging.
 
 Port of ``moseq2_detectron_extract_tpu/io/util.py`` (``gen_batch_sequence``,
-lines 21-34; ``load_timestamps``, 111-132; ``load_metadata``, 135-140;
-``find_unused_file_path``, 149-157).
+lines 21-34; ``read_yaml``, ``write_yaml`` and ``_sanitize_for_yaml``, 37-64,
+on the port's own YAML emitter and reader; ``dict_to_h5``, 67-108, on the
+port's HDF5 writer; ``load_timestamps``, 111-132; ``load_metadata``,
+135-140; ``ensure_dir``, 143-146; ``find_unused_file_path``, 149-157;
+``setup_logging`` and ``attach_file_logger``, 168-231, with a plain stream
+handler where the reference's writes through tqdm).
 '''
 import json
+import logging
+import logging.handlers
 import os
-from typing import IO, List, Union
+import uuid
+from typing import IO, Any, Dict, List, Optional, Union
 
 import numpy as np
+
+from moseq2_detectron_extract_tpu_torch.io import hdf5, yaml_subset
 
 
 def gen_batch_sequence(nframes: int, chunk_size: int, overlap: int = 0,
@@ -56,3 +66,139 @@ def find_unused_file_path(path: str) -> str:
     while os.path.exists(f'{stem}.{i}{ext}'):
         i += 1
     return f'{stem}.{i}{ext}'
+
+
+def ensure_dir(path: str) -> str:
+    '''Create ``path`` (and parents) if missing.'''
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def read_yaml(path: str) -> Any:
+    '''Read a YAML file (``io.yaml_subset.load``).'''
+    with open(path, 'r', encoding='utf-8') as fh:
+        return yaml_subset.load(fh.read())
+
+
+def write_yaml(path: str, data: dict) -> None:
+    '''Write a dict to a YAML file, numpy values as Python's.'''
+    text = yaml_subset.dump(_sanitize_for_yaml(data))
+    with open(path, 'w', encoding='utf-8') as fh:
+        fh.write(text)
+
+
+def _sanitize_for_yaml(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {k: _sanitize_for_yaml(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_sanitize_for_yaml(v) for v in value]
+    if isinstance(value, np.ndarray):
+        return _sanitize_for_yaml(value.tolist())
+    if isinstance(value, np.integer):
+        return int(value)
+    if isinstance(value, np.floating):
+        return float(value)
+    if isinstance(value, np.bool_):
+        return bool(value)
+    if isinstance(value, uuid.UUID):
+        return str(value)
+    return value
+
+
+def dict_to_h5(h5_file, data: dict, root: str = '',
+               annotations: Optional[Dict[str, Any]] = None) -> None:
+    '''Write a dict into an HDF5 file (``io.hdf5.File``) under ``root``,
+    as the JAX package's ``dict_to_h5`` does with h5py: None as an empty
+    f32 dataset, dicts as groups, lists of strings as fixed-length byte
+    strings, other lists and arrays as arrays, str as a variable-length
+    string, bool, int and float as scalars, anything else as its JSON.
+    ``annotations`` maps keys to ``description`` attributes.'''
+    if root and not root.endswith('/'):
+        root = root + '/'
+    if annotations is None:
+        annotations = {}
+    for key, value in data.items():
+        dest = f'{root}{key}'
+        try:
+            if value is None:
+                h5_file.create_dataset(dest, data=hdf5.Empty('f'))
+            elif isinstance(value, dict):
+                ann = annotations.get(key)
+                dict_to_h5(h5_file, value, dest, ann if isinstance(ann, dict) else None)
+                continue
+            elif isinstance(value, (list, tuple)):
+                arr = np.asarray(value)
+                if arr.dtype.kind in ('U', 'S', 'O'):
+                    arr = np.array([str(v).encode('utf8') for v in value])
+                h5_file.create_dataset(dest, data=arr)
+            elif isinstance(value, np.ndarray):
+                h5_file.create_dataset(dest, data=value)
+            elif isinstance(value, (str, bytes)):
+                h5_file.create_dataset(dest, data=value)
+            elif isinstance(value, (bool, np.bool_)):
+                h5_file.create_dataset(dest, data=bool(value))
+            elif isinstance(value, (int, float, np.integer, np.floating)):
+                h5_file.create_dataset(dest, data=value)
+            else:
+                h5_file.create_dataset(dest, data=json.dumps(value, default=str))
+        except Exception:  # noqa: BLE001 - one bad metadata value must not end a run
+            logging.warning('could not write metadata key %s', dest)
+            continue
+        ann = annotations.get(key)
+        if isinstance(ann, str):
+            h5_file[dest].attrs['description'] = ann
+
+
+class StreamHandler(logging.StreamHandler):
+    '''A stream handler that leaves out records logged with
+    ``extra={'nostream': True}`` (they reach the log file only).'''
+
+    def emit(self, record):
+        if record.__dict__.get('nostream', False):
+            return
+        super().emit(record)
+
+
+_MEMORY_HANDLER: Optional[logging.handlers.MemoryHandler] = None
+_LOG_FORMAT = '%(asctime)s [%(levelname)s] %(message)s'
+
+
+def setup_logging(level: int = logging.INFO, add_defered_file_handler: bool = False) -> None:
+    '''Configure the root logger with a stream handler to stderr. With
+    ``add_defered_file_handler`` the records are also kept in memory until
+    ``attach_file_logger`` names the run's log file, so the early ones reach
+    it too.'''
+    global _MEMORY_HANDLER
+    root = logging.getLogger()
+    root.setLevel(level)
+    for handler in list(root.handlers):
+        root.removeHandler(handler)
+    stream = StreamHandler()
+    stream.setFormatter(logging.Formatter('%(message)s'))
+    root.addHandler(stream)
+    if add_defered_file_handler:
+        _MEMORY_HANDLER = logging.handlers.MemoryHandler(capacity=10000,
+                                                         flushLevel=logging.CRITICAL + 1)
+        _MEMORY_HANDLER.setFormatter(logging.Formatter(_LOG_FORMAT))
+        root.addHandler(_MEMORY_HANDLER)
+
+
+def attach_file_logger(log_path: str) -> None:
+    '''Log to ``log_path`` (appending), after the records kept in memory;
+    a file handler attached before is closed first, so that consecutive
+    sessions in one process do not log into each other's files.'''
+    global _MEMORY_HANDLER
+    root = logging.getLogger()
+    for handler in list(root.handlers):
+        if isinstance(handler, logging.FileHandler):
+            root.removeHandler(handler)
+            handler.close()
+    file_handler = logging.FileHandler(log_path, mode='a', encoding='utf-8')
+    file_handler.setFormatter(logging.Formatter(_LOG_FORMAT))
+    if _MEMORY_HANDLER is not None:
+        _MEMORY_HANDLER.setTarget(file_handler)
+        _MEMORY_HANDLER.flush()
+        root.removeHandler(_MEMORY_HANDLER)
+        _MEMORY_HANDLER.close()
+        _MEMORY_HANDLER = None
+    root.addHandler(file_handler)

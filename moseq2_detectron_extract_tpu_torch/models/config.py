@@ -2,14 +2,15 @@
 
 Port of ``moseq2_detectron_extract_tpu/models/config.py``: the same
 dataclass, field for field. PyYAML is not a dependency of the port, so
-``read_config_yaml`` parses the block-style subset that
-``ModelConfig.to_yaml`` (``yaml.safe_dump`` of the dataclass) writes: a
-top-level mapping of scalars, block lists and block lists of lists.
+``read_config_yaml`` reads what ``ModelConfig.to_yaml`` (``yaml.safe_dump``
+of the dataclass) writes with the port's YAML reader
+(``io.yaml_subset.load``): a top-level mapping of scalars, block lists and
+block lists of lists.
 '''
 import dataclasses
-import math
-import re
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+from moseq2_detectron_extract_tpu_torch.io.yaml_subset import load
 
 
 @dataclasses.dataclass
@@ -122,98 +123,24 @@ class ModelConfig:
         return dataclasses.replace(self, **kwargs)
 
 
-# -- YAML subset reader --------------------------------------------------------
+# -- the config.yaml reader ------------------------------------------------------
 
-# YAML 1.1 plain-scalar resolution, as PyYAML's SafeLoader resolves it
-_INT_RE = re.compile(r'^[-+]?(0|[1-9][0-9_]*)$')
-_FLOAT_RE = re.compile(r'^[-+]?(?:[0-9][0-9_]*)?\.[0-9_]*(?:[eE][-+][0-9]+)?$'
-                       r'|^[-+]?[0-9][0-9_]*(?:\.[0-9_]*)?[eE][-+][0-9]+$')
-_BOOLS = {'true': True, 'false': False, 'yes': True, 'no': False,
-          'on': True, 'off': False}
-_NULLS = {'', '~', 'null', 'Null', 'NULL'}
-
-
-def _scalar(text: str) -> Any:
-    '''Resolve one plain, quoted or empty-flow-list scalar.'''
-    text = text.strip()
-    if len(text) >= 2 and text[0] == text[-1] == "'":
-        return text[1:-1].replace("''", "'")
-    if len(text) >= 2 and text[0] == text[-1] == '"':
-        return bytes(text[1:-1], 'utf-8').decode('unicode_escape')
-    if text == '[]':
-        return []
-    if text in _NULLS:
-        return None
-    if text.lower() in _BOOLS:
-        return _BOOLS[text.lower()]
-    if _INT_RE.match(text):
-        return int(text.replace('_', ''))
-    if _FLOAT_RE.match(text):
-        return float(text.replace('_', ''))
-    lowered = text.lower()
-    if lowered in ('.inf', '+.inf'):
-        return math.inf
-    if lowered == '-.inf':
-        return -math.inf
-    if lowered == '.nan':
-        return math.nan
-    if text[0] in '[{&*!|>%@`':
-        raise ValueError(f'unsupported YAML construct: {text!r}')
-    return text
-
-
-def _parse_seq(lines: List[Tuple[int, str]], pos: int, col: int):
-    '''Block sequence whose ``-`` markers sit at column ``col``.'''
-    items = []
-    while pos < len(lines) and lines[pos][0] == col and \
-            (lines[pos][1] == '-' or lines[pos][1].startswith('- ')):
-        rest = lines[pos][1][1:]
-        inner = rest.lstrip(' ')
-        inner_col = col + 1 + (len(rest) - len(inner))
-        if inner.startswith('- ') or inner == '-':
-            # a list of lists: the first inner item shares this line
-            lines[pos] = (inner_col, inner)
-            value, pos = _parse_seq(lines, pos, inner_col)
-        elif inner == '':
-            pos += 1
-            if pos < len(lines) and lines[pos][0] > col:
-                value, pos = _parse_seq(lines, pos, lines[pos][0])
-            else:
-                value = None
-        else:
-            if re.match(r'^[^\'"\s][^:]*:(\s|$)', inner):
-                raise ValueError(f'unsupported YAML mapping in a list: {inner!r}')
-            value = _scalar(inner)
-            pos += 1
-        items.append(value)
-    return items, pos
+def _plain_value(value: Any) -> bool:
+    '''A scalar, or a list of scalars or of such lists.'''
+    if isinstance(value, list):
+        return all(_plain_value(v) for v in value)
+    return not isinstance(value, dict)
 
 
 def parse_config_yaml(text: str) -> Dict[str, Any]:
-    '''Parse the YAML subset ``ModelConfig.to_yaml`` writes.'''
-    lines = []
-    for raw in text.splitlines():
-        stripped = raw.rstrip()
-        if not stripped or stripped.lstrip().startswith('#') or stripped == '---':
-            continue
-        indent = len(stripped) - len(stripped.lstrip(' '))
-        lines.append((indent, stripped.lstrip(' ')))
-    out: Dict[str, Any] = {}
-    pos = 0
-    while pos < len(lines):
-        indent, content = lines[pos]
-        m = re.match(r'^([^\s:][^:]*):(?:\s+(.*))?$', content)
-        if indent != 0 or m is None:
-            raise ValueError(f'unsupported YAML line: {content!r}')
-        key, rest = m.group(1), (m.group(2) or '')
-        pos += 1
-        if rest.strip():
-            out[key] = _scalar(rest)
-        elif pos < len(lines) and lines[pos][1].startswith('-') and \
-                lines[pos][0] in (0, 2):
-            out[key], pos = _parse_seq(lines, pos, lines[pos][0])
-        else:
-            out[key] = None
+    '''Parse what ``ModelConfig.to_yaml`` writes: a top-level mapping of
+    scalars, lists and lists of lists (``io.yaml_subset``; nested mappings
+    raise ``ValueError``).'''
+    out = load(text)
+    if out is None:
+        return {}
+    if not isinstance(out, dict) or not all(_plain_value(v) for v in out.values()):
+        raise ValueError('a model config is a flat mapping of scalars and lists')
     return out
 
 

@@ -11,8 +11,15 @@ The separable form writes the interpolation as two folded weight matrices,
 Wy (out, sum_l H_l) over the H-stacked pyramid and Wx (out, Wmax), so
 pooling is Wy @ F @ Wx^T. This is the plain version of the CUDA kernel in
 ``roi_align_kernel.py``: it serves CPU tensors and the tests, and is what
-the kernel is held against on the card. It computes in f32 whatever the
-feature dtype, as the kernel does, and casts the result to ``out_dtype``.
+the kernel is held against on the card.
+
+Rounding. On bf16 features it rounds as the JAX package's inference pooling
+does (``separable_batched_roi_align`` on bf16 levels, and the Pallas kernel):
+the weights are folded in f32 and rounded to bf16, stage 1 sums in f32 and
+rounds T to bf16, stage 2 sums in f32 and the output is rounded once to
+``out_dtype``. Every product of two bf16 values is exact in f32, so only the
+order of the f32 sums differs from XLA's. On f32 features everything stays
+f32 (the stage-2 experiment, training).
 '''
 from typing import Optional, Sequence
 
@@ -120,10 +127,16 @@ def separable_batched_roi_align(features: Sequence[torch.Tensor], boxes,
                                 output_size: int, min_level: int = 2,
                                 out_dtype: Optional[torch.dtype] = None):
     '''Pool (B, K, 4) boxes over batched NHWC levels (B, H_l, W_l, C) ->
-    (B, K, out, out, C) in ``out_dtype`` (default: the features' dtype).'''
+    (B, K, out, out, C) in ``out_dtype`` (default: the features' dtype),
+    with bf16 weights and a bf16 T when the levels are bf16.'''
     if out_dtype is None:
         out_dtype = features[0].dtype
-    f_stack, wy, wx = _separable_inputs(features, boxes, output_size, min_level)
-    t = torch.einsum('bkyh,bhwc->bkywc', wy, f_stack)
+    if features[0].dtype == torch.bfloat16:
+        f_stack, wy, wx = (x.float() for x in _separable_inputs(
+            features, boxes, output_size, min_level, as_dtype=torch.bfloat16))
+        t = torch.einsum('bkyh,bhwc->bkywc', wy, f_stack).to(torch.bfloat16).float()
+    else:
+        f_stack, wy, wx = _separable_inputs(features, boxes, output_size, min_level)
+        t = torch.einsum('bkyh,bhwc->bkywc', wy, f_stack)
     out = torch.einsum('bkxw,bkywc->bkyxc', wx, t)
     return out.to(out_dtype)

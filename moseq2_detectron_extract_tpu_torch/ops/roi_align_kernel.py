@@ -98,14 +98,15 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     '''Multilevel ROIAlignV2 of (B, K, 4) boxes over NHWC levels
     (B, H_l, W_l, C) -> (B, K, out, out, C) bf16.
 
-    CUDA tensors go to the kernel: a level that is not bf16 with channel
-    stride 1 is converted first (a copy; the main path's levels need none).
-    CPU tensors go to the plain version, computed in f32 and rounded to bf16.
+    The levels are taken in bf16 (a level of another dtype is rounded
+    first). CUDA tensors go to the kernel: a level that is not bf16 with
+    channel stride 1 is converted first (a copy; the main path's levels need
+    none). CPU tensors go to the plain version, with its bf16 rounding.
     '''
     if boxes.is_cuda:
         levels = [f if f.dtype == torch.bfloat16 and f.stride(3) == 1
                   else f.to(torch.bfloat16).contiguous() for f in features]
         return roi_align_cuda(levels, boxes.float().contiguous(), output_size,
                               min_level)
-    return separable_batched_roi_align(features, boxes, output_size, min_level,
-                                       out_dtype=torch.bfloat16)
+    return separable_batched_roi_align([f.to(torch.bfloat16) for f in features], boxes,
+                                       output_size, min_level, out_dtype=torch.bfloat16)

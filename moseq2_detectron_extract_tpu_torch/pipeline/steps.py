@@ -1,24 +1,36 @@
 '''Steps of extraction: the host's chunks of prepped frames, then per chunk
-inference, instance selection, the host brain and the output ops.
+inference, instance selection, the host brain, the output ops and the
+results writer; as functions of one chunk, and as the pipeline's steps.
 
 Port of ``moseq2_detectron_extract_tpu/pipeline/steps.py``:
 ``ProduceFramesStep`` (lines 40-86) as the generator ``produce_chunks``;
 ``InferenceStep.process`` (lines 112-155, the ``device_input='full'``
-branch), ``SelectInstancesStep._select_instances`` (lines 200-310, the
-branch with the depth chunk on the device) and its height-stats dispatch
-(181-190), ``ProcessFeaturesStep`` (311-401) and ``FetchResultsStep``
-(403-445), as functions of one chunk. The pipeline threads, the instance
-log and the host-side sentinel zeroing for the preview are not ported yet.
+branch) as ``run_inference``, ``SelectInstancesStep._select_instances``
+(lines 200-310, the branch with the depth chunk on the device, with the
+instance log) and its height-stats dispatch (181-190),
+``ProcessFeaturesStep`` (311-401) and ``FetchResultsStep`` (403-445), as
+functions of one chunk; then the step classes around them, and
+``ResultWriterStep`` (447-494). The preview steps are not ported.
+
+The steps run on threads of their own (``pipeline.Pipeline``) and launch
+their device work on the device's default stream, so it runs in the order
+the steps submit it and a tensor passes from one step to the next without
+an event. Each chunk's device tensors are dropped by the last step that
+reads them.
 '''
 import logging
+import os
 from functools import partial
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from moseq2_detectron_extract_tpu_torch.io import hdf5
+from moseq2_detectron_extract_tpu_torch.io.result import (create_extract_h5,
+                                                          write_extracted_chunk_to_h5)
 from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
-
+from moseq2_detectron_extract_tpu_torch.models.instance_logger import InstanceLogger
 from moseq2_detectron_extract_tpu_torch.ops.instances import (gather_selected_windows,
                                                               packbits_device, unpackbits_host,
                                                               window_origins)
@@ -35,6 +47,7 @@ from moseq2_detectron_extract_tpu_torch.proc.keypoints import (dispatch_z_lookup
                                                                keypoints_to_dict)
 from moseq2_detectron_extract_tpu_torch.proc.scalars import (compute_scalars,
                                                              dispatch_scalar_stats)
+from moseq2_detectron_extract_tpu_torch.pipeline.pipeline_step import PipelineStep
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
 
 FeatureTrackers = Optional[Tuple[KalmanTracker, KalmanTracker]]
@@ -71,15 +84,25 @@ def run_inference(chunk: torch.Tensor, predictor, config: Dict) -> Dict:
     run the predictor with the fused selection.
 
     Returns ``chunk_dev`` (the decoded (N, H, W) depth) and ``inference``.
+    The upload is a blocking copy: once this returns, the host chunk is no
+    longer read.
     '''
-    chunk_dev = decode_prepped_frames(chunk.to(predictor.device))
+    chunk_dev = decode_prepped_frames(chunk.to(predictor.device, non_blocking=False))
     frames = scale_raw_frames(chunk_dev, config['min_height'], config['max_height'])
     return {'chunk_dev': chunk_dev, 'inference': predictor(frames)}
 
 
-def select_instances(data: Dict, config: Dict, tracker: CentroidTracker) -> Dict:
+def make_tracker() -> CentroidTracker:
+    '''The selection loop's tracker, with the extract settings.'''
+    return CentroidTracker(distance_threshold=50, hit_counter_max=3)
+
+
+def select_instances(data: Dict, config: Dict, tracker: CentroidTracker,
+                     instance_log: Optional[InstanceLogger] = None) -> Dict:
     '''Pick one instance per frame (host tracker over the small (N, D)
     arrays), then gather its mask, keypoints and depth window on the device.
+    With ``instance_log``, each true frame (``data['frame_idxs']``) is
+    logged with its kept detections, best first.
 
     Adds ``chosen_idx``, ``num_instances``, ``kept_boxes``, ``win_origins``
     (N, 2 [y0, x0]), ``sel_masks`` (N, c, c) uint8, ``sel_keypoints``
@@ -94,12 +117,22 @@ def select_instances(data: Dict, config: Dict, tracker: CentroidTracker) -> Dict
     boxes = raw_boxes.copy()
     boxes[~keep] = np.nan
     n = keep.shape[0]
+    iou = kpts_host = None
+    if instance_log is not None and (keep.sum(axis=1) > 1).any():
+        iou = inference['mask_iou'].cpu().numpy()
+        kpts_host = inference['keypoints'].cpu().numpy()
+    n_true = len(data['frame_idxs']) if instance_log is not None else 0
 
     chosen_idx = np.zeros(n, dtype='int32')
     num_instances = np.zeros(n, dtype=int)
     for i in range(n):
         keep_idx = np.flatnonzero(keep[i])
         keep_idx = keep_idx[np.argsort(-scores[i][keep_idx])]
+        if i < n_true:
+            instance_log.log_frame(int(data['frame_idxs'][i]), keep_idx, scores[i],
+                                   mask_iou=iou[i] if iou is not None else None,
+                                   centers=centers[i],
+                                   keypoints=kpts_host[i] if kpts_host is not None else None)
         tracked = tracker.update(centers[i], keep[i])
         if len(tracked) > 1:
             tracked.sort(key=lambda o: o.age, reverse=True)
@@ -242,3 +275,159 @@ def fetch_results(data: Dict, config: Dict) -> Dict:
         data['arena_mask_crops'] = unpackbits_host(arena_packed, int(arena_packed.shape[1]))
         data['arena_mask_origins'] = np.asarray(data['win_origins'])
     return data
+
+
+def zero_host_sentinels(chunk: np.ndarray) -> np.ndarray:
+    '''The host chunk with its dropout sentinels (dtype max) zeroed for the
+    host's readers, in place, or on a copy when the chunk is read-only.'''
+    if not chunk.flags.writeable:
+        chunk = chunk.copy()
+    np.copyto(chunk, 0, where=(chunk == np.iinfo(chunk.dtype).max))
+    return chunk
+
+
+# -- the pipeline's steps --------------------------------------------------------
+
+class ProduceFramesStep(PipelineStep):
+    '''The session's chunks of host-prepped frames (``produce_chunks``).'''
+
+    def __init__(self, session: Session, **kwargs):
+        super().__init__(**kwargs)
+        self.session = session
+
+    def initialize(self):
+        self.reset_progress(self.session.nframes)
+
+    def generate(self):
+        for item in produce_chunks(self.session, self.config):
+            self.update_progress(len(item['frame_idxs']))
+            yield item
+
+
+class InferenceStep(PipelineStep):
+    '''Device decode, scaling and detection of each chunk
+    (``run_inference``). The Predictor is ``config['predictor']`` when given,
+    else loaded from ``config['model']`` onto ``config['device']``.'''
+
+    def initialize(self):
+        if self.config.get('device_input', 'full') != 'full':
+            raise NotImplementedError("device_input='prescaled' is not ported yet (it resizes "
+                                      "on the host with cv2); use 'full'")
+        predictor = self.config.get('predictor')
+        if predictor is None:
+            from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+            predictor = Predictor.from_model_dir(
+                self.config['model'], batch_size=self.config.get('batch_size', 10),
+                score_threshold=self.config.get('instance_threshold', 0.5),
+                device=self.config.get('device', 'cuda'))
+        self.predictor = predictor
+
+    def process(self, data):
+        data.update(run_inference(torch.as_tensor(data['chunk']), self.predictor, self.config))
+        # the upload has completed (run_inference): zero the sentinels for
+        # the host's readers, as the reference does
+        data['chunk'] = zero_host_sentinels(data['chunk'])
+        self.update_progress(len(data['frame_idxs']))
+        return data
+
+
+class SelectInstancesStep(PipelineStep):
+    '''Instance selection with the instance log (``instance_log.tsv`` in
+    ``config['output_dir']``), then the window features' dispatch
+    (``select_instances``, ``dispatch_window_features``).'''
+
+    def initialize(self):
+        self.tracker = make_tracker()
+        self.instance_log = InstanceLogger(
+            os.path.join(self.config['output_dir'], 'instance_log.tsv'))
+
+    def process(self, data):
+        data = select_instances(data, self.config, self.tracker, self.instance_log)
+        data = dispatch_window_features(data, self.config)
+        self.update_progress(len(data['frame_idxs']))
+        return data
+
+    def finalize(self):
+        self.instance_log.close()
+
+
+class ProcessFeaturesStep(PipelineStep):
+    '''The host brain and the output ops' dispatch (``process_features``),
+    with the feature trackers across the session's chunks.'''
+
+    def initialize(self):
+        self.trackers = make_feature_trackers(self.config)
+        self.sub_times: Dict[str, float] = {}
+
+    def process(self, data):
+        data = process_features(data, self.config, self.trackers, timers=self.sub_times)
+        self.update_progress(len(data['frame_idxs']))
+        return data
+
+    def finalize(self):
+        logging.info('[Process Features] sub-stage busy: %s',
+                     {k: round(v, 2) for k, v in self.sub_times.items()},
+                     extra={'nostream': True})
+
+
+class FetchResultsStep(PipelineStep):
+    '''The chunk's results pulled to the host (``fetch_results``); the
+    chunk's last device tensors are dropped here.'''
+
+    def process(self, data):
+        data = fetch_results(data, self.config)
+        for key in [k for k, v in data.items() if torch.is_tensor(v)]:
+            data.pop(key)
+        self.update_progress(len(data['frame_idxs']))
+        return data
+
+
+class ResultWriterStep(PipelineStep):
+    '''Each chunk's results into ``results_NN.h5`` and the cumulative
+    ``keypoints_NN.tsv`` (NN: ``bg_roi_index``), at the rows of its frames
+    less ``first_frame_idx``, without the ``offset`` frames a previous chunk
+    wrote and the padded tail past the true frames.'''
+
+    def initialize(self):
+        config = self.config
+        out_dir = config['output_dir']
+        self.h5_path = os.path.join(out_dir, f"results_{config['bg_roi_index']:02d}.h5")
+        self.tsv_path = os.path.join(out_dir, f"keypoints_{config['bg_roi_index']:02d}.tsv")
+        self.h5 = hdf5.File(self.h5_path, 'w')
+        create_extract_h5(self.h5, config, config['status_dict'],
+                          param_annotations=config.get('param_annotations'))
+        self.keypoint_rows: List[str] = []
+        self.reset_progress(config['nframes'])
+
+    def process(self, data):
+        offset = data['offset']
+        frame_idxs = np.asarray(data['frame_idxs']) - self.config.get('first_frame_idx', 0)
+        n_true = len(frame_idxs)
+        results = {
+            'frame_idxs': frame_idxs[offset:],
+            'offset': offset,
+            'scalars': {k: v[:n_true] for k, v in data['scalars'].items()},
+            'depth_frames': data['depth_frames'][:n_true],
+            'mask_frames': data['mask_frames'][:n_true],
+            'features': {'flips': np.asarray(data['features']['flips'])[:n_true]},
+            'keypoints': {k: v[:n_true] for k, v in data['keypoints'].items()},
+        }
+        write_extracted_chunk_to_h5(self.h5, results)
+        self.h5.flush()
+
+        # the keypoints TSV, rewritten whole each chunk as the reference does;
+        # each row is formatted once
+        kp = data['keypoints']
+        keys = sorted(kp.keys())
+        if not self.keypoint_rows:
+            self.keypoint_rows.append('\t'.join(['frame'] + keys))
+        for row_i, frame in enumerate(frame_idxs[offset:], start=offset):
+            self.keypoint_rows.append('\t'.join(
+                [str(int(frame))] + [str(float(kp[k][row_i])) for k in keys]))
+        with open(self.tsv_path, 'w', encoding='utf-8') as fh:
+            fh.write('\n'.join(self.keypoint_rows) + '\n')
+        self.update_progress(len(results['frame_idxs']))
+        return data['frame_idxs']
+
+    def finalize(self):
+        self.h5.close()

@@ -2,7 +2,8 @@
 
 Port of ``moseq2_detectron_extract_tpu/proc/keypoints.py``:
 ``default_keypoint_names``, ``rotate_points_batch`` (line 71),
-``dispatch_z_lookup`` (103) and ``keypoints_to_dict`` (123). The z lookup
+``keypoint_attributes`` (87), ``dispatch_z_lookup`` (103) and
+``keypoints_to_dict`` (123). The z lookup
 gathers from the cleaned windows on their device; only the (N, K) values
 cross to the host.
 '''
@@ -39,6 +40,23 @@ def rotate_points_batch(points: np.ndarray, centers: np.ndarray, angles) -> np.n
     points[:, :, 0] = cos[:, None] * rel_x - sin[:, None] * rel_y + centers[:, None, 0]
     points[:, :, 1] = sin[:, None] * rel_x + cos[:, None] * rel_y + centers[:, None, 1]
     return points
+
+
+def keypoint_attributes(keypoint_names: Optional[List[str]] = None) -> Dict[str, str]:
+    '''The results file's keypoint datasets (``reference/`` and ``rotated/``
+    x, y and z in pixels and mm, and the score) and their descriptions.'''
+    if keypoint_names is None:
+        keypoint_names = default_keypoint_names
+    attributes = {}
+    for kpn in keypoint_names:
+        for cs in ['reference', 'rotated']:
+            attributes[f'{cs}/{kpn}_x_px'] = f'X position of {kpn} (pixels) in {cs} coordinate system.'
+            attributes[f'{cs}/{kpn}_y_px'] = f'Y position of {kpn} (pixels) in {cs} coordinate system.'
+            attributes[f'{cs}/{kpn}_x_mm'] = f'X position of {kpn} (mm) in {cs} coordinate system.'
+            attributes[f'{cs}/{kpn}_y_mm'] = f'Y position of {kpn} (mm) in {cs} coordinate system.'
+            attributes[f'{cs}/{kpn}_z_mm'] = f'Z position of {kpn} (mm) in {cs} coordinate system.'
+            attributes[f'{cs}/{kpn}_score'] = f'Inference score of {kpn}.'
+    return attributes
 
 
 def dispatch_z_lookup(keypoints: np.ndarray, frames: torch.Tensor,

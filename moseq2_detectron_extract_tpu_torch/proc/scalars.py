@@ -1,6 +1,7 @@
 '''The 17 per-frame scalars of the writers.
 
 Port of ``moseq2_detectron_extract_tpu/proc/scalars.py``:
+``scalar_attributes`` (lines 15-37, the results file's descriptions),
 ``dispatch_scalar_stats`` (the area and average height, a reduction on the
 frames' device) and ``compute_scalars`` (lines 39-112, host numpy). Fields
 are f32, except ``area_px``, ``area_mm`` and ``velocity_theta`` (f64), as
@@ -12,6 +13,29 @@ import numpy as np
 import torch
 
 from moseq2_detectron_extract_tpu_torch.proc.util import convert_pxs_to_mm
+
+
+def scalar_attributes() -> Dict[str, str]:
+    '''Scalar name -> its description in the results file.'''
+    return {
+        'centroid_x_px': 'X centroid (pixels)',
+        'centroid_y_px': 'Y centroid (pixels)',
+        'velocity_2d_px': '2D velocity (pixels / frame), note that missing frames are not accounted for',
+        'velocity_3d_px': '3D velocity (pixels / frame), note that missing frames are not accounted for, also height is in mm, not pixels for calculation',
+        'width_px': 'Mouse width (pixels)',
+        'length_px': 'Mouse length (pixels)',
+        'area_px': 'Mouse area (pixels)',
+        'centroid_x_mm': 'X centroid (mm)',
+        'centroid_y_mm': 'Y centroid (mm)',
+        'velocity_2d_mm': '2D velocity (mm / frame), note that missing frames are not accounted for',
+        'velocity_3d_mm': '3D velocity (mm / frame), note that missing frames are not accounted for',
+        'width_mm': 'Mouse width (mm)',
+        'length_mm': 'Mouse length (mm)',
+        'area_mm': 'Mouse area (mm)',
+        'height_ave_mm': 'Mouse average height (mm)',
+        'angle': 'Angle (radians, unwrapped)',
+        'velocity_theta': 'Angular component of velocity (arctan(vel_x, vel_y))',
+    }
 
 
 def dispatch_scalar_stats(frames: torch.Tensor, min_height: float = 10,

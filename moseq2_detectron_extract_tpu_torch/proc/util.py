@@ -1,11 +1,16 @@
-'''Pixel to millimetre conversion of the Kinect v2's field of view.
+'''Pixel to millimetre conversion of the Kinect v2's field of view, and a
+session's completion status.
 
-Port of ``moseq2_detectron_extract_tpu/proc/util.py:convert_pxs_to_mm``
-(lines 11-26).
+Port of ``moseq2_detectron_extract_tpu/proc/util.py``: ``convert_pxs_to_mm``
+(lines 11-26) and ``check_completion_status`` (29-37, through the port's
+YAML reader).
 '''
+import os
 from typing import Tuple
 
 import numpy as np
+
+from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
 
 
 def convert_pxs_to_mm(coords: np.ndarray, resolution: Tuple[int, int] = (512, 424),
@@ -23,3 +28,13 @@ def convert_pxs_to_mm(coords: np.ndarray, resolution: Tuple[int, int] = (512, 42
     out[..., 0] = true_depth * xhat / f_w
     out[..., 1] = true_depth * yhat / f_h
     return out
+
+
+def check_completion_status(status_filename: str) -> bool:
+    '''True when the status YAML exists and says ``complete: true``.'''
+    if os.path.exists(status_filename):
+        try:
+            return bool(read_yaml(status_filename).get('complete', False))
+        except Exception:  # noqa: BLE001 - an unreadable status is not complete
+            return False
+    return False

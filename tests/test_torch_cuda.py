@@ -5,8 +5,10 @@ imports neither JAX nor the JAX package, so it runs on the GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: ROIAlign kernel vs its plain version, 2 bf16 ulps (both
-compute in f32 and round to bf16 once; sums run in another order); the
+Tolerances: ROIAlign kernel vs its plain version, 2 bf16 ulps (both take
+bf16 weights, round T to bf16 and the output once; the f32 sums run in
+another order), and at the main path's stages nearly all equal
+(``test_cuda_roi_align_ulps``); the
 clean kernel is bit-exact; the stage-2 kernels vs their plain version, 2
 bf16 ulps (the same bf16 products summed in f32 in another order, so an
 element of T may round to the other bf16 neighbour). The output ops on
@@ -72,6 +74,40 @@ def test_cuda_roi_align_matches_plain(cuda_device, out, k, c):
     plain = separable_batched_roi_align(levels, bx, out, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     torch.testing.assert_close(ours.float(), plain.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def bf16_ulps(a, b):
+    '''Distance in bf16 steps between two bf16 tensors.'''
+    def code(x):
+        bits = x.to(torch.bfloat16).contiguous().view(torch.int16).long()
+        return torch.where(bits < 0, -(bits & 0x7fff), bits)
+    return (code(a) - code(b)).abs()
+
+
+@pytest.mark.parametrize('out,k', [(7, 16), (14, 1), (7, 1)])
+def test_cuda_roi_align_ulps(cuda_device, out, k):
+    '''The main path's three stages (B 16, C 256): the kernel rounds as the
+    plain version does (bf16 weights, bf16 T), so nearly all elements are
+    equal. The plain version sums in cuBLAS's order, so a T or an output on a
+    bf16 rounding edge may land on the other neighbour: at most 0.2% of the
+    elements differ, at most 0.1% by two ulps or more (outputs whose taps
+    nearly cancel, or whose T moved), each within 2 ulps of its magnitude
+    (read on the card: 0.0018% and 0.0005% here, 0.066% and 0.011% at
+    chip_smoke.py's mask stage).'''
+    feats, boxes = random_pyramid(16, k, 256, seed=40 + out + k)
+    levels = [torch.from_numpy(f).to(cuda_device, torch.bfloat16) for f in feats]
+    bx = torch.from_numpy(boxes).to(cuda_device)
+    ours = roi_align_kernel.roi_align_cuda(levels, bx, out)
+    plain = separable_batched_roi_align(levels, bx, out)
+    ulps = bf16_ulps(ours, plain)
+    far = ulps >= 2
+    gap = (ours.float() - plain.float()).abs()
+    print(f'out {out} K {k}: {int((ulps == 1).sum())} one ulp, {int(far.sum())} two or more '
+          f'(max {int(ulps.max())} ulps, max abs {float(gap[far].max()) if far.any() else 0.0:.2e}'
+          f'), of {ulps.numel()}')
+    assert int((ulps >= 1).sum()) <= 2e-3 * ulps.numel()
+    assert int(far.sum()) <= 1e-3 * ulps.numel()
+    assert bool((gap <= BF16_TOL * (1 + plain.float().abs())).all())
 
 
 @pytest.mark.parametrize('shape', [(64, 160, 160), (3, 77, 101), (2, 424, 512),

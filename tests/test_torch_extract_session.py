@@ -10,17 +10,15 @@ as a second witness, ``extract_chunks``'s output is bit for bit
 ``process_chunk``'s on the reference's own chunks, so that every difference
 from JAX below is ``process_chunk``'s and none the session path's.
 
-Detections whose reference score is at least ``STRONG`` are held to
-``test_torch_slice.py``'s tolerances (scores 2e-3, mask flips 1%; the two
-sides pool with another rounding, see there). Weaker ones, where the
-sigmoid is steeper and the mask fuzzier, are held to ``WEAK_SCORE_TOL`` and
-``WEAK_FLIPS``. Over six sessions (seeds 9 and 1-5, 174 detections; run
-this file as a module with the seeds to print them) the largest gaps were: scores 1.26e-3 and flips 0.53% at reference scores of
-0.9 and over; 1.56e-3 and 0.46% in [0.8, 0.9); 2.32e-3 and 1.08% in [0.7,
-0.8); 3.31e-3 and 1.63% in [0.6, 0.7); 7.03e-3 and 0.37% below 0.6. No
-detection scored 0.8 or more lay outside the slice's tolerances. The
-sessions here are seed 9 and the two seeds with the largest weak gaps (1
-for the score, 4 for the flips).
+Detections are held to ``SCORE_TOL`` and ``FLIPS`` (mask pixels that
+differ, over the mask's area). Both sides pool with bf16 weights and a bf16
+intermediate (test_torch_roi_align); over six sessions (seeds 9 and 1-5, 174
+detections; run this file as a module with the seeds to print them) the
+largest gaps were scores 3.06e-4 and no mask pixel. (When the port pooled in
+f32 and rounded once, they were 7.03e-3 and 1.63% of a weak detection's mask,
+and the tolerances went by reference score.) The sessions here are seed 9
+and the two seeds with the largest gaps then (1 for the score, 4 for the
+flips).
 
 The back end (the host brain and the output ops; 40 frames in chunks of 32,
 so the trackers cross a chunk boundary and the tail is padded, or not):
@@ -37,11 +35,22 @@ so the trackers cross a chunk boundary and the tail is padded, or not):
   and masks equal except where the port's f32 value sits within 1e-3 of a
   .5 edge (``test_torch_output_ops.py``).
 - End to end: the port on its own detections against the reference on its
-  own. At least 99% of the true frames agree in their flip and in their
-  orientation (mod 360) to the slice's moments tolerance, 0.02 rad; in those
-  frames the smoothed centroid agrees to 0.5 px. A frame that differs must be
-  one where the reference's flip vote or alignment score is within one
-  keypoint's tolerance (one heatmap bin and 0.5 px) of its threshold.
+  own. At least 99% of all true frames agree in their flip and in their
+  orientation (mod 360) to the slice's moments tolerance, 0.02 rad (all 204
+  do; 189 did while the pooling rounded otherwise), no frame's window
+  moments differ beyond that tolerance, and in the agreeing frames the
+  smoothed centroid agrees to 0.5 px. A frame that differs must be one where
+  the reference's flip vote or alignment score is within one keypoint's
+  tolerance (one heatmap bin and 0.5 px) of its threshold.
+
+The slice written: the port's ``extract_session`` (its pipeline threads, on
+the CPU) and its CLI (a model directory written from the tiny params) on the
+seed-9 session. The status says ``complete: true``; every per-frame dataset
+of the results file equals the port's own ``extract_chunks`` bit for bit;
+the metadata (ROI, background, true depth, first frame, timestamps,
+parameters, acquisition metadata) equals the file that the JAX package's
+``extract_session`` writes for the same session and config; an extracted
+session is skipped.
 '''
 import os
 
@@ -77,8 +86,8 @@ from tests.test_torch_slice import _assert_keypoints_close, _np
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data')
 NFRAMES = 40
 SEEDS = (9, 1, 4)
-STRONG = 0.8                          # reference scores held to the slice's tolerances
-WEAK_SCORE_TOL, WEAK_FLIPS = 1e-2, 0.02
+STRONG = 0.8                          # the readings' bands (run as a module)
+SCORE_TOL, FLIPS = 1e-3, 0.005
 CONFIG = {'chunk_size': 32, 'min_height': 0, 'max_height': 100, 'feature_window': 96,
           'expected_instances': 1}
 
@@ -218,16 +227,14 @@ def test_detections_and_windows(both):
         for key in ('valid', 'keep'):
             np.testing.assert_array_equal(_np(ia[key]), _np(ib[key]))
         ref_scores = _np(ib['scores'])
-        strong = ref_scores >= STRONG
-        score_tol = np.where(strong, 2e-3, WEAK_SCORE_TOL)
         gaps = np.abs(_np(ia['scores']) - ref_scores)
-        assert (gaps <= score_tol).all(), (ref_scores[gaps > score_tol], gaps[gaps > score_tol])
+        assert (gaps <= SCORE_TOL).all(), (ref_scores[gaps > SCORE_TOL], gaps[gaps > SCORE_TOL])
         np.testing.assert_allclose(_np(ia['boxes']), _np(ib['boxes']), atol=0.5)
         boxes = _np(ib['boxes'])[:, 0]
         _assert_keypoints_close(_np(ia['keypoints'])[:, 0, :, :2],
                                 _np(ib['keypoints'])[:, 0, :, :2], boxes)
         flips = (_np(ia['masks']) != _np(ib['masks'])).sum(axis=(2, 3))
-        allowed = np.where(strong, 0.01, WEAK_FLIPS) * _np(ib['masks']).sum(axis=(2, 3))
+        allowed = FLIPS * _np(ib['masks']).sum(axis=(2, 3))
         assert (flips <= allowed).all(), (ref_scores[flips > allowed], flips[flips > allowed])
         for key in ('num_instances', 'win_origins'):
             np.testing.assert_array_equal(a[key], b[key])
@@ -402,9 +409,10 @@ def end_to_end_agreement(run, heatmap_size=28):
 
 
 def _assert_agreement(run):
-    '''Reports the agreement over all true frames; holds the frames whose
-    inputs agree (their own moments within the slice's tolerance, their
-    angle their own) to 99%, and their flips everywhere to 99%.'''
+    '''Reports the agreement over all true frames, and holds it to 99%; no
+    frame's own moments may differ beyond the slice's tolerance; the frames
+    whose inputs agree (their angle their own) and the flips everywhere are
+    held to 99% too.'''
     c = end_to_end_agreement(run)
     print(f"end to end: {c['agree']} of {c['frames']} true frames agree in flip and "
           f"orientation, {c['flips_agree']} in flip; of the {c['frames'] - c['agree']} that "
@@ -413,6 +421,8 @@ def _assert_agreement(run):
           f"{c['held_agree']} of {c['held']} frames with agreeing inputs agree")
     assert c['held_agree'] >= 0.99 * c['held']
     assert c['flips_agree'] >= 0.99 * c['frames']
+    assert c['agree'] >= 0.99 * c['frames']
+    assert c['moments'] == 0
 
 
 def test_back_end_end_to_end_agrees(both):
@@ -421,6 +431,282 @@ def test_back_end_end_to_end_agrees(both):
 
 def test_back_end_end_to_end_agrees_unpadded(unpadded):
     _assert_agreement(unpadded)
+
+
+# -- the slice written: extract_session and the CLI ------------------------------
+
+EXTRACT_CONFIG = {
+    'checkpoint': 'last', 'batch_size': 8, 'instance_threshold': 0.5, 'expected_instances': 1,
+    'allowed_detections': 4, 'bg_roi_dilate': (10, 10), 'bg_roi_shape': 'ellipse',
+    'bg_roi_index': 0, 'bg_roi_weights': (1, .1, 1), 'bg_roi_depth_range': (650, 750),
+    'bg_roi_gradient_filter': False, 'bg_roi_gradient_threshold': 3000,
+    'bg_roi_gradient_kernel': 7, 'bg_roi_fill_holes': True, 'use_plane_bground': False,
+    'frame_dtype': 'uint8', 'min_height': 0, 'max_height': 100, 'crop_size': (80, 80),
+    'frame_trim': (0, 0), 'chunk_size': 32, 'chunk_overlap': 4, 'fps': 30,
+    'use_tracking': True, 'debug_feature_processing': False, 'feature_window': 96,
+    'use_tracking_model': False, 'flip_classifier': 'tiny', 'dataset_name': 'moseq',
+    'show_progress': False, 'device': 'cpu', 'model': None,
+    'param_annotations': {'chunk_size': 'Number of frames for each processing iteration',
+                          'model': 'Path to the model for inference.', 'config_file': None}}
+
+
+def _extract_config(out_dir, predictor):
+    return dict(EXTRACT_CONFIG, output_dir=out_dir, predictor=predictor,
+                param_annotations=dict(EXTRACT_CONFIG['param_annotations']))
+
+
+@pytest.fixture(scope='module')
+def extracted(predictors, session_paths, tmp_path_factory):
+    '''The seed-9 session through the port's and the JAX package's
+    ``extract_session`` (the background injected, as the JAX integration
+    tests do), and through the port's ``extract_chunks`` with the same
+    config.'''
+    from moseq2_detectron_extract_tpu.extract import extract_session as jax_extract_session
+    from moseq2_detectron_extract_tpu_torch.extract import extract_session
+    path = session_paths[9]
+    ours_dir = str(tmp_path_factory.mktemp('extract_ours'))
+    jax_dir = str(tmp_path_factory.mktemp('extract_jax'))
+    session = Session(path)
+    session._bground_im = make_background()
+    status = extract_session(session, _extract_config(ours_dir, predictors[0]))
+    ref_session = JaxSession(path)
+    ref_session._bground_im = make_background()
+    ref_status = jax_extract_session(ref_session, _extract_config(jax_dir, predictors[1]))
+    serial = Session(path)
+    serial._bground_im = make_background()
+    prepared = prepare_session(serial, _extract_config(None, None), device='cpu')
+    chunks = list(extract_chunks(serial, predictors[0], prepared))
+    return status, ref_status, chunks
+
+
+def _read_status(path):
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+    status = read_yaml(path)
+    assert status['complete'] is True, status
+    return status
+
+
+def assert_file_equals_chunks(h5_path, chunks):
+    '''Every per-frame dataset equals the serial run's values, bit for bit,
+    at the rows of the chunks' true frames past their offsets.'''
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    with hdf5.File(h5_path, 'r') as r:
+        written = np.zeros(r['frames'].shape[0], bool)
+        for c in chunks:
+            n, off = c['nframes'], c['offset']
+            rows = c['frame_idxs'][off:]
+            sl = slice(int(rows[0]), int(rows[-1]) + 1)
+            assert (np.diff(rows) == 1).all()
+            written[sl] = True
+            for key, values in c['scalars'].items():
+                np.testing.assert_array_equal(r[f'scalars/{key}'][sl],
+                                              values[off:n].astype('float32'), err_msg=key)
+            for key, values in c['keypoints'].items():
+                np.testing.assert_array_equal(r[f'keypoints/{key}'][sl],
+                                              values[off:n].astype('float32'), err_msg=key)
+            np.testing.assert_array_equal(r['frames'][sl], c['depth_frames'][off:n])
+            np.testing.assert_array_equal(r['frames_mask'][sl],
+                                          c['mask_frames'][off:n].astype(bool))
+            np.testing.assert_array_equal(r['metadata/extraction/flips'][sl],
+                                          c['features']['flips'][off:n])
+        assert written.all()
+
+
+def test_extract_session_writes_what_extract_chunks_computes(extracted):
+    status_path, _, chunks = extracted
+    status = _read_status(status_path)
+    out_dir = os.path.dirname(status_path)
+    assert_file_equals_chunks(os.path.join(out_dir, 'results_00.h5'), chunks)
+    stats = status['stage_stats']
+    assert sorted(stats) == ['Fetch Results', 'Instance Select', 'Model Inference',
+                             'Process Features', 'Read Depth Data', 'Write Reults']
+    assert all(stage['chunks'] == 2 and stage['busy_s'] >= 0 and stage['cpu_s'] >= 0
+               for stage in stats.values())
+    with open(os.path.join(out_dir, 'keypoints_00.tsv'), encoding='utf-8') as fh:
+        rows = fh.read().splitlines()
+    assert len(rows) == NFRAMES + 1 and [int(r.split('\t')[0]) for r in rows[1:]] == \
+        list(range(NFRAMES))
+    with open(os.path.join(out_dir, 'instance_log.tsv'), encoding='utf-8') as fh:
+        frames = [line.split('\t') for line in fh.read().splitlines()[1:]]
+    assert sorted({int(f[0]) for f in frames}) == list(range(NFRAMES))
+    kept = {int(f[0]): int(f[1]) for f in frames}
+    for c in chunks:
+        n = c['nframes']
+        keep = _np(c['inference']['keep'])[:n].sum(axis=1)
+        assert [kept[int(i)] for i in c['frame_idxs']] == keep.tolist()
+    for name in ('results_00.log', 'roi_00.tiff', 'bground.tiff'):
+        assert os.path.exists(os.path.join(out_dir, name)), name
+
+
+def _h5_tree(path):
+    import h5py
+    out = {}
+    with h5py.File(path, 'r') as f:
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name] = (obj[()], obj.dtype, dict(obj.attrs))
+        f.visititems(visit)
+    return out
+
+
+def test_extract_session_metadata_equals_jax(extracted):
+    status_path, ref_status_path, _ = extracted
+    ours = _h5_tree(os.path.join(os.path.dirname(status_path), 'results_00.h5'))
+    ref = _h5_tree(os.path.join(os.path.dirname(ref_status_path), 'results_00.h5'))
+    assert sorted(ours) == sorted(ref)
+    # every parameter but the output directory, which differs by design
+    keys = [k for k in ref if k.startswith(('metadata/extraction/parameters',
+                                            'metadata/acquisition'))
+            and k != 'metadata/extraction/parameters/output_dir']
+    keys += ['metadata/extraction/roi', 'metadata/extraction/background',
+             'metadata/extraction/true_depth', 'metadata/extraction/first_frame', 'timestamps']
+    assert len(keys) > 30
+    for key in keys:
+        (va, ta, aa), (vb, tb, ab) = ours[key], ref[key]
+        assert ta == tb and aa == ab, key
+        if isinstance(vb, np.ndarray) or not hasattr(vb, 'dtype'):
+            assert np.array_equal(va, vb), key
+        else:
+            assert type(va) is type(vb) and va == vb, key
+
+
+def test_status_files_agree_with_jax(extracted):
+    '''The port reads the JAX package's status file as PyYAML does, and the
+    two status files hold the same parameters and metadata.'''
+    import yaml
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+    status_path, ref_status_path, _ = extracted
+    with open(ref_status_path, encoding='utf-8') as fh:
+        ref = yaml.safe_load(fh)
+    assert read_yaml(ref_status_path) == ref
+    ours = _read_status(status_path)
+    assert ours['parameters'].pop('output_dir') != ref['parameters'].pop('output_dir')
+    assert ours['parameters'] == ref['parameters'] and ours['metadata'] == ref['metadata']
+    assert set(ours['stage_stats']) <= set(ref['stage_stats'])
+
+
+def test_extract_session_skips_a_complete_session(extracted, predictors, session_paths):
+    from moseq2_detectron_extract_tpu_torch.extract import extract_session
+    status_path, _, _ = extracted
+    out_dir = os.path.dirname(status_path)
+    h5_path = os.path.join(out_dir, 'results_00.h5')
+    mtime = os.path.getmtime(h5_path)
+    again = extract_session(Session(session_paths[9]), _extract_config(out_dir, predictors[0]))
+    assert again == status_path and os.path.getmtime(h5_path) == mtime
+    with open(os.path.join(out_dir, 'results_00.log'), encoding='utf-8') as fh:
+        assert 'already be extracted' in fh.read()
+
+
+def test_extract_session_records_a_failure_as_incomplete(session_paths, tmp_path):
+    '''A step that fails leaves ``complete: false`` and its traceback in the
+    log; the call itself returns the status path.'''
+    from moseq2_detectron_extract_tpu_torch.extract import extract_session
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+
+    class Broken:
+        device = torch.device('cpu')
+
+        def __call__(self, frames):
+            raise RuntimeError('the model is broken')
+
+    session = Session(session_paths[9])
+    session._bground_im = make_background()
+    status = extract_session(session, _extract_config(str(tmp_path), Broken()))
+    assert read_yaml(status)['complete'] is False
+    with open(os.path.join(str(tmp_path), 'results_00.log'), encoding='utf-8') as fh:
+        assert 'the model is broken' in fh.read()
+
+
+def test_cli_extract_on_a_model_directory(predictors, session_paths, tmp_path):
+    '''``cli.main(['extract', ...])`` on the CPU with a model directory
+    (``config.yaml`` and ``params_f16.npz`` of the tiny model); the file's
+    per-frame datasets equal ``extract_chunks`` with the CLI's defaults.'''
+    import shutil
+    from moseq2_detectron_extract_tpu_torch import cli
+    cfg = JaxModelConfig.from_yaml(os.path.join(DATA, 'tiny_overfit_config.yaml')) \
+        .replace(amp_dtype='float32')
+    model_dir = tmp_path / 'model'
+    model_dir.mkdir()
+    cfg.to_yaml(str(model_dir / 'config.yaml'))
+    shutil.copy(os.path.join(DATA, 'tiny_overfit_params.npz'), str(model_dir / 'params_f16.npz'))
+    out_dir = str(tmp_path / 'out')
+    assert cli.main(['extract', session_paths[9], '--model', str(model_dir), '--device', 'cpu',
+                     '--chunk-size', '32', '--output-dir', out_dir]) == 0
+    status = _read_status(os.path.join(out_dir, 'results_00.yaml'))
+    params = status['parameters']
+    assert params['device'] == 'cpu' and params['batch_size'] == 10
+    assert params['allowed_detections'] == 4 and params['flip_classifier'] == str(model_dir)
+    assert params['param_annotations']['chunk_size'] == \
+        'Number of frames for each processing iteration'
+    predictor = Predictor.from_model_dir(str(model_dir), batch_size=10, score_threshold=0.5,
+                                         device='cpu')
+    session = Session(session_paths[9])
+    prepared = prepare_session(session, {'chunk_size': 32}, device='cpu')
+    assert_file_equals_chunks(os.path.join(out_dir, 'results_00.h5'),
+                              list(extract_chunks(session, predictor, prepared)))
+
+
+def test_cli_config_file_precedence(tmp_path):
+    '''The command line's own values, then the config file's, then the
+    defaults; tuples stay tuples.'''
+    import yaml
+    from moseq2_detectron_extract_tpu_torch.cli import extract_parser
+    from moseq2_detectron_extract_tpu_torch.io.options import apply_config_file
+    path = str(tmp_path / 'config.yaml')
+    with open(path, 'w', encoding='utf-8') as fh:
+        yaml.safe_dump({'chunk_size': 200, 'batch-size': 4, 'crop_size': [64, 64],
+                        'fps': 60, 'use_tracking': False}, fh)
+    dat = str(tmp_path / 'depth.dat')
+    open(dat, 'wb').close()
+    argv = [dat, '--config-file', path, '--fps', '90']
+    parser = extract_parser()
+    args = parser.parse_args(argv)
+    apply_config_file(parser, args, argv)
+    assert (args.chunk_size, args.batch_size, args.crop_size) == (200, 4, (64, 64))
+    assert args.fps == 90 and args.use_tracking is False and args.max_height == 100
+    with pytest.raises(SystemExit):
+        parser.parse_args([dat, '--instance-threshold', '1.5'])
+
+
+@pytest.mark.parametrize('flag', [['--report-outliers'], ['--device-input', 'prescaled']])
+def test_cli_options_not_ported_raise(flag, session_paths, tmp_path):
+    from moseq2_detectron_extract_tpu_torch import cli
+    with pytest.raises(NotImplementedError, match='not ported yet'):
+        cli.main(['extract', session_paths[9], '--device', 'cpu',
+                  '--output-dir', str(tmp_path)] + flag)
+    assert not os.path.exists(os.path.join(str(tmp_path), 'results_00.yaml'))
+
+
+def test_inference_step_refuses_prescaled_input():
+    from moseq2_detectron_extract_tpu_torch.pipeline.steps import InferenceStep
+    step = InferenceStep(step_name='inference', config={'device_input': 'prescaled'})
+    with pytest.raises(NotImplementedError, match='prescaled'):
+        step.initialize()
+
+
+def test_zero_host_sentinels_copies_a_read_only_chunk():
+    from moseq2_detectron_extract_tpu_torch.pipeline.steps import zero_host_sentinels
+    chunk = np.array([[[1, 255], [255, 7]]], np.uint8)
+    chunk.flags.writeable = False
+    zeroed = zero_host_sentinels(chunk)
+    assert zeroed is not chunk and zeroed.tolist() == [[[1, 0], [0, 7]]]
+    assert chunk.tolist() == [[[1, 255], [255, 7]]]
+    writable = chunk.copy()
+    assert zero_host_sentinels(writable) is writable and writable.tolist() == zeroed.tolist()
+
+
+def test_extract_session_defaults_to_cuda(session_paths, predictors, tmp_path):
+    '''Without ``device`` in the config, ``extract_session`` runs on CUDA:
+    here, without a card, the run fails and the status says so.'''
+    from moseq2_detectron_extract_tpu_torch.extract import extract_session
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device works')
+    config = _extract_config(str(tmp_path), predictors[0])
+    del config['device']
+    status = extract_session(Session(session_paths[9]), config)
+    assert read_yaml(status)['complete'] is False
+    assert read_yaml(status)['parameters']['device'] == 'cuda'
 
 
 def test_prepare_session_defaults_to_cuda(session_paths):

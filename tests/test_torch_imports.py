@@ -2,8 +2,9 @@
 package, and runs ``process_chunk``, the session path (a raw session
 written, ``prepare_session``, one prepped chunk, then ``extract_chunks``
 through the host brain and the output ops, with the mouse away for a few
-frames), the C++ Kalman core and the stage-2 experiment's check on the CPU
-with all of them blocked.'''
+frames), the ``extract`` command on a model directory (its pipeline threads,
+results file and status YAML, read back), the C++ Kalman core and the
+stage-2 experiment's check on the CPU with all of them blocked.'''
 import ast
 import os
 import subprocess
@@ -31,6 +32,7 @@ for name in list(sys.modules):
     if name.split('.')[0] in BLOCKED:
         del sys.modules[name]
 
+REPO = %r
 import moseq2_detectron_extract_tpu_torch as pkg
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):
     importlib.import_module(info.name)
@@ -73,6 +75,27 @@ with tempfile.TemporaryDirectory() as tmp:
     outs = list(extract_chunks(session, pred, config))
     assert [o['depth_frames'].shape for o in outs] == [(8, 80, 80)] * 2
     assert len(outs[0]['scalars']) == 17 and outs[1]['mask_frames'].dtype.name == 'uint8'
+    # the extract command on a model directory of the tiny model: the
+    # pipeline's threads, the HDF5 and YAML writers, read back by the port
+    import os, shutil
+    from moseq2_detectron_extract_tpu_torch import cli
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+    data = os.path.join(REPO, 'tests', 'data')
+    mdir = os.path.join(tmp, 'model')
+    os.makedirs(mdir)
+    with open(os.path.join(data, 'tiny_overfit_config.yaml'), encoding='utf-8') as fh:
+        text = fh.read().replace('amp_dtype: bfloat16', 'amp_dtype: float32')
+    with open(os.path.join(mdir, 'config.yaml'), 'w', encoding='utf-8') as fh:
+        fh.write(text)
+    shutil.copy(os.path.join(data, 'tiny_overfit_params.npz'), os.path.join(mdir, 'params_f16.npz'))
+    out = os.path.join(tmp, 'out')
+    assert cli.main(['extract', os.path.join(tmp, 'depth.dat'), '--model', mdir,
+                     '--device', 'cpu', '--chunk-size', '8', '--output-dir', out]) == 0
+    assert read_yaml(os.path.join(out, 'results_00.yaml'))['complete'] is True
+    with hdf5.File(os.path.join(out, 'results_00.h5'), 'r') as r:
+        assert r['frames'].shape == (12, 80, 80) and len(r['keypoints/reference'].keys()) == 48
+        assert r['scalars/area_px'][0:12].shape == (12,)
 import numpy as np
 from moseq2_detectron_extract_tpu_torch.proc import kalman
 params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),
@@ -91,7 +114,7 @@ print('OK')
 
 def test_port_imports_and_runs_with_blocked_modules():
     env = dict(os.environ, PYTHONPATH=REPO)
-    result = subprocess.run([sys.executable, '-c', _SCRIPT % (BLOCKED,)],
+    result = subprocess.run([sys.executable, '-c', _SCRIPT % (BLOCKED, REPO)],
                             capture_output=True, text=True, env=env, cwd=REPO,
                             timeout=300, check=False)
     assert result.returncode == 0, result.stderr[-3000:]

@@ -20,7 +20,6 @@ from moseq2_detectron_extract_tpu.models.rcnn import MaskKeypointRCNN as JaxRCNN
 from moseq2_detectron_extract_tpu.models.rpn import select_proposals as jax_select
 from moseq2_detectron_extract_tpu.ops import boxes as jboxes
 from moseq2_detectron_extract_tpu.ops.nms import batched_nms_keep_mask as jax_bnms
-from moseq2_detectron_extract_tpu.ops.roi_align import separable_batched_roi_align as jax_sep
 from moseq2_detectron_extract_tpu_torch.models import heads as theads
 from moseq2_detectron_extract_tpu_torch.models.anchors import generate_anchors
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
@@ -217,21 +216,12 @@ def test_paste_masks():
     np.testing.assert_array_equal(ours.numpy(), ref)
 
 
-def test_inference_matches_jax_model(tiny, monkeypatch):
-    '''The whole forward. The JAX reference pools with its separable
-    formulation at HIGHEST precision from bf16 features, rounded to bf16:
-    the port's function (its plain ROIAlign computes in f32 and rounds once).
-    The JAX package's own bf16-weight pooling differs from that by bf16
-    rounding of the interpolation weights, which test_torch_roi_align holds
-    at bf16 tolerance.'''
+def test_inference_matches_jax_model(tiny):
+    '''The whole forward, each side pooling its own way: the JAX package's
+    inference pooling (bf16 weights and T, off the TPU its separable form)
+    and the port's plain ROIAlign, which rounds as it does
+    (test_torch_roi_align).'''
     cfg, jmodel, params, model, _ = tiny
-
-    def f32_pool(self, fpn_feats, boxes, resolution, train=False):
-        p2_p5 = tuple(f.astype(jnp.bfloat16).astype(jnp.float32) for f in fpn_feats[:4])
-        return jax_sep(p2_p5, boxes, resolution,
-                       precision=jax.lax.Precision.HIGHEST).astype(jnp.bfloat16)
-
-    monkeypatch.setattr(JaxRCNN, '_pool', f32_pool)
     images = _images(np.random.default_rng(8), 2, cfg.image_size)
     sizes = np.array([[64.0, 64.0], [56.0, 64.0]], 'float32')
     ref = jax.jit(lambda p, x, s: jmodel.apply(p, x, s, method=JaxRCNN.inference))(

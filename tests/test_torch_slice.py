@@ -4,10 +4,11 @@
 committed tiny trained model, on the CPU.
 
 Both sides compute the model in f32 (``amp_dtype`` replaced), so the
-comparison is about the port's algorithm; pooling is bf16 on both sides.
-What differs by design: the JAX package pools with bf16 interpolation
-weights and a bf16 intermediate, the port in f32 rounded once (see
-test_torch_roi_align), so head outputs differ at the bf16 level: scores
+comparison is about the port's algorithm; pooling is bf16 on both sides,
+with bf16 interpolation weights and a bf16 intermediate (see
+test_torch_roi_align). The f32 sums run in another order, and a pooled
+value on a bf16 rounding edge may round the other way, so head outputs are
+held at the bf16 level: scores
 2e-3, boxes 0.5 px at frame scale (2.5 x 0.2 px on the 64-px canvas), mask
 probabilities 0.05; thresholded masks may flip at a few boundary pixels (at
 most 1% of each mask); a keypoint sits within 0.5 px, or one heatmap bin
