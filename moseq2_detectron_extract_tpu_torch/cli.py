@@ -81,6 +81,13 @@ def extract_parser() -> argparse.ArgumentParser:
     p.add_argument('--config-file', default=None)
     p.add_argument('--device', default='cuda',
                    help='Device that runs the model and the device path (cuda, or cpu)')
+    # click passes a default through the option's type, as a given value:
+    # (650, 750) of a float pair is (650.0, 750.0)
+    for action in p._actions:
+        if action.type is not None and action.default is not None \
+                and not isinstance(action.default, str):
+            action.default = tuple(map(action.type, action.default)) \
+                if isinstance(action.default, tuple) else action.type(action.default)
     return p
 
 

@@ -629,7 +629,8 @@ def test_extract_session_records_a_failure_as_incomplete(session_paths, tmp_path
 def test_cli_extract_on_a_model_directory(predictors, session_paths, tmp_path):
     '''``cli.main(['extract', ...])`` on the CPU with a model directory
     (``config.yaml`` and ``params_f16.npz`` of the tiny model); the file's
-    per-frame datasets equal ``extract_chunks`` with the CLI's defaults.'''
+    per-frame datasets equal ``extract_chunks`` with the CLI's defaults, and
+    its metadata equals the JAX package's ``extract`` command's file.'''
     import shutil
     from moseq2_detectron_extract_tpu_torch import cli
     cfg = JaxModelConfig.from_yaml(os.path.join(DATA, 'tiny_overfit_config.yaml')) \
@@ -653,6 +654,29 @@ def test_cli_extract_on_a_model_directory(predictors, session_paths, tmp_path):
     prepared = prepare_session(session, {'chunk_size': 32}, device='cpu')
     assert_file_equals_chunks(os.path.join(out_dir, 'results_00.h5'),
                               list(extract_chunks(session, predictor, prepared)))
+
+    # the JAX package's extract command on the same session and model dir:
+    # the same metadata; the same parameters but the output directory, and
+    # the port's --device
+    from click.testing import CliRunner
+    from moseq2_detectron_extract_tpu.cli import cli as jax_cli
+    jax_out = str(tmp_path / 'jax_out')
+    result = CliRunner().invoke(jax_cli, ['extract', session_paths[9], '--model', str(model_dir),
+                                          '--chunk-size', '32', '--output-dir', jax_out])
+    assert result.exit_code == 0, result.output
+    ours = _h5_tree(os.path.join(out_dir, 'results_00.h5'))
+    ref = _h5_tree(os.path.join(jax_out, 'results_00.h5'))
+    params = 'metadata/extraction/parameters/'
+    assert sorted(set(ours) - set(ref)) == [params + 'device',
+                                            params + 'param_annotations/device']
+    assert set(ref) <= set(ours)
+    keys = [k for k in ref if k.startswith((params, 'metadata/acquisition'))
+            and k != params + 'output_dir']
+    keys += ['metadata/extraction/roi', 'metadata/extraction/background',
+             'metadata/extraction/true_depth', 'metadata/extraction/first_frame', 'timestamps']
+    for key in keys:
+        (va, ta, aa), (vb, tb, ab) = ours[key], ref[key]
+        assert ta == tb and aa == ab and np.array_equal(va, vb), key
 
 
 def test_cli_config_file_precedence(tmp_path):
