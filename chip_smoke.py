@@ -1251,7 +1251,7 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
             logged = {line.split('\t')[0] for line in list(fh)[1:]}
         phase(f'4c (a): metadata equal to prepare_session\'s {same}; {version}; keypoints TSV '
               f'{tsv_rows} rows, instance log {len(logged)} frames, status complete '
-              f'{status["complete"]}')
+              f'{status["complete"]} [{card}]')
         if not all(same.values()) or tsv_rows != SESSION_FRAMES or len(logged) != SESSION_FRAMES:
             raise AssertionError('4c (a): metadata, TSV or instance log wrong')
 
@@ -1259,7 +1259,8 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
         long_path = write_raw_session(os.path.join(tmp, 'long'), LONG_SESSION_FRAMES, 424, 512,
                                       seed=seed + 1)
         phase(f'4c (b): wrote {LONG_SESSION_FRAMES} frames of 424x512 '
-              f'({os.path.getsize(long_path) / 1e9:.2f} GB) in {time.perf_counter() - t:.1f} s')
+              f'({os.path.getsize(long_path) / 1e9:.2f} GB) in {time.perf_counter() - t:.1f} s '
+              f'[{card}]')
         out_b = os.path.join(tmp, 'b')
         status, launches_b, wall, peak = _run_cli(long_path, model_dir, out_b, card, '4c (b)')
         expect = _expected_launches(LONG_SESSION_FRAMES, defaults.chunk_size, cli_batch)
