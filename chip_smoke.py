@@ -110,14 +110,37 @@ Phases, each printed with its elapsed seconds as it starts:
    ``busy_s``, ``cpu_s`` and chunks from the status file's ``stage_stats``,
    the peak device memory, the file's size against its uncompressed bytes,
    and the serial ``extract_chunks`` frames/s on the same session;
+4d. training (no kernel of its own: the training path reaches no
+   ``pallas_call`` in the JAX package): (a) a Label Studio export of 48
+   synthetic 150x150 ``_depth.png`` views (``synthetic.write_annotated_views``,
+   written with the port's PNG writer) and ``cli.main(['train', ...])`` on
+   the fast160 config (R50-FPN, full width, bf16, batch 8) with only
+   ``warmup_iters``, ``eval_period`` and ``checkpoint_period`` shortened
+   (each change printed), 60 steps from random weights: every logged loss
+   finite, the mean ``total_loss`` of the last 10 steps below the first
+   10's, the checkpoints and ``last_checkpoint`` written; then ``--resume
+   --max-iter 70``, which must continue at step 61; iterations/s and
+   images/s (median after step 5), peak device memory, the first and last
+   loss terms; (b) 5 synchronised steps split into augment, forward and
+   losses (inside it the gather ROIAlign's 3 calls and the train proposal
+   NMS, each timed apart with a synchronize around it), backward and the
+   optimizer, the NMS host syncs per step, then one step under
+   ``torch.profiler`` (CUDA activity only): the device's busy share, the
+   launches and the top kernels; (c) the tiny model of the CPU tests (f32,
+   TF32 off) on one fixed batch and one fixed set of draws, card against
+   CPU: every loss term and every gradient to 1e-3, and one augmented batch;
+   (d) the trained weights written as ``params_f16.npz`` by
+   ``save_params_npz`` and loaded by ``Predictor.from_model_dir``, run on 16
+   views (the ROIAlign kernel's launches counted: 3 per batch of 8);
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
    experiment run; ROIAlign's and the clean's ``launches`` those of phase
    4's chunk, ``session_launches`` those of phase 4b and
-   ``extract_launches`` those of phase 4c (a); ROIAlign's ``max_ulps`` and
-   ``one_ulp`` its distance from the plain version in bf16 steps), then the
-   result line.
+   ``extract_launches`` those of phase 4c (a), ``train_export_launches``
+   those of phase 4d (d); ROIAlign's ``max_ulps`` and
+   ``one_ulp`` its distance from the plain version in bf16 steps), the
+   whole smoke's wall time, then the result line.
 
 It exits non-zero, without a result line, when CUDA is unavailable, when
 the port's package is not beside it, or when any phase fails.
@@ -1302,6 +1325,339 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+TRAIN_VIEWS = 48                   # phase 4d: synthetic annotated views
+TRAIN_VIEW_SIZE = 150              # fast160's train canvas scale (min_size_train 150)
+TRAIN_STEPS = 60
+RESUME_STEPS = 70
+TRAIN_CHANGES = {'warmup_iters': 10, 'eval_period': 30, 'checkpoint_period': 30}
+SPLIT_STEPS = 5
+EXPORT_VIEWS = 16
+
+
+def _train_rows(model_dir: str):
+    with open(os.path.join(model_dir, 'metrics.jsonl'), encoding='utf-8') as fh:
+        rows = [json.loads(line) for line in fh]
+    return ([r for r in rows if 'total_loss' in r],
+            [r for r in rows if 'validation_loss' in r])
+
+
+def _tiny_train_config():
+    '''The tiny model of the CPU parity tests (one block per stage, width
+    16, FPN 64, f32) with their train-time proposal budget.'''
+    from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
+    return ModelConfig(image_size=64, min_size_test=64, max_size_test=64,
+                       resnet_stage_blocks=(1, 1, 1, 1), resnet_width=16, fpn_channels=64,
+                       box_fc_dim=128, mask_conv_dims=(64, 64), keypoint_conv_dims=(64, 64),
+                       rpn_pre_nms_topk_test=64, rpn_post_nms_topk_test=32,
+                       rpn_nms_global_cap=96, test_detections_per_image=2,
+                       amp_dtype='float32', rpn_pre_nms_topk_train=200,
+                       rpn_post_nms_topk_train=64, roi_batch_size_per_image=32,
+                       max_gt_instances=2)
+
+
+def _tiny_batch(cfg, b: int = 2, seed: int = 0):
+    '''Normalized images (B, 3, S, S) and rectangle gts, from numpy.'''
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    s, g, k = cfg.image_size, cfg.max_gt_instances, cfg.num_keypoints
+    images = rng.normal(0, 1, (b, 3, s, s)).astype('float32')
+    masks = np.zeros((b, g, s, s), bool)
+    boxes = np.zeros((b, g, 4), 'float32')
+    kpts = np.zeros((b, g, k, 3), 'float32')
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        for j in range(g if i == 0 else 1):
+            x1, y1 = rng.integers(2, s // 2, 2)
+            x2, y2 = x1 + rng.integers(12, s // 2), y1 + rng.integers(8, s // 3)
+            masks[i, j, y1:y2, x1:x2] = True
+            boxes[i, j] = (x1, y1, x2, y2)
+            kpts[i, j, :, 0] = np.linspace(x1 + 1, x2 - 1, k)
+            kpts[i, j, :, 1] = (y1 + y2) / 2
+            kpts[i, j, :, 2] = 2.0
+            valid[i, j] = True
+    gt = {'boxes': boxes, 'valid': valid, 'masks': masks, 'keypoints': kpts}
+    return torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in gt.items()}
+
+
+def train_card_vs_cpu(card: str, seed: int) -> None:
+    '''(c) One fixed batch and one fixed set of draws through the tiny
+    model's losses and backward on the card and on the CPU (f32, TF32 off),
+    and one augmented batch on both.'''
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch.models.augment import augment_batch, draw_augment
+    from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN, draw_loss_uniforms
+    from moseq2_detectron_extract_tpu_torch.models.train import create_train_state
+    cfg = _tiny_train_config()
+    cpu_state = create_train_state(cfg, seed=seed, device='cpu')
+    card_model = MaskKeypointRCNN(cfg)
+    card_model.load_state_dict(cpu_state.model.state_dict())
+    card_model.cuda()
+    images, gt = _tiny_batch(cfg, seed=seed)
+    draws = draw_loss_uniforms(torch.Generator().manual_seed(seed), cfg, 2, 'cpu')
+    out = {}
+    for name, model, dev in (('cpu', cpu_state.model, 'cpu'), ('cuda', card_model, 'cuda')):
+        mv = {k: v.to(dev) for k, v in gt.items()}
+        dv = {k: tuple(u.to(dev) for u in pair) for k, pair in draws.items()}
+        losses = model.losses(images.to(dev), mv, dv)
+        losses['total_loss'].backward()
+        out[name] = ({k: v.item() for k, v in losses.items()},
+                     {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    (cpu_l, cpu_g), (gpu_l, gpu_g) = out['cpu'], out['cuda']
+    loss_err = max(abs(gpu_l[k] - cpu_l[k]) / max(abs(cpu_l[k]), 1e-12) for k in cpu_l)
+    # the heatmap deconv's bias has an exact gradient of 0 (softmax shift):
+    # both hold rounding noise there
+    grad_err = max(float((gpu_g[n] - cpu_g[n]).abs().max() / cpu_g[n].abs().max().clamp_min(1e-30))
+                   for n in cpu_g if n != 'keypoint_head.score_lowres.bias')
+    phase(f'4d (c) tiny model card vs CPU (f32, TF32 off): loss terms max rel err '
+          f'{loss_err:.2e}, gradients max (abs err / max abs) {grad_err:.2e} (tolerance 1e-3 '
+          f'each: index_add_ on the card scatters with atomics, in no fixed order) [{card}]')
+    if loss_err > 1e-3 or grad_err > 1e-3:
+        raise AssertionError(f'card vs CPU: losses {loss_err:.3e}, gradients {grad_err:.3e}')
+    s = 150
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.uniform(0, 60, (4, s, s)).astype('float32'))
+    masks = torch.zeros((4, 1, s, s), dtype=torch.bool)
+    masks[:, 0, 50:90, 40:110] = True
+    kpts = torch.zeros((4, 1, 8, 3))
+    kpts[:, 0, :, 0] = torch.linspace(45, 105, 8)
+    kpts[:, 0, :, 1] = 70.0
+    kpts[:, 0, :, 2] = 2.0
+    valid = torch.ones((4, 1), dtype=torch.bool)
+    adraws = draw_augment(torch.Generator().manual_seed(seed), 4, s, 'cpu')
+
+    def to(d, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in d.items()}
+    res = {dev: augment_batch(to(adraws, dev), imgs.to(dev), masks.to(dev), kpts.to(dev),
+                              valid.to(dev), cfg) for dev in ('cpu', 'cuda')}
+    img_err = float((res['cuda'][0].cpu() - res['cpu'][0]).abs().max())
+    mask_diff = int((res['cuda'][1]['masks'].cpu() != res['cpu'][1]['masks']).sum())
+    phase(f'4d (c) augment_batch card vs CPU on 4 views of {s}x{s}: normalized images max '
+          f'abs err {img_err:.2e}, mask pixels differing {mask_diff} [{card}]')
+
+
+def train_step_split(cfg, items, card: str, seed: int) -> None:
+    '''(b) SPLIT_STEPS synchronised full-width steps split into augment,
+    forward and losses (the gather ROIAlign's 3 calls and the proposal NMS
+    timed apart inside it), backward and optimizer; then one step under
+    torch.profiler (CUDA activity only).'''
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from moseq2_detectron_extract_tpu_torch.models import rcnn, rpn
+    from moseq2_detectron_extract_tpu_torch.models.data import TrainLoader
+    from moseq2_detectron_extract_tpu_torch.models.train import (apply_gradients,
+                                                                 create_train_state)
+    from moseq2_detectron_extract_tpu_torch.models.trainer import (augment_and_draw,
+                                                                   batch_to_device)
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+
+    state = create_train_state(cfg, seed=seed, device='cuda')
+    loader = TrainLoader(items, cfg, seed=seed)
+    gen = torch.Generator('cuda').manual_seed(seed)
+    spent = {'roi_align': 0.0, 'nms': 0.0}
+    pool, bnms = rcnn.MaskKeypointRCNN.train_pool, rpn.batched_nms_keep_mask
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return r
+        return run
+
+    def step(split=None):
+        batch = batch_to_device(next(loader), 'cuda')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, gt, draws = augment_and_draw(batch, cfg, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = state.model.losses(images, gt, draws)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses['total_loss'].backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        apply_gradients(state, cfg)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if split is not None:
+            for key, dt in zip(('augment', 'forward_losses', 'backward', 'optimizer'),
+                               (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[key].append(dt)
+        return t4 - t0
+
+    try:
+        step()
+        step()
+        rcnn.MaskKeypointRCNN.train_pool = staticmethod(timed('roi_align', pool))
+        rpn.batched_nms_keep_mask = timed('nms', bnms)
+        split = {k: [] for k in ('augment', 'forward_losses', 'backward', 'optimizer')}
+        nms.sync_count = 0
+        walls = [step(split) for _ in range(SPLIT_STEPS)]
+        syncs = nms.sync_count / SPLIT_STEPS
+    finally:
+        rcnn.MaskKeypointRCNN.train_pool = staticmethod(pool)
+        rpn.batched_nms_keep_mask = bnms
+    med = {k: statistics.median(v) * 1e3 for k, v in split.items()}
+    phase(f'4d (b) step split, median of {SPLIT_STEPS} synchronised steps (batch '
+          f'{cfg.ims_per_batch}, ms): ' + ', '.join(f'{k} {v:.2f}' for k, v in med.items())
+          + f'; inside forward_losses, per step: gather ROIAlign (3 calls) '
+          f'{spent["roi_align"] * 1e3 / SPLIT_STEPS:.2f}, train proposal NMS '
+          f'{spent["nms"] * 1e3 / SPLIT_STEPS:.2f}; step wall median '
+          f'{statistics.median(walls) * 1e3:.2f}; NMS host syncs per step {syncs:.1f} [{card}]')
+    try:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                wall = step()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.device_time_total > 0]
+            busy_us = sum(e.device_time_total for e in kernels)
+            if busy_us > 0:
+                break
+        else:
+            raise RuntimeError('the profiler recorded no device time in 3 traces')
+    finally:
+        loader.close()
+    phase(f'4d (b) profiled step: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
+          f'({100 * busy_us / 1e3 / (wall * 1e3):.1f}%), {sum(e.count for e in kernels)} '
+          f'launches of {len(kernels)} kernel names [{card}]')
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP_KERNELS]:
+        print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}', flush=True)
+
+
+def check_training(card: str, seed: int, model_dir: str) -> dict:
+    '''Phase 4d: (a) the train command at full width on a synthetic Label
+    Studio export, then resumed; (b) where a step's time goes; (c) the tiny
+    model card against CPU; (d) the trained model's npz through
+    ``Predictor``. Returns the ROIAlign launches of (d).'''
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import cli
+    from moseq2_detectron_extract_tpu_torch.io.annot import read_annotations
+    from moseq2_detectron_extract_tpu_torch.io.image import read_image
+    from moseq2_detectron_extract_tpu_torch.models.checkpoint import load_model_dir
+    from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
+    from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+    from moseq2_detectron_extract_tpu_torch.models.weights import save_params_npz
+    from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+    from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='m2de_train_')
+    try:
+        t = time.perf_counter()
+        export = write_annotated_views(os.path.join(tmp, 'data'), TRAIN_VIEWS,
+                                       size=TRAIN_VIEW_SIZE, seed=seed)
+        base = ModelConfig.from_yaml(os.path.join(model_dir, 'config.yaml'))
+        cfg = base.replace(**TRAIN_CHANGES)
+        cfg_path = os.path.join(tmp, 'config.yaml')
+        cfg.to_yaml(cfg_path)
+        phase(f'4d (a) wrote {TRAIN_VIEWS} annotated {TRAIN_VIEW_SIZE}x{TRAIN_VIEW_SIZE} views '
+              f'and their export in {time.perf_counter() - t:.2f} s; config '
+              f'{os.path.relpath(model_dir, REPO)}/config.yaml with '
+              + ', '.join(f'{k} {getattr(base, k)} -> {v}' for k, v in TRAIN_CHANGES.items())
+              + f' (amp {cfg.amp_dtype}, batch {cfg.ims_per_batch}, canvas {cfg.image_size}) '
+              f'[{card}]')
+        out_dir = os.path.join(tmp, 'model')
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        cli.main(['train', export, '--model-dir', out_dir, '--config', cfg_path,
+                  '--max-iter', str(TRAIN_STEPS), '--log-period', '1'])
+        train_s = time.perf_counter() - t
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows, val = _train_rows(out_dir)
+        if [r['step'] for r in rows] != list(range(1, TRAIN_STEPS + 1)):
+            raise AssertionError(f'logged steps {[r["step"] for r in rows]}')
+        loss_keys = [k for k in rows[0] if k.startswith('loss_') or k == 'total_loss']
+        if not all(np.isfinite(r[k]) for r in rows for k in loss_keys):
+            raise AssertionError('a logged loss is not finite')
+        first = float(np.mean([r['total_loss'] for r in rows[:10]]))
+        last = float(np.mean([r['total_loss'] for r in rows[-10:]]))
+        if not last < first:
+            raise AssertionError(f'mean total_loss of the last 10 steps {last:.4f} is not below '
+                                 f'the first 10\'s {first:.4f}')
+        ckpts = sorted(os.listdir(os.path.join(out_dir, 'checkpoints')))
+        with open(os.path.join(out_dir, 'last_checkpoint'), encoding='utf-8') as fh:
+            pointer = fh.read().strip()
+        if pointer != f'model_{TRAIN_STEPS:07d}.pt' or pointer not in ckpts:
+            raise AssertionError(f'checkpoints {ckpts}, last_checkpoint {pointer!r}')
+        rates = [r['iters_per_sec'] for r in rows[5:]]
+        it_s = statistics.median(rates)
+        phase(f'4d (a) cli train: {TRAIN_STEPS} steps in {train_s:.2f} s wall (annotation '
+              f'loading, the validations and checkpoints included); {it_s:.2f} iterations/s, '
+              f'{it_s * cfg.ims_per_batch:.1f} images/s (median after step 5); peak device '
+              f'memory {peak_gib:.2f} GiB; mean total_loss first 10 {first:.4f}, last 10 '
+              f'{last:.4f}; validation_loss {[round(v["validation_loss"], 4) for v in val]}; '
+              f'checkpoints {ckpts} [{card}]')
+        for label, row in (('first', rows[0]), ('last', rows[-1])):
+            phase(f'4d (a) {label} step: ' + ', '.join(f'{k} {row[k]:.4f}' for k in loss_keys)
+                  + f', lr {row["lr"]:.6f} [{card}]')
+        t = time.perf_counter()
+        cli.main(['train', export, '--model-dir', out_dir, '--config', cfg_path,
+                  '--max-iter', str(RESUME_STEPS), '--resume', '--log-period', '1'])
+        rows2, _ = _train_rows(out_dir)
+        resumed = [r['step'] for r in rows2[len(rows):]]
+        if resumed != list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)):
+            raise AssertionError(f'resumed steps {resumed}')
+        _, _, step = load_model_dir(out_dir)
+        if step != RESUME_STEPS:
+            raise AssertionError(f'the last checkpoint is at step {step}')
+        phase(f'4d (a) --resume --max-iter {RESUME_STEPS}: continued at step {resumed[0]}, '
+              f'ended at {step} in {time.perf_counter() - t:.2f} s; total_loss at '
+              f'{RESUME_STEPS}: {rows2[-1]["total_loss"]:.4f} [{card}]')
+
+        items = read_annotations(export, default_keypoint_names)
+        train_step_split(cfg, items, card, seed)
+        train_card_vs_cpu(card, seed)
+
+        export_dir = os.path.join(tmp, 'export')
+        os.makedirs(export_dir)
+        shutil.copy(os.path.join(out_dir, 'config.yaml'), export_dir)
+        trained_cfg, state, _ = load_model_dir(out_dir)
+        save_params_npz(os.path.join(export_dir, 'params_f16.npz'), state,
+                        trained_cfg.box_pooler_resolution)
+        _, from_npz, _ = load_model_dir(export_dir)
+        off = [k for k, v in state.items()
+               if not torch.equal(from_npz[k], v.to(torch.float16).to(torch.float32))]
+        if set(from_npz) != set(state) or off:
+            raise AssertionError(f'the npz does not hold the f16 checkpoint weights: {off[:5]}')
+        frames = np.stack([read_image(it['file_name']) for it in items[:EXPORT_VIEWS]]) \
+            .astype(np.uint8)
+        batch = 8
+        predictor = Predictor.from_model_dir(export_dir, batch_size=batch, score_threshold=0.0)
+        from_ckpt = Predictor.from_model_dir(out_dir, batch_size=batch, score_threshold=0.0)
+        roi_align_kernel.launch_count = 0
+        det = predictor(torch.from_numpy(frames))
+        torch.cuda.synchronize()
+        launches = roi_align_kernel.launch_count
+        ref = from_ckpt(torch.from_numpy(frames))
+        if launches != 3 * (EXPORT_VIEWS // batch):
+            raise AssertionError(f'roi_align launches {launches}, expected '
+                                 f'{3 * (EXPORT_VIEWS // batch)}')
+        for key in ('boxes', 'scores', 'keypoints', 'mask_probs'):
+            if not bool(torch.isfinite(det[key]).all()):
+                raise AssertionError(f'non-finite {key} from the exported model')
+        score_err = float((det['scores'][:, 0] - ref['scores'][:, 0]).abs().max())
+        phase(f'4d (d) params_f16.npz (save_params_npz): its {len(state)} tensors equal the '
+              f'checkpoint\'s rounded to f16; through Predictor.from_model_dir on '
+              f'{EXPORT_VIEWS} views: roi_align launches {launches}; top score median '
+              f'{float(det["scores"][:, 0].median()):.3f}, against the f32 checkpoint\'s '
+              f'top scores max abs diff {score_err:.2e} [{card}]')
+        phase(f'4d: {time.perf_counter() - t_phase:.1f} s [{card}]')
+        return {'roi_align': launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -1461,12 +1817,17 @@ def main() -> int:
     session_launches, extract_launches = check_session(predictor, card, args.seed,
                                                        args.model_dir)
 
-    phase('5/5 report')
+    phase('4d/5 training: the train command at full width, the step split, card vs CPU, '
+          'the export')
+    train_launches = check_training(card, args.seed, args.model_dir)
+
+    phase(f'5/5 report (the whole smoke: {time.perf_counter() - T0:.1f} s wall) [{card}]')
     kernels = [
         {'name': 'roi_align', 'route': 'cuda', 'source': f'{PKG}/csrc/roi_align.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_roi_align.py:35',
          'launches': launches['roi_align'], 'session_launches': session_launches['roi_align'],
          'extract_launches': extract_launches['roi_align'],
+         'train_export_launches': train_launches['roi_align'],
          'max_abs_err': roi['max_abs_err'], 'max_ulps': roi['max_ulps'],
          'one_ulp': roi['one_ulp'],
          'ms': roi['ms'], 'plain_ms': roi['plain_ms'], 'bound_ms': roi['bound_ms'],

@@ -1,7 +1,9 @@
-'''The command line of the port: the ``extract`` command.
+'''The command line of the port: the ``extract`` and ``train`` commands.
 
     python -m moseq2_detectron_extract_tpu_torch.cli extract <depth.dat> \
         --model benchmarks/bench_model_fast160 [--device cpu] [--output-dir DIR]
+    python -m moseq2_detectron_extract_tpu_torch.cli train <export.json> \
+        --model-dir DIR [--config YAML] [--max-iter N] [--resume] [--device cpu]
 
 Port of ``moseq2_detectron_extract_tpu/cli.py:37-129`` on ``argparse``: the
 same option names, defaults and help strings, ``--config-file`` as
@@ -10,6 +12,11 @@ rule, and the config keys ``use_tracking_model``, ``flip_classifier``,
 ``dataset_name`` and ``param_annotations``. ``--device`` (default
 ``cuda``) is the port's own. ``--report-outliers`` and
 ``--device-input prescaled`` are not ported yet and raise.
+
+``train`` is ``cli.py:131-166``: the same options; ``--device`` (default
+``cuda``) and ``--log-period`` (the metrics' period, 20 as in the JAX
+trainer) are the port's own. ``--init-weights`` needs the Detectron2
+checkpoint converter, which is not ported yet: it raises.
 '''
 import argparse
 import logging
@@ -135,7 +142,56 @@ def extract(argv: Sequence[str]) -> str:
     return extract_session(session=session, config=config_data)
 
 
-COMMANDS = {'extract': extract}
+def train_parser() -> argparse.ArgumentParser:
+    '''The ``train`` command's options.'''
+    p = argparse.ArgumentParser(prog='train', description='Train a model on annotated data',
+                                allow_abbrev=False)
+    p.add_argument('annot_files', metavar='ANNOT_FILES', nargs='*', type=_existing)
+    p.add_argument('--model-dir', required=True, help='Directory to store model outputs')
+    p.add_argument('--resume', action='store_true', help='Resume training from the latest checkpoint')
+    p.add_argument('--config', dest='config_yaml', default=None, type=_existing, help='Model config yaml to merge over base config')
+    p.add_argument('--max-iter', default=None, type=optional(int), help='Override number of training iterations')
+    p.add_argument('--replace-paths', default=None, action='append', help='search:replace pairs for fixing annotation image paths')
+    p.add_argument('--init-weights', default=None, type=_existing,
+                   help='Detectron2 checkpoint (.pkl/.pth) to initialize from '
+                        '(reference default: COCO keypoint_rcnn_R_50_FPN_3x zoo weights)')
+    p.add_argument('--device', default='cuda', help='Device that trains (cuda, or cpu)')
+    p.add_argument('--log-period', default=20, type=int_range(min=1), help='Steps between rows of metrics.jsonl')
+    return p
+
+
+def train(argv: Sequence[str]) -> str:
+    '''Run the ``train`` command; returns the model dir.'''
+    args = train_parser().parse_args(list(argv))
+    if args.init_weights:
+        raise NotImplementedError('--init-weights is not ported yet (it needs the Detectron2 '
+                                  'checkpoint converter, models/convert.py)')
+    from moseq2_detectron_extract_tpu_torch.device import resolve_device
+    from moseq2_detectron_extract_tpu_torch.io.annot import load_annotations_helper
+    from moseq2_detectron_extract_tpu_torch.io.util import ensure_dir
+    from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig, get_base_config
+    from moseq2_detectron_extract_tpu_torch.models.trainer import Trainer
+
+    device = resolve_device(args.device)
+    setup_logging()
+    replace = [tuple(rp.split(':', 1)) for rp in args.replace_paths] \
+        if args.replace_paths else None
+    load_annotations_helper(args.annot_files, 'RGB', replace_paths=replace, register=True)
+
+    cfg = get_base_config()
+    if args.config_yaml:
+        cfg = ModelConfig.from_yaml(args.config_yaml)
+    if args.max_iter:
+        cfg = cfg.replace(max_iter=int(args.max_iter))
+    ensure_dir(args.model_dir)
+    cfg.to_yaml(os.path.join(args.model_dir, 'config.yaml'))
+    trainer = Trainer(cfg, args.model_dir, log_period=args.log_period, device=device)
+    trainer.resume_or_load(resume=args.resume)
+    trainer.train()
+    return args.model_dir
+
+
+COMMANDS = {'extract': extract, 'train': train}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,16 +1,22 @@
-'''TIFF caches of ROI discovery, with the intensity scale in a sidecar.
+'''Images with the intensity scale in a sidecar: TIFF caches of ROI
+discovery and the PNG frames of training data.
 
 Port of ``moseq2_detectron_extract_tpu/io/image.py`` (lines 22-83) without
-cv2 or PIL. Images are stored as uint8 or uint16 grey TIFFs, the linear
-scale that maps them back to depth in ``<file>.scale.json``. The writer
-writes baseline TIFFs (little-endian, one uncompressed strip); the reader
-takes uncompressed and LZW strips with or without horizontal differencing,
+cv2 or PIL. Images are stored as uint8 or uint16 grey TIFFs or PNGs (by the
+file's extension, as ``cv2.imwrite`` picks), the linear scale that maps
+them back to depth in ``<file>.scale.json``. The TIFF writer writes
+baseline TIFFs (little-endian, one uncompressed strip); the reader takes
+uncompressed and LZW strips with or without horizontal differencing,
 which is what cv2 writes, so a cache written by the JAX package reads the
-same.
+same. PNGs are read and written with ``zlib``: 8-bit grey, RGB and RGBA and
+16-bit grey, not interlaced; colour comes back in cv2's BGR(A) order, as
+``cv2.imread(..., IMREAD_UNCHANGED)`` gives it. :func:`read_image` tells
+the two formats apart by their first bytes.
 '''
 import json
 import os
 import struct
+import zlib
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -46,15 +52,21 @@ def write_image(filename: str, image: np.ndarray, scale: bool = True,
     else:
         out = image.astype(dtype)
         meta = {'scaled': False, 'vmin': 0.0, 'vmax': float(info.max), 'dtype': str(dtype)}
-    write_tiff(filename, out)
+    if filename.lower().endswith('.png'):
+        write_png(filename, out)
+    else:
+        write_tiff(filename, out)
     with open(filename + _SCALE_SIDECAR_SUFFIX, 'w', encoding='utf-8') as fh:
         json.dump(meta, fh)
 
 
 def read_tiff_image(filename: str, scale: bool = True) -> np.ndarray:
-    '''A TIFF written by :func:`write_image` (or the JAX package's), with its
-    intensities restored (f64) when the sidecar says it was scaled.'''
-    raw = read_tiff(filename)
+    '''A TIFF or PNG written by :func:`write_image` (or the JAX package's),
+    with its intensities restored (f64) when the sidecar says it was
+    scaled.'''
+    with open(filename, 'rb') as fh:
+        magic = fh.read(8)
+    raw = read_png(filename) if magic == _PNG_MAGIC else read_tiff(filename)
     sidecar = filename + _SCALE_SIDECAR_SUFFIX
     if scale and os.path.exists(sidecar):
         with open(sidecar, 'r', encoding='utf-8') as fh:
@@ -64,6 +76,120 @@ def read_tiff_image(filename: str, scale: bool = True) -> np.ndarray:
             frac = (raw.astype('float64') - info.min) / (info.max - info.min)
             return frac * (meta['vmax'] - meta['vmin']) + meta['vmin']
     return raw
+
+
+def read_image(filename: str, scale: bool = True) -> np.ndarray:
+    '''Read a PNG or TIFF, applying the scale sidecar.'''
+    return read_tiff_image(filename, scale=scale)
+
+
+# -- PNG ---------------------------------------------------------------------------
+
+_PNG_MAGIC = b'\x89PNG\r\n\x1a\n'
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}       # grey, RGB, RGBA
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack('>I', len(data)) + kind + data + \
+        struct.pack('>I', zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+
+def write_png(filename: str, image: np.ndarray) -> None:
+    '''Write a (H, W) uint8 or uint16 grey image, or a (H, W, 3|4) uint8
+    BGR(A) image (cv2's channel order), as a PNG with no row filters.'''
+    image = np.ascontiguousarray(image)
+    if image.ndim == 2 and image.dtype in (np.uint8, np.uint16):
+        color, rows = 0, image
+    elif image.ndim == 3 and image.shape[2] in (3, 4) and image.dtype == np.uint8:
+        color = 2 if image.shape[2] == 3 else 6
+        rgb = image[..., [2, 1, 0] + ([3] if image.shape[2] == 4 else [])]
+        rows = rgb.reshape(image.shape[0], -1)
+    else:
+        raise ValueError(f'write_png takes grey uint8/uint16 or BGR(A) uint8, not '
+                         f'{image.dtype} {image.shape}')
+    height, width = image.shape[:2]
+    bits = 8 * image.dtype.itemsize
+    raw = np.ascontiguousarray(rows.astype(rows.dtype.newbyteorder('>'), copy=False)) \
+        .view(np.uint8).reshape(height, -1)
+    scanlines = np.concatenate([np.zeros((height, 1), np.uint8), raw], axis=1)
+    header = struct.pack('>IIBBBBB', width, height, bits, color, 0, 0, 0)
+    with open(filename, 'wb') as fh:
+        fh.write(_PNG_MAGIC + _png_chunk(b'IHDR', header)
+                 + _png_chunk(b'IDAT', zlib.compress(scanlines.tobytes(), 6))
+                 + _png_chunk(b'IEND', b''))
+
+
+def _unfilter_row(kind: int, row: bytearray, prior: bytearray, bpp: int) -> bytearray:
+    '''Undo one scanline's PNG filter (types 0-4) in place.'''
+    n = len(row)
+    if kind == 1:
+        sub = np.frombuffer(row, np.uint8).reshape(-1, bpp)
+        return bytearray(np.cumsum(sub, axis=0, dtype=np.uint8).tobytes())
+    if kind == 2:
+        return bytearray((np.frombuffer(row, np.uint8) + np.frombuffer(prior, np.uint8))
+                         .tobytes())
+    if kind == 3:
+        for i in range(n):
+            left = row[i - bpp] if i >= bpp else 0
+            row[i] = (row[i] + ((left + prior[i]) >> 1)) & 0xFF
+    elif kind == 4:
+        for i in range(n):
+            a = row[i - bpp] if i >= bpp else 0
+            b = prior[i]
+            c = prior[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            row[i] = (row[i] + pred) & 0xFF
+    elif kind != 0:
+        raise ValueError(f'PNG filter type {kind} is not defined')
+    return row
+
+
+def read_png(filename: str) -> np.ndarray:
+    '''A non-interlaced 8-bit grey, RGB or RGBA or 16-bit grey PNG: (H, W)
+    grey, or (H, W, 3|4) in BGR(A) order, uint8 or uint16.'''
+    with open(filename, 'rb') as fh:
+        buf = fh.read()
+    if buf[:8] != _PNG_MAGIC:
+        raise ValueError(f'{filename}: not a PNG file')
+    pos, idat, header = 8, [], None
+    while pos < len(buf):
+        (length,) = struct.unpack('>I', buf[pos:pos + 4])
+        kind = buf[pos + 4:pos + 8]
+        data = buf[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b'IHDR':
+            header = struct.unpack('>IIBBBBB', data)
+        elif kind == b'IDAT':
+            idat.append(data)
+        elif kind == b'IEND':
+            break
+    if header is None:
+        raise ValueError(f'{filename}: no IHDR chunk')
+    width, height, bits, color, _, _, interlace = header
+    if interlace:
+        raise ValueError(f'{filename}: interlaced PNGs are not read')
+    if color not in _PNG_CHANNELS or bits not in (8, 16) or (bits == 16 and color != 0):
+        raise ValueError(f'{filename}: reads 8-bit grey, RGB and RGBA and 16-bit grey '
+                         f'PNGs, not colour type {color} at {bits} bits')
+    channels = _PNG_CHANNELS[color]
+    bpp = channels * bits // 8
+    stride = width * bpp
+    data = zlib.decompress(b''.join(idat))
+    out = bytearray(height * stride)
+    prior = bytearray(stride)
+    for y in range(height):
+        start = y * (stride + 1)
+        row = _unfilter_row(data[start], bytearray(data[start + 1:start + 1 + stride]),
+                            prior, bpp)
+        out[y * stride:(y + 1) * stride] = row
+        prior = row
+    image = np.frombuffer(bytes(out), dtype=np.dtype('>u2') if bits == 16 else np.uint8)
+    image = image.astype(image.dtype.newbyteorder('=')).reshape(height, width, channels)
+    if channels == 1:
+        return image[..., 0]
+    return np.ascontiguousarray(image[..., [2, 1, 0] + ([3] if channels == 4 else [])])
 
 
 def write_tiff(filename: str, image: np.ndarray) -> None:

@@ -5,12 +5,14 @@ dataclass, field for field. PyYAML is not a dependency of the port, so
 ``read_config_yaml`` reads what ``ModelConfig.to_yaml`` (``yaml.safe_dump``
 of the dataclass) writes with the port's YAML reader
 (``io.yaml_subset.load``): a top-level mapping of scalars, block lists and
-block lists of lists.
+block lists of lists. ``to_yaml`` writes the same mapping with the port's
+YAML writer (``io.yaml_subset.dump``), which the JAX package's
+``ModelConfig.from_yaml`` reads.
 '''
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
-from moseq2_detectron_extract_tpu_torch.io.yaml_subset import load
+from moseq2_detectron_extract_tpu_torch.io.yaml_subset import dump, load
 
 
 @dataclasses.dataclass
@@ -104,6 +106,11 @@ class ModelConfig:
 
     max_gt_instances: int = 8
 
+    def to_yaml(self, path: str) -> None:
+        '''Write every field to a yaml file (tuples as lists).'''
+        with open(path, 'w', encoding='utf-8') as fh:
+            fh.write(dump(_as_lists(dataclasses.asdict(self))))
+
     @classmethod
     def from_yaml(cls, path: str) -> 'ModelConfig':
         '''Load from a ``config.yaml`` (unknown keys ignored, lists become
@@ -121,6 +128,33 @@ class ModelConfig:
     def replace(self, **kwargs) -> 'ModelConfig':
         '''Functional field update.'''
         return dataclasses.replace(self, **kwargs)
+
+
+def get_base_config() -> ModelConfig:
+    '''The base config (the reference's tuned values).'''
+    return ModelConfig()
+
+
+def add_dataset_config(cfg: ModelConfig, num_keypoints: Optional[int] = None,
+                       pixel_mean: Optional[List[float]] = None,
+                       pixel_std: Optional[List[float]] = None) -> ModelConfig:
+    '''Apply the dataset-derived fields (``config.py:140-157``).'''
+    updates: Dict[str, Any] = {}
+    if num_keypoints is not None:
+        updates['num_keypoints'] = num_keypoints
+    if pixel_mean is not None:
+        updates['pixel_mean'] = tuple(float(v) for v in pixel_mean)
+    if pixel_std is not None:
+        updates['pixel_std'] = tuple(float(v) for v in pixel_std)
+    return cfg.replace(**updates) if updates else cfg
+
+
+def _as_lists(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {k: _as_lists(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_as_lists(v) for v in value]
+    return value
 
 
 # -- the config.yaml reader ------------------------------------------------------

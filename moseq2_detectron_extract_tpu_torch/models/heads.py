@@ -1,4 +1,5 @@
-'''ROI heads (box, mask, keypoint), keypoint decoding and mask pasting.
+'''ROI heads (box, mask, keypoint), keypoint decoding and targets, and mask
+pasting.
 
 Port of ``moseq2_detectron_extract_tpu/models/heads.py``. The heads take
 pooled features NHWC (N, S, S, C), the layout of the pooled ROI tensor, and
@@ -102,6 +103,26 @@ def heatmaps_to_keypoints(heatmaps: torch.Tensor, boxes: torch.Tensor) -> torch.
     xs = x1[:, None] + (xi + 0.5) * (w[:, None] / s)
     ys = y1[:, None] + (yi + 0.5) * (h[:, None] / s)
     return torch.stack([xs, ys, score], dim=-1)
+
+
+def keypoint_targets(keypoints: torch.Tensor, boxes: torch.Tensor, heatmap_size: int):
+    '''gt keypoints (..., K, 3 [x, y, vis]) in their ROIs (..., 4) -> the
+    heatmap bin of each (..., K) int64 and its validity (visible and inside
+    the ROI), as Detectron2's keypoints_to_heatmap (``heads.py:95-115``).'''
+    x1, y1 = boxes[..., 0:1], boxes[..., 1:2]
+    w = torch.clamp(boxes[..., 2:3] - boxes[..., 0:1], min=1e-3)
+    h = torch.clamp(boxes[..., 3:4] - boxes[..., 1:2], min=1e-3)
+    sx = heatmap_size / w
+    sy = heatmap_size / h
+    x = (keypoints[..., 0] - x1) * sx
+    y = (keypoints[..., 1] - y1) * sy
+    xi = torch.floor(x).long()
+    yi = torch.floor(y).long()
+    inside = (x >= 0) & (x < heatmap_size) & (y >= 0) & (y < heatmap_size)
+    valid = inside & (keypoints[..., 2] > 0)
+    xi = torch.clamp(xi, 0, heatmap_size - 1)
+    yi = torch.clamp(yi, 0, heatmap_size - 1)
+    return yi * heatmap_size + xi, valid
 
 
 def paste_masks(mask_logits: torch.Tensor, boxes: torch.Tensor,

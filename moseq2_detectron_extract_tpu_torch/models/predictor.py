@@ -6,7 +6,6 @@ with the fused selection of ``ops/instances.py:nms_and_centers``. uint8
 depth frames go in, full-resolution masks and keypoints come out, all on
 the predictor's device.
 '''
-import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -14,10 +13,9 @@ import torch.nn.functional as F
 
 from moseq2_detectron_extract_tpu_torch.device import resolve_device
 from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
+from moseq2_detectron_extract_tpu_torch.models.checkpoint import load_model_dir
 from moseq2_detectron_extract_tpu_torch.models.layers import cast_to_compute_dtype
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
-from moseq2_detectron_extract_tpu_torch.models.weights import (load_params_npz,
-                                                               params_from_jax)
 from moseq2_detectron_extract_tpu_torch.ops.instances import nms_and_centers
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import compute_test_scale
 
@@ -54,16 +52,10 @@ class Predictor:
     @classmethod
     def from_model_dir(cls, model_dir: str, batch_size: int = 10,
                        score_threshold: Optional[float] = None,
-                       device='cuda') -> 'Predictor':
-        '''Load ``config.yaml`` and ``params_f16.npz`` from a model dir.'''
-        cfg_path = os.path.join(model_dir, 'config.yaml')
-        cfg = ModelConfig.from_yaml(cfg_path) if os.path.exists(cfg_path) \
-            else ModelConfig()
-        npz_path = os.path.join(model_dir, 'params_f16.npz')
-        if not os.path.exists(npz_path):
-            raise FileNotFoundError(f'no params_f16.npz in {model_dir}')
-        state = params_from_jax(load_params_npz(npz_path),
-                                box_pooler_resolution=cfg.box_pooler_resolution)
+                       device='cuda', checkpoint: str = 'last') -> 'Predictor':
+        '''Load ``config.yaml`` and the weights of a model dir: its
+        checkpoint, else its ``params_f16.npz`` (``load_model_dir``).'''
+        cfg, state, _ = load_model_dir(model_dir, checkpoint)
         return cls(cfg, state, batch_size=batch_size,
                    score_threshold=score_threshold, device=device)
 

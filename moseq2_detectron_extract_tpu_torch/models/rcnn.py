@@ -1,12 +1,20 @@
-'''Mask+Keypoint R-CNN inference with fixed-size, validity-masked outputs.
+'''Mask+Keypoint R-CNN: inference with fixed-size, validity-masked outputs,
+and the training losses.
 
 Port of ``moseq2_detectron_extract_tpu/models/rcnn.py`` (``inference``,
-lines 137-213, and ``_pool``, lines 215-233, as ``pool_levels`` and
-``roi_align``). Pooling is always bf16 in and out at inference, whatever
-``amp_dtype`` says; on the card each of its three calls (box, mask,
-keypoint stage) launches the ROIAlign kernel.
+lines 137-213, ``_pool``, lines 215-233, as ``pool_levels`` and
+``roi_align``, and ``losses``, lines 236-370). Pooling is always bf16 in
+and out at inference, whatever ``amp_dtype`` says; on the card each of its
+three calls (box, mask, keypoint stage) launches the ROIAlign kernel.
+Training pools in f32 through the differentiable gather form
+(``ops.roi_align.batched_multilevel_roi_align``), as the JAX package does.
+
+The losses take their random draws as arguments (:func:`draw_loss_uniforms`
+makes them): the uniform priorities of the RPN's anchor sampling and of
+the ROI sampling, per image.
 '''
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,13 +25,20 @@ from moseq2_detectron_extract_tpu_torch.models.fpn import FPN
 from moseq2_detectron_extract_tpu_torch.models.heads import (BoxHead, KeypointHead,
                                                              MaskHead,
                                                              heatmaps_to_keypoints,
+                                                             keypoint_targets,
                                                              paste_masks)
 from moseq2_detectron_extract_tpu_torch.models.layers import compute_dtype_of
+from moseq2_detectron_extract_tpu_torch.models.matcher import subsample_labels
 from moseq2_detectron_extract_tpu_torch.models.resnet import ResNet
-from moseq2_detectron_extract_tpu_torch.models.rpn import RPNHead, select_proposals
-from moseq2_detectron_extract_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+from moseq2_detectron_extract_tpu_torch.models.rpn import (RPNHead, _bce_with_logits,
+                                                           _smooth_l1, rpn_losses,
+                                                           select_proposals)
+from moseq2_detectron_extract_tpu_torch.ops.boxes import (clip_boxes, decode_boxes,
+                                                          encode_boxes, pairwise_iou)
 from moseq2_detectron_extract_tpu_torch.ops.nms import (batched_nms_keep_mask,
                                                         stable_topk)
+from moseq2_detectron_extract_tpu_torch.ops.roi_align import (batched_multilevel_roi_align,
+                                                              crop_resize_masks)
 from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import roi_align
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
@@ -98,12 +113,7 @@ class MaskKeypointRCNN(nn.Module):
                                        device=dev).repeat(b, 1)
 
         fpn_feats = self.features(images)
-        logits, deltas = self.rpn_head(fpn_feats)
-        proposals, _, prop_valid = select_proposals(
-            self._anchors(fpn_feats), logits, deltas, image_sizes,
-            cfg.rpn_pre_nms_topk_test, cfg.rpn_post_nms_topk_test,
-            cfg.rpn_nms_thresh, cfg.rpn_box_reg_weights,
-            global_cap=cfg.rpn_nms_global_cap or None)
+        proposals, prop_valid, _ = self.proposals(fpn_feats, image_sizes, train=False)
 
         p = proposals.shape[1]
         levels = self.pool_levels(fpn_feats)
@@ -154,3 +164,160 @@ class MaskKeypointRCNN(nn.Module):
                 kp_logits, det_boxes.reshape(b * d, 4)).reshape(
                     b, d, cfg.num_keypoints, 3)
         return out
+
+    # ---------------------------------------------------------------- training
+    def proposals(self, fpn_feats, image_sizes: torch.Tensor, train: bool):
+        '''RPN head and proposal selection (``rcnn.py:83-112``) -> boxes
+        (B, P, 4), valid (B, P), and the RPN's (logits, deltas, anchors) per
+        level. Training takes the train top-k with no global cap.'''
+        cfg = self.cfg
+        logits, deltas = self.rpn_head(fpn_feats)
+        anchors = self._anchors(fpn_feats)
+        if train:
+            pre_k, post_k, cap = (cfg.rpn_pre_nms_topk_train,
+                                  cfg.rpn_post_nms_topk_train, None)
+        else:
+            pre_k, post_k, cap = (cfg.rpn_pre_nms_topk_test, cfg.rpn_post_nms_topk_test,
+                                  cfg.rpn_nms_global_cap or None)
+        boxes, _, valid = select_proposals(anchors, logits, deltas, image_sizes, pre_k,
+                                           post_k, cfg.rpn_nms_thresh,
+                                           cfg.rpn_box_reg_weights, global_cap=cap)
+        return boxes, valid, (logits, deltas, anchors)
+
+    @staticmethod
+    def train_pool(fpn_feats, boxes, resolution: int):
+        '''f32 gather ROIAlign of (B, R, 4) boxes over P2-P5 ->
+        (B, R, r, r, C) f32 (``_pool(train=True)``).'''
+        levels = [f.float().permute(0, 2, 3, 1) for f in fpn_feats[:4]]
+        return batched_multilevel_roi_align(levels, boxes, resolution, chunk=128)
+
+    def rpn_part(self, rpn_out, gt: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
+        '''The RPN's two losses from ``proposals``' RPN outputs.'''
+        cfg = self.cfg
+        logits, deltas, anchors = rpn_out
+        b = logits[0].shape[0]
+        obj, reg = rpn_losses(torch.cat(anchors), torch.cat(logits, dim=1).float(),
+                              torch.cat(deltas, dim=1).float(), gt['boxes'], gt['valid'],
+                              draws, cfg.rpn_batch_size_per_image,
+                              cfg.rpn_positive_fraction, cfg.rpn_fg_iou_thresh,
+                              cfg.rpn_bg_iou_thresh, cfg.rpn_box_reg_weights,
+                              cfg.rpn_smooth_l1_beta)
+        normalizer = cfg.rpn_batch_size_per_image * b
+        return {'loss_rpn_cls': torch.sum(obj) / normalizer,
+                'loss_rpn_loc': torch.sum(reg) / normalizer}
+
+    def sample_rois(self, proposals, prop_valid, gt: Dict[str, torch.Tensor], draws):
+        '''Match the proposals (gt boxes appended, as Detectron2 does) and
+        sample R per image -> (boxes (B, R, 4), valid, is_pos, gt index).'''
+        cfg = self.cfg
+        all_props = torch.cat([proposals, gt['boxes']], dim=1)
+        all_valid = torch.cat([prop_valid, gt['valid']], dim=1)
+        iou = pairwise_iou(all_props, gt['boxes'])                    # (B, P+G, G)
+        iou = torch.where(gt['valid'][:, None, :], iou, torch.full_like(iou, -1.0))
+        iou = torch.where(all_valid[:, :, None], iou, torch.full_like(iou, -1.0))
+        matched_iou, matched_idx = torch.max(iou, dim=-1)
+        labels = (matched_iou >= cfg.roi_fg_iou_thresh).to(torch.int32)
+        labels = torch.where(all_valid, labels, torch.full_like(labels, -1))
+        idx, valid, is_pos = subsample_labels(labels, cfg.roi_batch_size_per_image,
+                                              cfg.roi_positive_fraction, *draws)
+        boxes = torch.gather(all_props, 1, idx[..., None].expand(-1, -1, 4))
+        return boxes, valid, is_pos, torch.gather(matched_idx, 1, idx)
+
+    def roi_head_part(self, fpn_feats, proposals, prop_valid, gt: Dict[str, torch.Tensor],
+                      draws) -> Dict[str, torch.Tensor]:
+        '''The box, mask and keypoint losses on ``proposals`` (B, P, 4),
+        which carry no gradient. The heads run on all R sampled ROIs of each
+        image; each loss is masked to the ROIs it counts.'''
+        cfg = self.cfg
+        s_boxes, s_valid, s_pos, s_gt_idx = self.sample_rois(proposals, prop_valid, gt,
+                                                             draws)
+        b, r = s_boxes.shape[:2]
+        losses = {}
+
+        pooled = self.train_pool(fpn_feats, s_boxes, cfg.box_pooler_resolution)
+        cls_logits, box_deltas = self.box_head(pooled.reshape(b * r, *pooled.shape[2:]))
+        cls_logits = cls_logits.reshape(b, r, -1).float()
+        box_deltas = box_deltas.reshape(b, r, 4).float()
+        cls_targets = torch.where(s_pos, 0, cfg.num_classes)
+        ce = -torch.log_softmax(cls_logits, dim=-1)
+        cls_loss = torch.gather(ce, -1, cls_targets[..., None])[..., 0]
+        cls_loss = torch.sum(torch.where(s_valid, cls_loss, torch.zeros_like(cls_loss)))
+        s_gt_boxes = torch.gather(gt['boxes'], 1, s_gt_idx[..., None].expand(-1, -1, 4))
+        target = encode_boxes(s_boxes, s_gt_boxes, cfg.box_reg_weights)
+        reg = _smooth_l1(box_deltas - target, cfg.box_smooth_l1_beta)
+        reg_loss = torch.sum(torch.where(s_pos[..., None], reg, torch.zeros_like(reg)))
+        num_sampled = torch.clamp(torch.sum(s_valid), min=1)
+        losses['loss_cls'] = cls_loss / num_sampled
+        losses['loss_box_reg'] = reg_loss / num_sampled
+
+        num_pos = torch.clamp(torch.sum(s_pos), min=1)
+        if cfg.mask_on:
+            m = cfg.mask_resolution
+            pooled = self.train_pool(fpn_feats, s_boxes, cfg.mask_pooler_resolution)
+            mask_logits = self.mask_head(pooled.reshape(b * r, *pooled.shape[2:]))[..., 0]
+            mask_logits = mask_logits.reshape(b, r, m, m).float()
+            targets = crop_resize_masks(gt['masks'], s_gt_idx, s_boxes, m) >= 0.5
+            mloss = _bce_with_logits(mask_logits, targets.to(torch.float32))
+            mloss = torch.where(s_pos[..., None, None], mloss, torch.zeros_like(mloss))
+            losses['loss_mask'] = torch.sum(mloss) / (num_pos * m ** 2)
+
+        if cfg.keypoint_on:
+            k = cfg.num_keypoints
+            pooled = self.train_pool(fpn_feats, s_boxes, cfg.keypoint_pooler_resolution)
+            kp_logits = self.keypoint_head(pooled.reshape(b * r, *pooled.shape[2:]))
+            hs = kp_logits.shape[1]
+            kp_logits = kp_logits.reshape(b, r, hs, hs, k).permute(0, 1, 4, 2, 3) \
+                .reshape(b, r, k, hs * hs).float()
+            gt_kpts = torch.gather(gt['keypoints'], 1,
+                                   s_gt_idx[..., None, None].expand(-1, -1, k, 3))
+            tgt_idx, tgt_valid = keypoint_targets(gt_kpts, s_boxes, hs)
+            tgt_valid = tgt_valid & s_pos[..., None]
+            logp = torch.log_softmax(kp_logits, dim=-1)
+            kp_ce = -torch.gather(logp, -1, tgt_idx[..., None])[..., 0]
+            num_visible = torch.clamp(torch.sum(tgt_valid), min=1)
+            losses['loss_keypoint'] = torch.sum(
+                torch.where(tgt_valid, kp_ce, torch.zeros_like(kp_ce))) / num_visible
+        return losses
+
+    def losses(self, images: torch.Tensor, gt: Dict[str, torch.Tensor], draws,
+               image_sizes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        '''Training losses. images (B, 3, S, S) normalized f32; gt holds
+        boxes (B, G, 4), valid (B, G), masks (B, G, S, S) bool and keypoints
+        (B, G, K, 3 [x, y, vis]); ``draws`` from :func:`draw_loss_uniforms`.'''
+        b = images.shape[0]
+        if image_sizes is None:
+            image_sizes = torch.tensor([images.shape[2:]], dtype=torch.float32,
+                                       device=images.device).repeat(b, 1)
+        fpn_feats = self.features(images)
+        proposals, prop_valid, rpn_out = self.proposals(fpn_feats, image_sizes, train=True)
+        losses = self.rpn_part(rpn_out, gt, draws['rpn'])
+        # no gradient through the proposals (Detectron2 decodes them under
+        # no_grad; the JAX package's stop_gradient)
+        losses.update(self.roi_head_part(fpn_feats, proposals.detach(), prop_valid, gt,
+                                         draws['roi']))
+        losses['total_loss'] = sum(losses.values())
+        return losses
+
+
+def level_shapes(canvas: int) -> Tuple[int, ...]:
+    '''Side of P2..P6 for a square canvas: each stride-2 step rounds up.'''
+    sides, side = [], canvas
+    for level in range(1, 7):
+        side = math.ceil(side / 2)
+        if level >= 2:
+            sides.append(side)
+    return tuple(sides)
+
+
+def draw_loss_uniforms(generator: torch.Generator, cfg: ModelConfig, batch: int,
+                       device) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    '''The losses' random draws: the (u_pos, u_neg) priorities of the RPN's
+    anchor sampling (B, A) and of the ROI sampling (B, P + G).'''
+    per_cell = len(cfg.anchor_sizes[0]) * len(cfg.anchor_aspect_ratios)
+    n_anchors = sum(side * side * per_cell for side in level_shapes(cfg.image_size))
+    n_rois = cfg.rpn_post_nms_topk_train + cfg.max_gt_instances
+
+    def pair(n):
+        return tuple(torch.rand((batch, n), generator=generator, device=device)
+                     for _ in range(2))
+    return {'rpn': pair(n_anchors), 'roi': pair(n_rois)}

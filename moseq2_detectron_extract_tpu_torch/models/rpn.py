@@ -1,9 +1,12 @@
-'''Region Proposal Network head and static top-k proposal selection.
+'''Region Proposal Network head, static top-k proposal selection and losses.
 
-Port of ``moseq2_detectron_extract_tpu/models/rpn.py:24-118``: per-level
+Port of ``moseq2_detectron_extract_tpu/models/rpn.py``. Selection
+(lines 24-118): per-level
 pre-NMS top-k (clamped to the global cap), decode, clip, drop empties, the
 global top-``cap`` candidate pool, level-aware fixpoint NMS and the final
 top-``post_nms_topk``. Every top-k is the stable one, as ``lax.top_k`` is.
+Training (``train=True`` in the model) selects with no cap, the whole batch
+in one fixpoint NMS. The losses (lines 120-158) are batched over images.
 '''
 from typing import Optional, Sequence, Tuple
 
@@ -12,8 +15,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from moseq2_detectron_extract_tpu_torch.models.layers import Conv2d
+from moseq2_detectron_extract_tpu_torch.models.matcher import (match_anchors_to_gt,
+                                                               subsample_labels)
 from moseq2_detectron_extract_tpu_torch.ops.boxes import (clip_boxes, decode_boxes,
-                                                          nonempty_boxes)
+                                                          encode_boxes, nonempty_boxes)
 from moseq2_detectron_extract_tpu_torch.ops.nms import (batched_nms_keep_mask,
                                                         stable_topk)
 
@@ -95,3 +100,49 @@ def select_proposals(anchors_per_level: Sequence[torch.Tensor],
     return (torch.where(top_valid[..., None], top_boxes, torch.zeros_like(top_boxes)),
             torch.where(top_valid, top_scores, torch.zeros_like(top_scores)),
             top_valid)
+
+
+def rpn_losses(anchors: torch.Tensor, logits: torch.Tensor, deltas: torch.Tensor,
+               gt_boxes: torch.Tensor, gt_valid: torch.Tensor, draws,
+               batch_size_per_image: int, positive_fraction: float,
+               fg_thresh: float, bg_thresh: float, box_reg_weights,
+               smooth_l1_beta: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    '''Per-image RPN objectness and box-regression losses, summed over the
+    sampled anchors -> (obj (B,), reg (B,)); the caller normalizes by
+    ``batch_size_per_image * B``.
+
+    anchors (A, 4); logits (B, A) f32; deltas (B, A, 4) f32; gt (B, G, 4)
+    with validity (B, G); ``draws`` the (u_pos, u_neg) priorities (B, A) of
+    the sampling.
+    '''
+    matched_idx, labels = match_anchors_to_gt(anchors, gt_boxes, gt_valid,
+                                              fg_thresh, bg_thresh,
+                                              allow_low_quality=True)
+    idx, valid, is_pos = subsample_labels(labels, batch_size_per_image,
+                                          positive_fraction, *draws)
+
+    s_logits = torch.gather(logits, 1, idx)
+    obj = _bce_with_logits(s_logits, is_pos.to(torch.float32))
+    obj_loss = torch.sum(torch.where(valid, obj, torch.zeros_like(obj)), dim=1)
+
+    s_anchors = anchors[idx]                                        # (B, S, 4)
+    s_gt = torch.gather(gt_boxes, 1, torch.gather(matched_idx, 1, idx)[..., None]
+                        .expand(-1, -1, 4))
+    target = encode_boxes(s_anchors, s_gt, box_reg_weights)
+    s_deltas = torch.gather(deltas, 1, idx[..., None].expand(-1, -1, 4))
+    reg = _smooth_l1(s_deltas - target, smooth_l1_beta)
+    reg_loss = torch.sum(torch.where(is_pos[..., None], reg, torch.zeros_like(reg)),
+                         dim=(1, 2))
+    return obj_loss, reg_loss
+
+
+def _bce_with_logits(logits, targets):
+    return torch.clamp(logits, min=0) - logits * targets + \
+        torch.log1p(torch.exp(-torch.abs(logits)))
+
+
+def _smooth_l1(diff, beta: float):
+    absd = torch.abs(diff)
+    if beta <= 0:
+        return absd
+    return torch.where(absd < beta, 0.5 * absd * absd / beta, absd - 0.5 * beta)

@@ -1,4 +1,4 @@
-'''JAX parameter trees -> the port's ``state_dict``.
+'''JAX parameter trees <-> the port's ``state_dict``.
 
 The committed model dirs hold ``params_f16.npz``: the flax params tree
 flattened with ``/``-joined keys (``models/checkpoint.py:93-104``), e.g.
@@ -14,6 +14,8 @@ transforms of ``models/convert.py:15-33``:
 * GroupNorm             scale/bias -> weight/bias
 
 The npz is read at run time; no converted weights are stored.
+:func:`params_to_jax` is the exact inverse, so :func:`save_params_npz`
+writes the npz layout that both packages read.
 '''
 from typing import Dict, Mapping
 
@@ -23,6 +25,7 @@ import torch
 _BN_FIELDS = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
               'var': 'running_var'}
 _DECONVS = {('mask_head', 'deconv'), ('keypoint_head', 'score_lowres')}
+_BN_LEAVES = {v: k for k, v in _BN_FIELDS.items()}
 
 
 def load_params_npz(path: str) -> Dict[str, np.ndarray]:
@@ -92,3 +95,56 @@ def params_from_jax(flat: Mapping[str, np.ndarray],
             raise ValueError(f'unmapped parameter {"/".join(parts)} {value.shape}')
     return state
 
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor],
+                  box_pooler_resolution: int = 7) -> Dict[str, np.ndarray]:
+    '''A port ``state_dict`` -> the flat ``params/...`` keys of the flax
+    params tree, float32 (the inverse of :func:`params_from_jax`).'''
+    arrays = {k: v.detach().to('cpu', torch.float32).numpy() for k, v in state.items()}
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in arrays.items():
+        parts = key.split('.')
+        module, leaf = parts[:-1], parts[-1]
+        if module[-1].endswith('_norm') and leaf in _BN_LEAVES:
+            if module == ['backbone', 'stem_norm']:
+                name = ['backbone', 'FrozenBatchNorm_0']
+            else:
+                block = module[1]
+                owner = module[2][:-len('_norm')]
+                convs = {p.split('.')[2] for p in arrays if p.startswith(f'backbone.{block}.')}
+                index = (['shortcut'] if 'shortcut' in convs else [])
+                index += ['conv1', 'conv2', 'conv3']
+                name = ['backbone', block, f'FrozenBatchNorm_{index.index(owner)}']
+            flat['/'.join(['params'] + name + [_BN_LEAVES[leaf]])] = value
+            continue
+        name = '/'.join(['params'] + module)
+        if leaf == 'bias':
+            flat[f'{name}/bias'] = value
+        elif value.ndim == 1:                        # GroupNorm
+            flat[f'{name}/scale'] = value
+        elif value.ndim == 4 and tuple(module[-2:]) in _DECONVS:
+            flat[f'{name}/kernel'] = np.ascontiguousarray(
+                value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+        elif value.ndim == 4:
+            flat[f'{name}/kernel'] = np.ascontiguousarray(value.transpose(2, 3, 1, 0))
+        elif value.ndim == 2:
+            weight = value
+            if tuple(module) == ('box_head', 'fc1'):
+                s = box_pooler_resolution
+                out_dim, in_flat = weight.shape
+                c = in_flat // (s * s)
+                weight = weight.reshape(out_dim, c, s, s).transpose(0, 2, 3, 1) \
+                    .reshape(out_dim, in_flat)
+            flat[f'{name}/kernel'] = np.ascontiguousarray(weight.T)
+        else:
+            raise ValueError(f'unmapped parameter {key} {value.shape}')
+    return flat
+
+
+def save_params_npz(path: str, state: Mapping[str, torch.Tensor],
+                    box_pooler_resolution: int = 7, dtype: str = 'float16') -> None:
+    '''Write a ``state_dict`` as the JAX package's ``params_f16.npz``
+    (``models/checkpoint.py:save_params_npz``): the flax keys, in ``dtype``.'''
+    flat = params_to_jax(state, box_pooler_resolution)
+    np.savez_compressed(path, **{k: v.astype(dtype) for k, v in flat.items()})

@@ -1,4 +1,4 @@
-'''Box arithmetic: decode deltas, IoU, clipping (xyxy boxes).
+'''Box arithmetic: encode and decode deltas, IoU, clipping (xyxy boxes).
 
 Port of ``moseq2_detectron_extract_tpu/ops/boxes.py`` (R-CNN
 Box2BoxTransform semantics).
@@ -27,6 +27,29 @@ def pairwise_iou(boxes1, boxes2):
     union = area1[..., :, None] + area2[..., None, :] - inter
     return torch.where(union > 0, inter / torch.clamp(union, min=1e-9),
                        torch.zeros_like(inter))
+
+
+def encode_boxes(src_boxes, target_boxes, weights=(1.0, 1.0, 1.0, 1.0)):
+    '''Deltas (..., 4) that take ``src_boxes`` to ``target_boxes``: the
+    inverse of :func:`decode_boxes`, in the float operations of the JAX
+    package's ``encode_boxes``.'''
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    wx, wy, ww, wh = weights
+    eps = 1e-6
+    dx = wx * (tgt_cx - src_cx) / torch.clamp(src_w, min=eps)
+    dy = wy * (tgt_cy - src_cy) / torch.clamp(src_h, min=eps)
+    dw = ww * torch.log(torch.clamp(tgt_w, min=eps) / torch.clamp(src_w, min=eps))
+    dh = wh * torch.log(torch.clamp(tgt_h, min=eps) / torch.clamp(src_h, min=eps))
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_boxes(deltas, boxes, weights=(1.0, 1.0, 1.0, 1.0)):

@@ -11,6 +11,10 @@ from moseq2_detectron_extract_tpu_torch.ops.boxes import pairwise_iou
 
 MAX_ITERS = 32
 
+# host syncs of the fixpoint loop (one per round's convergence test) since
+# the count was last set to 0
+sync_count = 0
+
 
 def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None):
     '''Keep mask over (B, K, 4) boxes with (B, K) scores -> bool (B, K).
@@ -27,9 +31,11 @@ def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None):
     rank_before = (s_j > s_i) | ((s_j == s_i) & (idx[None, :] < idx[:, None]))
     dominates = (iou > iou_threshold) & rank_before & valid[..., None, :]
 
+    global sync_count
     keep = torch.zeros_like(valid)
     supp = torch.zeros_like(valid)
     for _ in range(MAX_ITERS):
+        sync_count += 1
         if not bool(torch.any(valid & ~keep & ~supp)):
             break
         keep = keep | (valid & ~supp & ~torch.any(dominates & ~supp[..., None, :], dim=-1))

@@ -19,7 +19,17 @@ the weights are folded in f32 and rounded to bf16, stage 1 sums in f32 and
 rounds T to bf16, stage 2 sums in f32 and the output is rounded once to
 ``out_dtype``. Every product of two bf16 values is exact in f32, so only the
 order of the f32 sums differs from XLA's. On f32 features everything stays
-f32 (the stage-2 experiment, training).
+f32 (the stage-2 experiment).
+
+Training pools in f32 through the gather form instead
+(``roi_align.py:63-241``, :func:`batched_multilevel_roi_align`): the levels
+flattened into one (sum of B*H_l*W_l, C) buffer, four bilinear taps
+gathered per sample, in chunks of 128 ROIs. It is differentiable with
+respect to the features; its backward scatters the taps' weighted
+gradients back with ``index_add_``, chunk by chunk, so it stores no
+chunk's taps (the JAX package remats each chunk for the same reason). On
+CUDA ``index_add_`` accumulates with atomics, so the card's feature
+gradients are not bitwise repeatable.
 '''
 from typing import Optional, Sequence
 
@@ -140,3 +150,169 @@ def separable_batched_roi_align(features: Sequence[torch.Tensor], boxes,
         t = torch.einsum('bkyh,bhwc->bkywc', wy, f_stack)
     out = torch.einsum('bkxw,bkywc->bkyxc', wx, t)
     return out.to(out_dtype)
+
+
+# -- the gather form (training) ------------------------------------------------
+
+def _gather_taps(boxes, image_offsets, level_offsets, heights, widths,
+                 output_size: int, min_level: int, n_levels: int):
+    '''Per ROI: the flat row offsets of its level, the clamped tap rows and
+    columns (y0, y1, x0, x1) and the fractions (fy, fx), each (K, 2*out).'''
+    dev = boxes.device
+    levels = assign_fpn_levels(boxes, min_level=min_level,
+                               max_level=min_level + n_levels - 1)
+    level_idx = (levels - min_level).long()
+    stride_table = torch.tensor([2.0 ** (min_level + i) for i in range(n_levels)],
+                                dtype=torch.float32, device=dev)
+    ys, xs = _roi_sample_coords(boxes, output_size, stride_table[level_idx])
+    roi_off = image_offsets + level_offsets[level_idx]
+    roi_h = heights[level_idx]
+    roi_w = widths[level_idx]
+    ys = torch.minimum(torch.clamp(ys, min=0.0), (roi_h - 1).to(torch.float32)[:, None])
+    xs = torch.minimum(torch.clamp(xs, min=0.0), (roi_w - 1).to(torch.float32)[:, None])
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    fy = ys - y0
+    fx = xs - x0
+    y0 = y0.long()
+    x0 = x0.long()
+    y1 = torch.minimum(y0 + 1, (roi_h - 1)[:, None])
+    x1 = torch.minimum(x0 + 1, (roi_w - 1)[:, None])
+    return roi_off, roi_w, y0, y1, x0, x1, fy, fx
+
+
+def _chunk_index(taps, lo: int, hi: int):
+    '''The flat rows of the four taps of ROIs [lo, hi): each (n, S, S).'''
+    roi_off, roi_w, y0, y1, x0, x1, _, _ = taps
+    off = roi_off[lo:hi, None, None]
+    w = roi_w[lo:hi, None, None]
+    return [off + yy[lo:hi, :, None] * w + xx[lo:hi, None, :]
+            for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
+
+
+class _GatherPool(torch.autograd.Function):
+    '''Chunked bilinear gather-and-average over the flat pyramid.'''
+
+    @staticmethod
+    def forward(ctx, flat, taps, output_size: int, chunk: int):
+        fy, fx = taps[6], taps[7]
+        k = fy.shape[0]
+        c = flat.shape[1]
+        out = flat.new_empty((k, output_size, output_size, c))
+        for lo in range(0, k, chunk):
+            hi = min(lo + chunk, k)
+            i00, i01, i10, i11 = _chunk_index(taps, lo, hi)
+            wy = fy[lo:hi, :, None, None]
+            wx = fx[lo:hi, None, :, None]
+            vals = ((flat[i00] * (1 - wx) + flat[i01] * wx) * (1 - wy)
+                    + (flat[i10] * (1 - wx) + flat[i11] * wx) * wy)
+            out[lo:hi] = vals.reshape(hi - lo, output_size, 2, output_size, 2, c) \
+                .mean(dim=(2, 4))
+        ctx.taps = taps
+        ctx.flat_shape = flat.shape
+        ctx.output_size = output_size
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        taps, out, chunk = ctx.taps, ctx.output_size, ctx.chunk
+        fy, fx = taps[6], taps[7]
+        k = fy.shape[0]
+        c = ctx.flat_shape[1]
+        grad_flat = grad_out.new_zeros(ctx.flat_shape)
+        for lo in range(0, k, chunk):
+            hi = min(lo + chunk, k)
+            g = grad_out[lo:hi]
+            # the mean's gradient on each of the 2x2 samples of an output bin
+            g = (g[:, :, None, :, None, :] * 0.25).expand(
+                -1, -1, 2, -1, 2, -1).reshape(hi - lo, 2 * out, 2 * out, c)
+            wy = fy[lo:hi, :, None, None]
+            wx = fx[lo:hi, None, :, None]
+            gy0 = g * (1 - wy)
+            gy1 = g * wy
+            for idx, gt in zip(_chunk_index(taps, lo, hi),
+                               (gy0 * (1 - wx), gy0 * wx, gy1 * (1 - wx), gy1 * wx)):
+                grad_flat.index_add_(0, idx.reshape(-1), gt.reshape(-1, c))
+        return grad_flat, None, None, None
+
+
+def _pool_from_flat(flat, boxes, image_offsets, level_offsets, heights, widths,
+                    output_size: int, min_level: int, n_levels: int, chunk: int):
+    '''Pool (K, 4) boxes from the flat (rows, C) pyramid -> (K, out, out, C).'''
+    taps = _gather_taps(boxes, image_offsets, level_offsets, heights, widths,
+                        output_size, min_level, n_levels)
+    return _GatherPool.apply(flat, taps, output_size, chunk)
+
+
+def _level_tables(features, dev):
+    sizes = [f.shape[-3] * f.shape[-2] for f in features]
+    offsets = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))],
+                           dtype=torch.int64, device=dev)
+    heights = torch.tensor([f.shape[-3] for f in features], dtype=torch.int64, device=dev)
+    widths = torch.tensor([f.shape[-2] for f in features], dtype=torch.int64, device=dev)
+    return sum(sizes), offsets, heights, widths
+
+
+def multilevel_roi_align(features: Sequence[torch.Tensor], boxes, output_size: int,
+                         min_level: int = 2, chunk: int = 128):
+    '''Pool (K, 4) boxes from one image's NHWC levels (H_l, W_l, C) ->
+    (K, out, out, C), f32, differentiable in the features.'''
+    return batched_multilevel_roi_align([f[None] for f in features], boxes[None],
+                                        output_size, min_level, chunk)[0]
+
+
+def batched_multilevel_roi_align(features: Sequence[torch.Tensor], boxes,
+                                 output_size: int, min_level: int = 2,
+                                 chunk: int = 128):
+    '''Pool (B, K, 4) boxes from batched NHWC levels (B, H_l, W_l, C) ->
+    (B, K, out, out, C) in the features' dtype, differentiable in the
+    features (not in the boxes). The batch folds into the flat buffer
+    (image-major, level-minor), so memory is bounded by ``chunk`` ROIs.'''
+    b, k = boxes.shape[:2]
+    c = features[0].shape[-1]
+    dev = boxes.device
+    per_image, offsets, heights, widths = _level_tables(features, dev)
+    flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1).reshape(-1, c)
+    image_offsets = torch.arange(b, dtype=torch.int64, device=dev).repeat_interleave(k) \
+        * per_image
+    pooled = _pool_from_flat(flat, boxes.reshape(b * k, 4).detach().float(), image_offsets,
+                             offsets, heights, widths, output_size, min_level,
+                             len(features), chunk)
+    return pooled.reshape(b, k, output_size, output_size, c)
+
+
+def crop_resize_masks(masks, gt_idx, boxes, output_size: int):
+    '''Bilinear crops of gt masks at boxes, ROIAlignV2's grid with one
+    sample per bin: masks (B, G, H, W), gt_idx (B, R) the mask of each box,
+    boxes (B, R, 4) -> (B, R, out, out) f32 (the mask-loss targets).'''
+    b, _, h, w = masks.shape
+    frac = (torch.arange(output_size, dtype=torch.float32, device=boxes.device) + 0.5) \
+        / output_size
+    xs = boxes[..., 0, None] + (boxes[..., 2] - boxes[..., 0])[..., None] * frac - 0.5
+    ys = boxes[..., 1, None] + (boxes[..., 3] - boxes[..., 1])[..., None] * frac - 0.5
+    xs = torch.clamp(xs, 0.0, w - 1.0)
+    ys = torch.clamp(ys, 0.0, h - 1.0)
+    x0 = torch.floor(xs).long()
+    y0 = torch.floor(ys).long()
+    fx = xs - x0
+    fy = ys - y0
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    bi = torch.arange(b, device=boxes.device)[:, None, None, None]
+    gi = gt_idx[..., None, None]
+    m = masks.to(torch.float32)
+
+    def tap(yy, xx):
+        return m[bi, gi, yy[..., :, None], xx[..., None, :]]
+
+    top = tap(y0, x0) * (1 - fx)[..., None, :] + tap(y0, x1) * fx[..., None, :]
+    bot = tap(y1, x0) * (1 - fx)[..., None, :] + tap(y1, x1) * fx[..., None, :]
+    return top * (1 - fy)[..., :, None] + bot * fy[..., :, None]
+
+
+def crop_resize_mask(mask, box, output_size: int):
+    '''One (H, W) mask cropped at one (4,) box -> (out, out) f32.'''
+    return crop_resize_masks(mask[None, None], torch.zeros((1, 1), dtype=torch.int64,
+                                                           device=box.device),
+                             box[None, None], output_size)[0, 0]

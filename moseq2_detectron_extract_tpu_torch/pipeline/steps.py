@@ -319,7 +319,8 @@ class InferenceStep(PipelineStep):
             predictor = Predictor.from_model_dir(
                 self.config['model'], batch_size=self.config.get('batch_size', 10),
                 score_threshold=self.config.get('instance_threshold', 0.5),
-                device=self.config.get('device', 'cuda'))
+                device=self.config.get('device', 'cuda'),
+                checkpoint=str(self.config.get('checkpoint', 'last')))
         self.predictor = predictor
 
     def process(self, data):

@@ -1,7 +1,9 @@
 '''Keypoint rotation, z heights and the writers' keypoint dict.
 
 Port of ``moseq2_detectron_extract_tpu/proc/keypoints.py``:
-``default_keypoint_names``, ``rotate_points_batch`` (line 71),
+``default_keypoint_names``, ``default_keypoint_colors`` and
+``default_keypoint_connection_rules`` (the annotation metadata),
+``rotate_points_batch`` (line 71),
 ``keypoint_attributes`` (87), ``dispatch_z_lookup`` (103) and
 ``keypoints_to_dict`` (123). The z lookup
 gathers from the cleaned windows on their device; only the (N, K) values
@@ -23,6 +25,29 @@ default_keypoint_names = [
     'Right Hip',
     'TailBase',
     'TailTip',
+]
+
+default_keypoint_colors = [
+    (255, 255, 153),  # Nose
+    (166, 206, 227),  # Left Ear
+    (31, 120, 180),   # Right Ear
+    (255, 255, 153),  # Neck
+    (178, 223, 138),  # Left Hip
+    (51, 160, 44),    # Right Hip
+    (227, 26, 28),    # TailBase
+    (251, 154, 153),  # TailTip
+]
+
+default_keypoint_connection_rules = [
+    ('Nose', 'Left Ear', (166, 206, 227)),
+    ('Nose', 'Right Ear', (31, 120, 180)),
+    ('Neck', 'Left Ear', (166, 206, 227)),
+    ('Neck', 'Right Ear', (31, 120, 180)),
+    ('Neck', 'Left Hip', (178, 223, 138)),
+    ('Neck', 'Right Hip', (51, 160, 44)),
+    ('TailBase', 'Left Hip', (178, 223, 138)),
+    ('TailBase', 'Right Hip', (51, 160, 44)),
+    ('TailBase', 'TailTip', (251, 154, 153)),
 ]
 
 

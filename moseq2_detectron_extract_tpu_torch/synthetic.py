@@ -10,6 +10,10 @@ a tilted, rough floor near ``FLOOR_DEPTH`` inside a circular arena ringed by
 walls at ``WALL_DEPTH``, so that the host prep of its frames gives chunks
 like these, and the plane RANSAC of its background weighs hypotheses that
 really differ.
+
+``write_annotated_views`` writes a Label Studio export of the same mouse:
+``_depth.png`` views (as ``dataset.py`` writes sampled frames) with an
+outline polygon and eight keypoints along the body axis per view.
 '''
 import json
 import os
@@ -134,4 +138,63 @@ def write_raw_session(dirname: str, nframes: int, height: int = 424, width: int 
                    'SessionName': 'synthetic-session'}, fh)
     np.savetxt(os.path.join(dirname, 'depth_ts.txt'), np.arange(nframes) * (1000.0 / 30.0),
                fmt='%.3f')
+    return path
+
+
+KEYPOINT_NAMES = ('Nose', 'Left Ear', 'Right Ear', 'Neck', 'Left Hip', 'Right Hip',
+                  'TailBase', 'TailTip')
+# each keypoint's place on the body ellipse, in half axes (along, across)
+_KEYPOINT_PLACES = ((0.95, 0.0), (0.55, 0.45), (0.55, -0.45), (0.35, 0.0),
+                    (-0.45, 0.5), (-0.45, -0.5), (-0.9, 0.0), (-1.5, 0.0))
+
+
+def write_annotated_views(dirname: str, n: int, size: int = 150, seed: int = 0,
+                          outline_points: int = 24) -> str:
+    '''Write ``n`` (size, size) uint8 ``_depth.png`` views of the mouse at
+    random poses and their Label Studio export (``export.json``: a polygon of
+    the body's outline and the eight keypoints, in percent coordinates);
+    returns the export's path.'''
+    from moseq2_detectron_extract_tpu_torch.io.image import write_image
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    os.makedirs(dirname, exist_ok=True)
+    tasks = []
+    for i in range(n):
+        a = rng.uniform(0.16, 0.22) * size
+        b = a * rng.uniform(0.45, 0.6)
+        cx, cy = rng.uniform(0.3, 0.7, 2) * size
+        heading = rng.uniform(0, 2 * np.pi)
+        ca, sa = np.cos(heading), np.sin(heading)
+        u = (xx - cx) * ca + (yy - cy) * sa
+        v = -(xx - cx) * sa + (yy - cy) * ca
+        body = (u / a) ** 2 + (v / b) ** 2 <= 1.0
+        head = (u - 0.6 * a) ** 2 + v ** 2 <= (0.6 * b) ** 2
+        frame = np.where(body, MOUSE_HEIGHT + rng.normal(0, 1.0, body.shape), 0.0) + \
+            np.where(head & body, 0.36 * MOUSE_HEIGHT, 0.0)
+        name = f'view_{i:03d}_depth.png'
+        write_image(os.path.join(dirname, name), np.clip(frame, 0, 255), scale=False,
+                    dtype='uint8')
+
+        def to_image(along, across):
+            return (cx + along * a * ca - across * b * sa,
+                    cy + along * a * sa + across * b * ca)
+
+        t = np.linspace(0, 2 * np.pi, outline_points, endpoint=False)
+        outline = [to_image(np.cos(tt), np.sin(tt)) for tt in t]
+        base = {'original_width': size, 'original_height': size, 'image_rotation': 0}
+        result = [dict(base, type='polygonlabels', from_name='label', to_name='image',
+                       value={'points': [[100.0 * x / size, 100.0 * y / size]
+                                         for x, y in outline],
+                              'polygonlabels': ['mouse']})]
+        for kp_name, (along, across) in zip(KEYPOINT_NAMES, _KEYPOINT_PLACES):
+            x, y = to_image(along, across)
+            result.append(dict(base, type='keypointlabels', from_name='kp', to_name='image',
+                               value={'x': 100.0 * x / size, 'y': 100.0 * y / size,
+                                      'width': 0.5, 'keypointlabels': [kp_name]}))
+        tasks.append({'id': i + 1,
+                      'data': {'image': os.path.join(dirname, f'{i:08x}-{name}')},
+                      'annotations': [{'id': i + 1, 'result': result}]})
+    path = os.path.join(dirname, 'export.json')
+    with open(path, 'w', encoding='utf-8') as fh:
+        json.dump(tasks, fh)
     return path

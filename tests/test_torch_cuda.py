@@ -498,3 +498,89 @@ def test_cuda_transpose_is_retile(cuda_device, b, k, c, canvas, block_k):
     tra, ret = twin_outputs(cuda_device, ('transpose', 'retile'), b, k, c, canvas, block_k)
     assert tra.shape == ret.shape == (b, k, 7, 7, c)
     assert torch.equal(tra, ret)
+
+
+# -- training ----------------------------------------------------------------------
+# The gather ROIAlign's backward scatters with index_add_, which accumulates
+# with atomics on the card: its feature gradients are not bitwise repeatable,
+# and are held to the CPU to 1e-4 of their largest value. Its forward is held
+# to 1e-4: nvcc fuses the sample coordinates' multiply-adds, which moves a
+# coordinate near 40 (a level's width) by an f32 ulp, 4e-6, and the output by
+# up to that times the taps' difference (measured on the card: 1.9e-5). One train step of the tiny model, f32 with TF32 off: the loss
+# terms to 1e-4 relative, every gradient and the updated weights to 1e-4 of
+# their largest value.
+
+def _no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return saved
+
+
+def _restore_tf32(saved):
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize('out,k', [(7, 256), (14, 40)])
+def test_cuda_gather_roi_align_forward_and_backward_match_cpu(cuda_device, out, k):
+    from moseq2_detectron_extract_tpu_torch.ops.roi_align import batched_multilevel_roi_align
+    feats, boxes = random_pyramid(2, k, 64, seed=out)
+    grads = np.random.default_rng(out).normal(0, 1, (2, k, out, out, 64)).astype('float32')
+    res = {}
+    for dev in ('cpu', cuda_device):
+        levels = [torch.from_numpy(f).to(dev).requires_grad_() for f in feats]
+        pooled = batched_multilevel_roi_align(levels, torch.from_numpy(boxes).to(dev), out)
+        pooled.backward(torch.from_numpy(grads).to(dev))
+        res[str(dev)] = (pooled.detach().cpu(), [f.grad.cpu() for f in levels])
+    (p_cpu, g_cpu), (p_gpu, g_gpu) = res['cpu'], res['cuda']
+    torch.testing.assert_close(p_gpu, p_cpu, rtol=0, atol=1e-4)
+    for a, b in zip(g_gpu, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_cuda_train_step_matches_cpu(cuda_device):
+    from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN, draw_loss_uniforms
+    from moseq2_detectron_extract_tpu_torch.models.train import (TrainState, make_optimizer,
+                                                                 make_train_step)
+    cfg = ModelConfig(image_size=64, min_size_test=64, max_size_test=64,
+                      resnet_stage_blocks=(1, 1, 1, 1), resnet_width=16, fpn_channels=64,
+                      box_fc_dim=128, mask_conv_dims=(64, 64), keypoint_conv_dims=(64, 64),
+                      amp_dtype='float32', rpn_pre_nms_topk_train=200,
+                      rpn_post_nms_topk_train=64, roi_batch_size_per_image=32,
+                      max_gt_instances=1, warmup_iters=1, base_lr=0.01)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.normal(0, 1, (2, 3, 64, 64)).astype('float32'))
+    masks = torch.zeros((2, 1, 64, 64), dtype=torch.bool)
+    masks[0, 0, 10:40, 12:50] = True
+    masks[1, 0, 30:55, 5:30] = True
+    gt = {'boxes': torch.tensor([[[12.0, 10, 50, 40]], [[5.0, 30, 30, 55]]]),
+          'valid': torch.ones((2, 1), dtype=torch.bool), 'masks': masks,
+          'keypoints': torch.zeros((2, 1, 8, 3))}
+    gt['keypoints'][..., 0] = torch.linspace(14, 28, 8)
+    gt['keypoints'][..., 1] = 35.0
+    gt['keypoints'][..., 2] = 2.0
+    draws = draw_loss_uniforms(torch.Generator().manual_seed(1), cfg, 2, 'cpu')
+    torch.manual_seed(0)
+    state_dict = MaskKeypointRCNN(cfg).state_dict()
+    saved = _no_tf32()
+    try:
+        out = {}
+        for dev in ('cpu', 'cuda'):
+            model = MaskKeypointRCNN(cfg)
+            model.load_state_dict(state_dict)
+            model.to(dev)
+            state = TrainState(0, model, make_optimizer(cfg, model))
+            batch = {'images': images.to(dev), 'gt': {k: v.to(dev) for k, v in gt.items()}}
+            dv = {k: tuple(u.to(dev) for u in pair) for k, pair in draws.items()}
+            _, metrics = make_train_step(cfg)(state, batch, dv)
+            out[dev] = ({k: float(v) for k, v in metrics.items()},
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    finally:
+        _restore_tf32(saved)
+    (m_cpu, w_cpu), (m_gpu, w_gpu) = out['cpu'], out['cuda']
+    for key, value in m_cpu.items():
+        assert abs(m_gpu[key] - value) <= 1e-4 * max(abs(value), 1e-6), key
+    for name, value in w_cpu.items():
+        scale = max(float((value - state_dict[name]).abs().max()), 1e-12)
+        assert float((w_gpu[name] - value).abs().max()) <= 1e-4 * max(
+            float(value.abs().max()), scale), name

@@ -3,8 +3,10 @@ package, and runs ``process_chunk``, the session path (a raw session
 written, ``prepare_session``, one prepped chunk, then ``extract_chunks``
 through the host brain and the output ops, with the mouse away for a few
 frames), the ``extract`` command on a model directory (its pipeline threads,
-results file and status YAML, read back), the C++ Kalman core and the
-stage-2 experiment's check on the CPU with all of them blocked.'''
+results file and status YAML, read back), the ``train`` command (a
+synthetic Label Studio export of PNG views, two steps, a checkpoint, then
+``Predictor`` on the trained dir), the C++ Kalman core and the stage-2
+experiment's check on the CPU with all of them blocked.'''
 import ast
 import os
 import subprocess
@@ -18,13 +20,23 @@ BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2', 'h5py', 'yaml',
            'click', 'PIL', 'tqdm', 'moseq2_detectron_extract_tpu')
 
 _SCRIPT = r'''
-import importlib, pkgutil, sys
+import importlib, importlib.machinery, pkgutil, sys
 BLOCKED = %r
+
+# Loads nothing: importing a blocked module raises. Its spec is found
+# (without an origin), so that importlib.util.find_spec probes, which
+# torch.optim's import of torch._dynamo makes, still get an answer.
+class Refuse:
+    def create_module(self, spec):
+        raise ImportError(f'blocked import of {spec.name}')
+
+    def exec_module(self, module):
+        raise ImportError(f'blocked import of {module.__name__}')
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
-            raise ImportError(f'blocked import of {name}')
+            return importlib.machinery.ModuleSpec(name, Refuse())
         return None
 
 sys.meta_path.insert(0, Blocker())
@@ -96,6 +108,20 @@ with tempfile.TemporaryDirectory() as tmp:
     with hdf5.File(os.path.join(out, 'results_00.h5'), 'r') as r:
         assert r['frames'].shape == (12, 80, 80) and len(r['keypoints/reference'].keys()) == 48
         assert r['scalars/area_px'][0:12].shape == (12,)
+    # the train command on a synthetic export: PNG views, two steps
+    from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
+    export = write_annotated_views(os.path.join(tmp, 'views'), 6, size=64, seed=0)
+    tcfg = cfg.replace(min_size_train=60, max_size_train=64, rpn_pre_nms_topk_train=64,
+                       rpn_post_nms_topk_train=32, roi_batch_size_per_image=16,
+                       ims_per_batch=2, max_gt_instances=1, warmup_iters=1)
+    tcfg.to_yaml(os.path.join(tmp, 'train.yaml'))
+    tdir = os.path.join(tmp, 'trained')
+    assert cli.main(['train', export, '--model-dir', tdir, '--config',
+                     os.path.join(tmp, 'train.yaml'), '--max-iter', '2',
+                     '--device', 'cpu']) == 0
+    assert os.listdir(os.path.join(tdir, 'checkpoints')) == ['model_0000002.pt']
+    trained = Predictor.from_model_dir(tdir, batch_size=2, device='cpu')
+    assert trained.cfg.max_iter == 2
 import numpy as np
 from moseq2_detectron_extract_tpu_torch.proc import kalman
 params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),

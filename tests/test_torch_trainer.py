@@ -1,0 +1,242 @@
+'''The port's trainer and ``train`` command on the CPU, and the npz that
+both packages read.
+
+* ``cli.main(['train', ..., '--device', 'cpu', '--max-iter', '4'])`` on a
+  tiny export writes ``config.yaml``, ``metrics.jsonl`` (the JAX
+  ``MetricsWriter``'s row keys), the checkpoints and ``last_checkpoint``;
+  a resumed ``Trainer`` holds the step, the weights and the momentum
+  buffers of the checkpoint exactly, and ``--resume`` continues the count.
+* ``save_params_npz`` read by the JAX ``load_params_npz``: the keys and
+  values of ``params_to_jax``; ``params_to_jax(params_from_jax(p)) == p``.
+* The JAX ``MaskKeypointRCNN.inference`` on the port-written npz against
+  the port's model on the same weights and images, at
+  ``test_torch_model``'s tolerances (1e-3; masks: at most 0.1% of the
+  pixels flip), and the JAX ``Predictor`` on the trained model dir's npz
+  against the port's at ``test_torch_slice``'s (scores 2e-3, boxes and
+  keypoints 0.5 px).
+* flax's default init: each layer's weight std within 10% of
+  lecun_normal's.
+'''
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from moseq2_detectron_extract_tpu.models.checkpoint import load_params_npz as jax_load_npz
+from moseq2_detectron_extract_tpu.models.config import ModelConfig as JaxModelConfig
+from moseq2_detectron_extract_tpu.models.predictor import Predictor as JaxPredictor
+from moseq2_detectron_extract_tpu.models.rcnn import MaskKeypointRCNN as JaxRCNN
+from moseq2_detectron_extract_tpu_torch import cli
+from moseq2_detectron_extract_tpu_torch.io.annot import read_annotations
+from moseq2_detectron_extract_tpu_torch.models.checkpoint import (get_checkpoint,
+                                                                  load_checkpoint,
+                                                                  load_model_dir)
+from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
+from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
+from moseq2_detectron_extract_tpu_torch.models.train import create_train_state
+from moseq2_detectron_extract_tpu_torch.models.trainer import Trainer
+from moseq2_detectron_extract_tpu_torch.models.weights import (params_from_jax,
+                                                               params_to_jax,
+                                                               save_params_npz)
+from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
+
+from tests.test_torch_common import flatten_params, jax_init_params, tiny_jax_config
+
+TRAIN_ROW_KEYS = {'step', 'loss_rpn_cls', 'loss_rpn_loc', 'loss_cls', 'loss_box_reg',
+                  'loss_mask', 'loss_keypoint', 'total_loss', 'lr', 'iters_per_sec'}
+
+
+def tiny_train_config(**overrides) -> ModelConfig:
+    base = dict(image_size=64, min_size_train=60, max_size_train=64, min_size_test=60,
+                max_size_test=64, resnet_stage_blocks=(1, 1, 1, 1), resnet_width=16,
+                fpn_channels=32, box_fc_dim=32, mask_conv_dims=(32,),
+                keypoint_conv_dims=(32,), rpn_pre_nms_topk_train=128,
+                rpn_post_nms_topk_train=64, roi_batch_size_per_image=32, ims_per_batch=2,
+                max_gt_instances=1, amp_dtype='float32', warmup_iters=2, eval_period=2,
+                checkpoint_period=3, base_lr=0.01, test_score_thresh=0.0)
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+@pytest.fixture(scope='module')
+def trained(tmp_path_factory):
+    '''The train command, 4 steps on the CPU, on a 12-view export.'''
+    tmp = tmp_path_factory.mktemp('train')
+    export = write_annotated_views(str(tmp / 'data'), 12, size=64, seed=0)
+    cfg_path = str(tmp / 'cfg.yaml')
+    tiny_train_config().to_yaml(cfg_path)
+    model_dir = str(tmp / 'model')
+    assert cli.main(['train', export, '--model-dir', model_dir, '--config', cfg_path,
+                     '--max-iter', '4', '--device', 'cpu', '--log-period', '1']) == 0
+    return {'tmp': tmp, 'export': export, 'cfg_path': cfg_path, 'model_dir': model_dir}
+
+
+def _rows(model_dir):
+    with open(os.path.join(model_dir, 'metrics.jsonl'), encoding='utf-8') as fh:
+        return [json.loads(line) for line in fh]
+
+
+def test_train_command_writes_the_model_dir(trained):
+    model_dir = trained['model_dir']
+    assert sorted(os.listdir(model_dir)) == ['checkpoints', 'config.yaml', 'last_checkpoint',
+                                             'metrics.jsonl']
+    assert sorted(os.listdir(os.path.join(model_dir, 'checkpoints'))) == \
+        ['model_0000003.pt', 'model_0000004.pt']
+    with open(os.path.join(model_dir, 'last_checkpoint'), encoding='utf-8') as fh:
+        assert fh.read() == 'model_0000004.pt'
+    cfg = ModelConfig.from_yaml(os.path.join(model_dir, 'config.yaml'))
+    assert cfg == tiny_train_config(max_iter=4)
+    assert JaxModelConfig.from_yaml(os.path.join(model_dir, 'config.yaml')).max_iter == 4
+    rows = _rows(model_dir)
+    train_rows = [r for r in rows if 'total_loss' in r]
+    val_rows = [r for r in rows if 'validation_loss' in r]
+    assert [r['step'] for r in train_rows] == [1, 2, 3, 4]
+    assert all(set(r) == TRAIN_ROW_KEYS for r in train_rows)      # no CUDA: no memory keys
+    assert [sorted(r) for r in val_rows] == [['step', 'validation_loss']] * 2
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    assert train_rows[0]['lr'] == pytest.approx(0.01 * (0.001 + 0.999 * 0 / 2))
+    assert train_rows[2]['lr'] == pytest.approx(0.01)
+
+
+def test_resume_restores_step_weights_and_momentum(trained):
+    model_dir = trained['model_dir']
+    ckpt = load_checkpoint(get_checkpoint(model_dir))
+    assert ckpt['step'] == 4
+    items = read_annotations(trained['export'], default_keypoint_names)
+    trainer = Trainer(tiny_train_config(max_iter=4), model_dir, train_items=items,
+                      test_items=[], device='cpu')
+    trainer.resume_or_load(resume=True)
+    assert trainer.state.step == 4
+    for name, value in trainer.state.model.state_dict().items():
+        assert torch.equal(value, ckpt['model'][name]), name
+    opt = trainer.state.optimizer.state_dict()
+    buffers = [s['momentum_buffer'] for s in opt['state'].values()]
+    assert len(buffers) == len(list(trainer.state.model.parameters()))
+    for ours, saved in zip(buffers, [s['momentum_buffer']
+                                     for s in ckpt['optimizer']['state'].values()]):
+        assert torch.equal(ours, saved)
+    assert any(float(b.abs().max()) > 0 for b in buffers)
+    # the command continues the count from the checkpoint
+    resumed = str(trained['tmp'] / 'resumed')
+    shutil.copytree(model_dir, resumed)
+    cli.main(['train', trained['export'], '--model-dir', resumed, '--config',
+              trained['cfg_path'], '--max-iter', '6', '--resume', '--device', 'cpu',
+              '--log-period', '1'])
+    steps = [r['step'] for r in _rows(resumed) if 'total_loss' in r]
+    assert steps == [1, 2, 3, 4, 5, 6]
+    assert load_model_dir(resumed)[2] == 6
+
+
+def test_train_command_options_that_raise(trained, tmp_path):
+    with pytest.raises(NotImplementedError, match='init-weights'):
+        cli.main(['train', trained['export'], '--model-dir', str(tmp_path / 'm'),
+                  '--init-weights', trained['export'], '--device', 'cpu'])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='cuda'):
+            cli.main(['train', trained['export'], '--model-dir', str(tmp_path / 'm')])
+
+
+def test_trained_dir_loads_in_both_packages(trained, tmp_path):
+    '''The trained dir through the port's Predictor (its checkpoint) and,
+    with its npz, through the JAX package's Predictor.'''
+    model_dir = trained['model_dir']
+    cfg, state, step = load_model_dir(model_dir)
+    assert step == 4
+    export = tmp_path / 'export'
+    export.mkdir()
+    shutil.copy(os.path.join(model_dir, 'config.yaml'), export)
+    save_params_npz(str(export / 'params_f16.npz'), state, cfg.box_pooler_resolution)
+    frames = np.stack([np.asarray(f, np.uint8) for f in
+                       [read_image_of(it) for it in read_annotations(
+                           trained['export'], default_keypoint_names)[:4]]])
+    ours = Predictor.from_model_dir(str(export), batch_size=2, device='cpu')(
+        torch.from_numpy(frames))
+    from_ckpt = Predictor.from_model_dir(model_dir, batch_size=2, device='cpu')(
+        torch.from_numpy(frames))
+    jcfg = JaxModelConfig.from_yaml(str(export / 'config.yaml'))
+    ref = JaxPredictor(jcfg, jax_load_npz(str(export / 'params_f16.npz')), batch_size=2)(frames)
+    # the Predictors' tolerances of test_torch_slice: each package resizes the
+    # frames its own way before the model (measured here: boxes up to 0.011 px
+    # apart, at a coordinate near 0 up to 1.2% of it)
+    np.testing.assert_allclose(ours['scores'].numpy(), np.asarray(ref['scores']), atol=2e-3)
+    np.testing.assert_allclose(ours['boxes'].numpy(), np.asarray(ref['boxes']), atol=0.5)
+    np.testing.assert_allclose(ours['keypoints'].numpy()[..., :2],
+                               np.asarray(ref['keypoints'])[..., :2], atol=0.5)
+    # f16 weights against the f32 checkpoint
+    np.testing.assert_allclose(ours['scores'].numpy(), from_ckpt['scores'].numpy(), atol=1e-2)
+
+
+def read_image_of(item):
+    from moseq2_detectron_extract_tpu_torch.io.image import read_image
+    return read_image(item['file_name'])
+
+
+def test_npz_round_trip_through_the_jax_reader(tmp_path):
+    cfg = tiny_jax_config()
+    _, flat = jax_init_params(cfg, seed=3)
+    state = params_from_jax(flat)
+    back = params_to_jax(state)
+    assert set(back) == set(flat)
+    for key, value in flat.items():
+        np.testing.assert_array_equal(back[key], value, err_msg=key)
+    path = str(tmp_path / 'params_f16.npz')
+    save_params_npz(path, state)
+    jax_tree = flatten_params(jax_load_npz(path))
+    assert set(jax_tree) == set(back)
+    for key, value in back.items():
+        np.testing.assert_array_equal(jax_tree[key], value.astype(np.float16).astype(np.float32),
+                                      err_msg=key)
+
+
+def test_jax_inference_on_the_port_written_npz(tmp_path):
+    cfg = tiny_jax_config(test_score_thresh=0.0)
+    model = create_train_state(ModelConfig(**{k: getattr(cfg, k) for k in
+                                              cfg.__dataclass_fields__}),
+                               seed=4, device='cpu').model
+    path = str(tmp_path / 'params_f16.npz')
+    save_params_npz(path, model.state_dict())
+    params = jax.tree_util.tree_map(jnp.asarray, jax_load_npz(path))
+    port = MaskKeypointRCNN(model.cfg)
+    port.load_state_dict(params_from_jax(flatten_params(jax_load_npz(path))))
+    port.eval()
+    images = np.random.default_rng(8).normal(0, 1, (2, 64, 64, 3)).astype('float32')
+    ref = jax.jit(lambda p, x: JaxRCNN(cfg).apply(p, x, method=JaxRCNN.inference))(
+        params, jnp.asarray(images))
+    ours = port.inference(torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))))
+    np.testing.assert_array_equal(ours['valid'].numpy(), np.asarray(ref['valid']))
+    for key in ('boxes', 'scores', 'keypoints', 'mask_probs', 'keypoint_heatmaps'):
+        np.testing.assert_allclose(ours[key].numpy(), np.asarray(ref[key]), rtol=1e-3,
+                                   atol=1e-3, err_msg=key)
+    flips = (ours['masks'].numpy() != np.asarray(ref['masks'])).sum()
+    assert flips <= 1e-3 * ours['masks'].numel(), flips
+
+
+def test_init_follows_flax_defaults():
+    model = create_train_state(tiny_train_config(keypoint_conv_dims=(64, 64)), seed=0,
+                               device='cpu').model
+    checked = 0
+    for name, m in model.named_modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)):
+            w = m.weight.detach()
+            fan_in = (w.shape[0] if isinstance(m, torch.nn.ConvTranspose2d) else w.shape[1]) \
+                * int(np.prod(w.shape[2:]))
+            if w.numel() >= 2000:
+                assert abs(float(w.std()) / np.sqrt(1.0 / fan_in) - 1.0) < 0.1, name
+                checked += 1
+            std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+            assert float(w.abs().max()) <= 2 * std + 1e-6, name
+            if m.bias is not None:
+                assert not m.bias.any(), name
+        elif isinstance(m, torch.nn.GroupNorm):
+            assert bool((m.weight == 1).all()) and not m.bias.any(), name
+    assert checked > 10
+    bn = model.backbone.stem_norm
+    assert bool((bn.weight == 1).all()) and bool((bn.running_var == 1).all())
