@@ -17,7 +17,9 @@ Phases, each printed with its elapsed seconds as it starts:
    frame clean on (64, 160, 160) uint8, bit-exact. Times are device time
    per call from a ``torch.profiler`` trace of 20 calls (and, in the
    phase lines, the median CUDA-event time around single calls, which
-   includes the host's launch time), beside each kernel's bound (the larger
+   includes the host's launch time; ROIAlign also through its registered
+   op, ``m2de::roi_align_bf16``, which the path calls), beside each
+   kernel's bound (the larger
    of its bytes over 3.35 TB/s and the operations of a minimal form of its
    function over the card's rate for them: 67e12 fp32 operations per second
    for ROIAlign, 66.9e12 two-input min/max for the clean) and the plain
@@ -132,13 +134,40 @@ Phases, each printed with its elapsed seconds as it starts:
    (d) the trained weights written as ``params_f16.npz`` by
    ``save_params_npz`` and loaded by ``Predictor.from_model_dir``, run on 16
    views (the ROIAlign kernel's launches counted: 3 per batch of 8);
+4e. the model lifecycle, through ``cli`` (phase 4d's views, config and
+   trained model and phase 4b's session kept for it): (a) a Detectron2
+   ``keypoint_rcnn_R_50_FPN_3x`` checkpoint made from ``--seed`` with numpy
+   at the zoo's names and shapes (an FPN without norms, whose convs carry
+   biases; person and background logits; 17 COCO keypoints; no mask head)
+   written as a ``.pkl`` and converted by ``convert-weights`` onto the
+   fast160 config: the report's four counts, equal to the CPU converter's
+   on the same file and to what the names give, then ``train
+   --init-weights`` for 10 steps on the 48 views, every loss finite; (b)
+   ``evaluate`` of phase 4d's model on the views' test split on the card
+   and with ``--device cpu``, each AP within 100 / (test views) points
+   (one image's match a threshold: bf16 compute on both, in other orders,
+   and cuDNN's run-to-run keypoint variation, move a detection's IoU or
+   OKS across a threshold), with the card's and the CPU's top detection
+   compared per view (box IoU, score difference); (c)
+   ``compile-model`` at batch 10 and canvas 160 (``torch.export``): the
+   export's wall time and ``model.pt2``'s size, the loaded program on 10
+   views against the live Predictor bit for bit with
+   ``cudnn.deterministic``, the ROIAlign kernel launched 3 times by the
+   program's batch, and the post-export evaluation equal to the live one;
+   (d) ``infer-dataset`` on the 48 views: ms per image, the polygons and
+   keypoints written; (e) ``find-roi`` on phase 4b's session, whose ROI,
+   background and true depth must equal ``prepare_session``'s. The ROIAlign
+   launches of the phase are counted from 0 and must equal 3 per image
+   evaluated or pre-annotated on the card and per program batch;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
    experiment run; ROIAlign's and the clean's ``launches`` those of phase
    4's chunk, ``session_launches`` those of phase 4b and
    ``extract_launches`` those of phase 4c (a), ``train_export_launches``
-   those of phase 4d (d); ROIAlign's ``max_ulps`` and
+   those of phase 4d (d), ``lifecycle_launches`` those of phase 4e;
+   ROIAlign's ``op_ms`` its device time through the registered op (``ms``
+   is the direct launch's), ``max_ulps`` and
    ``one_ulp`` its distance from the plain version in bf16 steps), the
    whole smoke's wall time, then the result line.
 
@@ -151,9 +180,11 @@ import functools
 import json
 import os
 import pstats
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -374,8 +405,12 @@ def check_kernels(rng, reps: int, card: str):
         kernel = functools.partial(roi_align_kernel.roi_align_cuda, levels, boxes, out)
         plain = functools.partial(separable_batched_roi_align, levels, boxes, out,
                                   out_dtype=torch.bfloat16)
+        via_op = functools.partial(torch.ops.m2de.roi_align_bf16, levels, boxes, out, 2)
+        if not torch.equal(via_op(), got):
+            raise AssertionError(f'roi_align {stage}: the registered op differs from the launch')
         ms, plain_ms = device_ms(kernel, reps), device_ms(plain, reps)
         wall, plain_wall = wall_ms(kernel, reps), wall_ms(plain, reps)
+        op_ms, op_wall = device_ms(via_op, reps), wall_ms(via_op, reps)
         nbytes, ops = roi_bound(levels, boxes, out)
         b_ms, by = bound_ms(nbytes, ops)
         plan = roi_align_kernel.launch_plan(16 * k, 256, out, 8)
@@ -384,8 +419,11 @@ def check_kernels(rng, reps: int, card: str):
         phase(f'roi_align {stage} (B=16, K={k}, out={out}, C=256): max_abs_err '
               f'{float(err.max()):.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); device ms: kernel '
               f'{ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by} ({nbytes} B, '
-              f'{ops} ops); wall ms per call: kernel {wall:.4f}, plain {plain_wall:.4f} [{card}]')
+              f'{ops} ops); wall ms per call: kernel {wall:.4f}, plain {plain_wall:.4f}; '
+              f'through the registered op m2de::roi_align_bf16 (bit for bit the launch): '
+              f'device ms {op_ms:.4f}, wall ms {op_wall:.4f} [{card}]')
         roi['ms'] += ms
+        roi['op_ms'] = roi.get('op_ms', 0.0) + op_ms
         roi['plain_ms'] += plain_ms
         roi['max_abs_err'] = max(roi['max_abs_err'], float(err.max()))
         roi['bytes'] += nbytes
@@ -986,15 +1024,15 @@ def check_absent_session(predictor, card: str, seed: int, tmp: str) -> None:
                              'with a non-finite tracker state')
 
 
-def check_session(predictor, card: str, seed: int, model_dir: str) -> dict:
-    '''Phase 4b: a raw session on disk through ``prepare_session`` and
-    ``extract_chunks`` to ``fetch_results`` (padded, then unpadded); the
-    output ops on the card against the CPU; the smoother backends; a session
-    with the mouse away; the card's ROI against the CPU's and the C++ prep
-    against the plain one. Then phase 4c on the same session and on a longer
-    one. Returns the path's kernel launches, and phase 4c's.'''
-    import shutil
-    import tempfile
+def check_session(predictor, card: str, seed: int, model_dir: str, tmp: str):
+    '''Phase 4b: a raw session on disk (written into ``tmp``, which the
+    caller deletes) through ``prepare_session`` and ``extract_chunks`` to
+    ``fetch_results`` (padded, then unpadded); the output ops on the card
+    against the CPU; the smoother backends; a session with the mouse away;
+    the card's ROI against the CPU's and the C++ prep against the plain one.
+    Then phase 4c on the same session and on a longer one. Returns the
+    path's kernel launches, phase 4c's, and the session's path and
+    ``prepare_session`` result (for phase 4e).'''
     import numpy as np
     import torch
     from moseq2_detectron_extract_tpu_torch import extract
@@ -1004,124 +1042,120 @@ def check_session(predictor, card: str, seed: int, model_dir: str) -> dict:
     from moseq2_detectron_extract_tpu_torch.proc.roi import get_roi
     from moseq2_detectron_extract_tpu_torch.synthetic import rough_arena, write_raw_session
 
-    tmp = tempfile.mkdtemp(prefix='m2de-session-')
-    try:
-        t = time.perf_counter()
-        path = write_raw_session(tmp, SESSION_FRAMES, 424, 512, seed=seed)
-        phase(f'wrote {SESSION_FRAMES} frames of 424x512 ({os.path.getsize(path) / 1e6:.0f} MB)'
-              f' in {time.perf_counter() - t:.1f} s')
-        config = {**extract.DEFAULT_CONFIG, 'chunk_size': SESSION_CHUNK, 'chunk_overlap': 0,
-                  'read_block_frames': 32, 'min_height': 0.0, 'max_height': 100.0,
-                  'feature_window': 160}
-        session = Session(path, frame_trim=config['frame_trim'])
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        prepared = extract.prepare_session(session, config, device='cuda')
-        torch.cuda.synchronize()
-        roi_s = time.perf_counter() - t
-        roi = prepared['roi']
-        phase(f'find_roi (prepare_session, cuda): {roi_s * 1e3:.1f} ms wall; background from '
-              f'{len(range(0, session.nframes, 500))} frames, ROI {int(roi.sum())} px, true '
-              f'depth {prepared["true_depth"]}, plane {np.round(session.plane, 5).tolist()} '
-              f'[{card}]')
+    t = time.perf_counter()
+    path = write_raw_session(tmp, SESSION_FRAMES, 424, 512, seed=seed)
+    phase(f'wrote {SESSION_FRAMES} frames of 424x512 ({os.path.getsize(path) / 1e6:.0f} MB)'
+          f' in {time.perf_counter() - t:.1f} s')
+    config = {**extract.DEFAULT_CONFIG, 'chunk_size': SESSION_CHUNK, 'chunk_overlap': 0,
+              'read_block_frames': 32, 'min_height': 0.0, 'max_height': 100.0,
+              'feature_window': 160}
+    session = Session(path, frame_trim=config['frame_trim'])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prepared = extract.prepare_session(session, config, device='cuda')
+    torch.cuda.synchronize()
+    roi_s = time.perf_counter() - t
+    roi = prepared['roi']
+    phase(f'find_roi (prepare_session, cuda): {roi_s * 1e3:.1f} ms wall; background from '
+          f'{len(range(0, session.nframes, 500))} frames, ROI {int(roi.sum())} px, true '
+          f'depth {prepared["true_depth"]}, plane {np.round(session.plane, 5).tolist()} '
+          f'[{card}]')
 
-        run = drive_session(session, predictor, prepared, card, 'session', keep_chunk0=True,
-                            keep_results=True)
-        rows, launches, frames = run['rows'], run['launches'], run['frames']
-        batches = sum(-(-SESSION_CHUNK // BATCH) for _ in rows)
-        if launches != {'roi_align': 3 * batches, 'clean': len(rows)}:
-            raise AssertionError(f'session launches {launches}; expected roi_align '
-                                 f'{3 * batches} (3 per batch), clean {len(rows)}')
-        if len(rows) != 2 or frames != SESSION_FRAMES:
-            raise AssertionError(f'{len(rows)} chunks of {frames} frames')
-        if run['found'] < 0.9 * frames:
-            raise AssertionError(f'the mouse was found in only {run["found"]} of {frames} frames')
-        chunk0 = run.pop('chunk0')
-        check_output_ops(chunk0, card)
-        chunk0 = (chunk0['frame_idxs'], chunk0['chunk'])
+    run = drive_session(session, predictor, prepared, card, 'session', keep_chunk0=True,
+                        keep_results=True)
+    rows, launches, frames = run['rows'], run['launches'], run['frames']
+    batches = sum(-(-SESSION_CHUNK // BATCH) for _ in rows)
+    if launches != {'roi_align': 3 * batches, 'clean': len(rows)}:
+        raise AssertionError(f'session launches {launches}; expected roi_align '
+                             f'{3 * batches} (3 per batch), clean {len(rows)}')
+    if len(rows) != 2 or frames != SESSION_FRAMES:
+        raise AssertionError(f'{len(rows)} chunks of {frames} frames')
+    if run['found'] < 0.9 * frames:
+        raise AssertionError(f'the mouse was found in only {run["found"]} of {frames} frames')
+    chunk0 = run.pop('chunk0')
+    check_output_ops(chunk0, card)
+    chunk0 = (chunk0['frame_idxs'], chunk0['chunk'])
 
-        unpadded = drive_session(session, predictor, dict(prepared, pad_chunks=False), card,
-                                 'unpadded session')
-        (c_pad, o_pad), (c_unp, o_unp) = run['last'], unpadded['last']
-        gap = np.abs(o_pad - o_unp) % 360
-        phase(f'padded tail: the last chunk\'s {len(o_pad)} true frames, unpadded against '
-              f'padded: smoothed centroid max abs diff {np.nanmax(np.abs(c_pad - c_unp)):.4f} '
-              f'px, orientation {np.nanmax(np.minimum(gap, 360 - gap)):.4f} deg; session '
-              f'{unpadded["frames"] / unpadded["busy_s"]:.1f} frames/s unpadded, '
-              f'{frames / run["busy_s"]:.1f} padded [{card}]')
-        if unpadded['frames'] != frames or unpadded['rows'][-1]['frames'] != len(o_pad):
-            raise AssertionError('the unpadded session gave other chunks')
+    unpadded = drive_session(session, predictor, dict(prepared, pad_chunks=False), card,
+                             'unpadded session')
+    (c_pad, o_pad), (c_unp, o_unp) = run['last'], unpadded['last']
+    gap = np.abs(o_pad - o_unp) % 360
+    phase(f'padded tail: the last chunk\'s {len(o_pad)} true frames, unpadded against '
+          f'padded: smoothed centroid max abs diff {np.nanmax(np.abs(c_pad - c_unp)):.4f} '
+          f'px, orientation {np.nanmax(np.minimum(gap, 360 - gap)):.4f} deg; session '
+          f'{unpadded["frames"] / unpadded["busy_s"]:.1f} frames/s unpadded, '
+          f'{frames / run["busy_s"]:.1f} padded [{card}]')
+    if unpadded['frames'] != frames or unpadded['rows'][-1]['frames'] != len(o_pad):
+        raise AssertionError('the unpadded session gave other chunks')
 
-        time_smoothers(card, seed)
-        check_absent_session(predictor, card, seed, tmp)
+    time_smoothers(card, seed)
+    check_absent_session(predictor, card, seed, tmp)
 
-        warm_session = Session(path, frame_trim=config['frame_trim'])
-        profiler = cProfile.Profile()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        profiler.enable()
-        extract.prepare_session(warm_session, config, device='cuda')
-        torch.cuda.synchronize()
-        profiler.disable()
-        warm_s = time.perf_counter() - t
-        top = pstats.Stats(profiler).sort_stats('tottime').stats
-        worst = sorted(top.items(), key=lambda kv: -kv[1][2])[:FIND_ROI_TOP]
-        phase(f'find_roi again (a new Session, cuda, under cProfile): {warm_s * 1e3:.1f} ms wall '
-              f'(first {roi_s * 1e3:.1f}); host time by function (own s): ' + ', '.join(
-                  f'{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) {st[2]:.3f}'
-                  for fn, st in worst) + f' [{card}]')
+    warm_session = Session(path, frame_trim=config['frame_trim'])
+    profiler = cProfile.Profile()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    profiler.enable()
+    extract.prepare_session(warm_session, config, device='cuda')
+    torch.cuda.synchronize()
+    profiler.disable()
+    warm_s = time.perf_counter() - t
+    top = pstats.Stats(profiler).sort_stats('tottime').stats
+    worst = sorted(top.items(), key=lambda kv: -kv[1][2])[:FIND_ROI_TOP]
+    phase(f'find_roi again (a new Session, cuda, under cProfile): {warm_s * 1e3:.1f} ms wall '
+          f'(first {roi_s * 1e3:.1f}); host time by function (own s): ' + ', '.join(
+              f'{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) {st[2]:.3f}'
+              for fn, st in worst) + f' [{card}]')
 
-        t = time.perf_counter()
-        cpu_session = Session(path, frame_trim=config['frame_trim'])
-        cpu = extract.prepare_session(cpu_session, config, device='cpu')
-        cpu_s = time.perf_counter() - t
-        plane_err = plane_errors(session.plane, cpu_session.plane)
-        same = {'roi': bool(np.array_equal(cpu['roi'], roi)),
-                'bground_im': bool(np.array_equal(cpu['bground_im'], prepared['bground_im'])),
-                'true_depth': cpu['true_depth'] == prepared['true_depth']}
-        phase(f'prepare_session on the CPU ({cpu_s:.2f} s): equal to the card\'s {same}, plane '
-              f'max abs err (normal, d) {plane_err[0]:.2e}, {plane_err[1]:.2e} (tol {PLANE_TOL})')
-        if not all(same.values()) or plane_err[0] > PLANE_TOL[0] or plane_err[1] > PLANE_TOL[1]:
-            raise AssertionError('the card\'s ROI discovery differs from the CPU\'s')
-        for rough_seed in ROUGH_SEEDS:
-            image = rough_arena(424, 512, rough_seed)
-            (gpu_rois, gpu_plane), (cpu_rois, cpu_plane) = (
-                get_roi(image, device=dev) for dev in ('cuda', 'cpu'))
-            same_rois = len(gpu_rois) == len(cpu_rois) and all(
-                np.array_equal(a, b) for a, b in zip(gpu_rois, cpu_rois))
-            plane_err = plane_errors(gpu_plane, cpu_plane)
-            phase(f'get_roi on rough_arena(424, 512, seed {rough_seed}): {len(gpu_rois)} ROIs, '
-                  f'equal to the CPU\'s: {same_rois}; plane max abs err (normal, d) '
-                  f'{plane_err[0]:.2e}, {plane_err[1]:.2e}')
-            if not same_rois or plane_err[0] > PLANE_TOL[0] or plane_err[1] > PLANE_TOL[1]:
-                raise AssertionError('the card\'s get_roi differs from the CPU\'s on a rough floor')
+    t = time.perf_counter()
+    cpu_session = Session(path, frame_trim=config['frame_trim'])
+    cpu = extract.prepare_session(cpu_session, config, device='cpu')
+    cpu_s = time.perf_counter() - t
+    plane_err = plane_errors(session.plane, cpu_session.plane)
+    same = {'roi': bool(np.array_equal(cpu['roi'], roi)),
+            'bground_im': bool(np.array_equal(cpu['bground_im'], prepared['bground_im'])),
+            'true_depth': cpu['true_depth'] == prepared['true_depth']}
+    phase(f'prepare_session on the CPU ({cpu_s:.2f} s): equal to the card\'s {same}, plane '
+          f'max abs err (normal, d) {plane_err[0]:.2e}, {plane_err[1]:.2e} (tol {PLANE_TOL})')
+    if not all(same.values()) or plane_err[0] > PLANE_TOL[0] or plane_err[1] > PLANE_TOL[1]:
+        raise AssertionError('the card\'s ROI discovery differs from the CPU\'s')
+    for rough_seed in ROUGH_SEEDS:
+        image = rough_arena(424, 512, rough_seed)
+        (gpu_rois, gpu_plane), (cpu_rois, cpu_plane) = (
+            get_roi(image, device=dev) for dev in ('cuda', 'cpu'))
+        same_rois = len(gpu_rois) == len(cpu_rois) and all(
+            np.array_equal(a, b) for a, b in zip(gpu_rois, cpu_rois))
+        plane_err = plane_errors(gpu_plane, cpu_plane)
+        phase(f'get_roi on rough_arena(424, 512, seed {rough_seed}): {len(gpu_rois)} ROIs, '
+              f'equal to the CPU\'s: {same_rois}; plane max abs err (normal, d) '
+              f'{plane_err[0]:.2e}, {plane_err[1]:.2e}')
+        if not same_rois or plane_err[0] > PLANE_TOL[0] or plane_err[1] > PLANE_TOL[1]:
+            raise AssertionError('the card\'s get_roi differs from the CPU\'s on a rough floor')
 
-        idxs, chunk = chunk0
-        t = time.perf_counter()
-        (_, raw), = list(session.index(np.asarray(idxs) - session.first_frame_idx,
-                                       chunk_size=len(idxs)))
-        read_s = time.perf_counter() - t
-        kwargs = dict(bground_im=session.bground_im, roi=session.roi, vmin=config['min_height'],
-                      vmax=config['max_height'], dtype='uint8')
-        t = time.perf_counter()
-        cxx = prep_raw_frames_host(raw, **kwargs)
-        cxx_s = time.perf_counter() - t
-        t = time.perf_counter()
-        plain = prep_raw_frames_plain(raw, **kwargs)
-        plain_s = time.perf_counter() - t
-        equal = bool(np.array_equal(cxx, plain)) and bool(np.array_equal(cxx, chunk[:len(idxs)]))
-        phase(f'chunk 0 on the host: one read of its {len(idxs)} raw frames {read_s * 1e3:.1f} '
-              f'ms; prep ({raw.shape} {raw.dtype} -> {cxx.shape} uint8): C++ {cxx_s * 1e3:.1f} '
-              f'ms, plain numpy {plain_s * 1e3:.1f} ms, bit for bit equal (and to the chunk the '
-              f'path ran): {equal} [{card}]')
-        if not equal:
-            raise AssertionError('the C++ host prep differs from the plain version')
+    idxs, chunk = chunk0
+    t = time.perf_counter()
+    (_, raw), = list(session.index(np.asarray(idxs) - session.first_frame_idx,
+                                   chunk_size=len(idxs)))
+    read_s = time.perf_counter() - t
+    kwargs = dict(bground_im=session.bground_im, roi=session.roi, vmin=config['min_height'],
+                  vmax=config['max_height'], dtype='uint8')
+    t = time.perf_counter()
+    cxx = prep_raw_frames_host(raw, **kwargs)
+    cxx_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plain = prep_raw_frames_plain(raw, **kwargs)
+    plain_s = time.perf_counter() - t
+    equal = bool(np.array_equal(cxx, plain)) and bool(np.array_equal(cxx, chunk[:len(idxs)]))
+    phase(f'chunk 0 on the host: one read of its {len(idxs)} raw frames {read_s * 1e3:.1f} '
+          f'ms; prep ({raw.shape} {raw.dtype} -> {cxx.shape} uint8): C++ {cxx_s * 1e3:.1f} '
+          f'ms, plain numpy {plain_s * 1e3:.1f} ms, bit for bit equal (and to the chunk the '
+          f'path ran): {equal} [{card}]')
+    if not equal:
+        raise AssertionError('the C++ host prep differs from the plain version')
 
-        phase('4c/5 extract through the CLI: (a) the session above, (b) a 4,000-frame session')
-        extract_launches = check_extract(path, run['results'], prepared, card, seed, model_dir)
-        return launches, extract_launches
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    phase('4c/5 extract through the CLI: (a) the session above, (b) a 4,000-frame session')
+    extract_launches = check_extract(path, run['results'], prepared, card, seed, model_dir)
+    return launches, extract_launches, path, prepared
 
 
 def _compare_file(h5_path: str, results: dict) -> dict:
@@ -1531,13 +1565,14 @@ def train_step_split(cfg, items, card: str, seed: int) -> None:
         print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}', flush=True)
 
 
-def check_training(card: str, seed: int, model_dir: str) -> dict:
+def check_training(card: str, seed: int, model_dir: str, tmp: str):
     '''Phase 4d: (a) the train command at full width on a synthetic Label
-    Studio export, then resumed; (b) where a step's time goes; (c) the tiny
-    model card against CPU; (d) the trained model's npz through
-    ``Predictor``. Returns the ROIAlign launches of (d).'''
+    Studio export (written into ``tmp``, which the caller deletes), then
+    resumed; (b) where a step's time goes; (c) the tiny model card against
+    CPU; (d) the trained model's npz through ``Predictor``. Returns the
+    ROIAlign launches of (d), and the export, the train config's path and
+    the trained model dir (for phase 4e).'''
     import shutil
-    import tempfile
     import numpy as np
     import torch
     from moseq2_detectron_extract_tpu_torch import cli
@@ -1552,110 +1587,360 @@ def check_training(card: str, seed: int, model_dir: str) -> dict:
     from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix='m2de_train_')
+    os.makedirs(tmp, exist_ok=True)
+    t = time.perf_counter()
+    export = write_annotated_views(os.path.join(tmp, 'data'), TRAIN_VIEWS,
+                                   size=TRAIN_VIEW_SIZE, seed=seed)
+    base = ModelConfig.from_yaml(os.path.join(model_dir, 'config.yaml'))
+    cfg = base.replace(**TRAIN_CHANGES)
+    cfg_path = os.path.join(tmp, 'config.yaml')
+    cfg.to_yaml(cfg_path)
+    phase(f'4d (a) wrote {TRAIN_VIEWS} annotated {TRAIN_VIEW_SIZE}x{TRAIN_VIEW_SIZE} views '
+          f'and their export in {time.perf_counter() - t:.2f} s; config '
+          f'{os.path.relpath(model_dir, REPO)}/config.yaml with '
+          + ', '.join(f'{k} {getattr(base, k)} -> {v}' for k, v in TRAIN_CHANGES.items())
+          + f' (amp {cfg.amp_dtype}, batch {cfg.ims_per_batch}, canvas {cfg.image_size}) '
+          f'[{card}]')
+    out_dir = os.path.join(tmp, 'model')
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cli.main(['train', export, '--model-dir', out_dir, '--config', cfg_path,
+              '--max-iter', str(TRAIN_STEPS), '--log-period', '1'])
+    train_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows, val = _train_rows(out_dir)
+    if [r['step'] for r in rows] != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError(f'logged steps {[r["step"] for r in rows]}')
+    loss_keys = [k for k in rows[0] if k.startswith('loss_') or k == 'total_loss']
+    if not all(np.isfinite(r[k]) for r in rows for k in loss_keys):
+        raise AssertionError('a logged loss is not finite')
+    first = float(np.mean([r['total_loss'] for r in rows[:10]]))
+    last = float(np.mean([r['total_loss'] for r in rows[-10:]]))
+    if not last < first:
+        raise AssertionError(f'mean total_loss of the last 10 steps {last:.4f} is not below '
+                             f'the first 10\'s {first:.4f}')
+    ckpts = sorted(os.listdir(os.path.join(out_dir, 'checkpoints')))
+    with open(os.path.join(out_dir, 'last_checkpoint'), encoding='utf-8') as fh:
+        pointer = fh.read().strip()
+    if pointer != f'model_{TRAIN_STEPS:07d}.pt' or pointer not in ckpts:
+        raise AssertionError(f'checkpoints {ckpts}, last_checkpoint {pointer!r}')
+    rates = [r['iters_per_sec'] for r in rows[5:]]
+    it_s = statistics.median(rates)
+    phase(f'4d (a) cli train: {TRAIN_STEPS} steps in {train_s:.2f} s wall (annotation '
+          f'loading, the validations and checkpoints included); {it_s:.2f} iterations/s, '
+          f'{it_s * cfg.ims_per_batch:.1f} images/s (median after step 5); peak device '
+          f'memory {peak_gib:.2f} GiB; mean total_loss first 10 {first:.4f}, last 10 '
+          f'{last:.4f}; validation_loss {[round(v["validation_loss"], 4) for v in val]}; '
+          f'checkpoints {ckpts} [{card}]')
+    for label, row in (('first', rows[0]), ('last', rows[-1])):
+        phase(f'4d (a) {label} step: ' + ', '.join(f'{k} {row[k]:.4f}' for k in loss_keys)
+              + f', lr {row["lr"]:.6f} [{card}]')
+    t = time.perf_counter()
+    cli.main(['train', export, '--model-dir', out_dir, '--config', cfg_path,
+              '--max-iter', str(RESUME_STEPS), '--resume', '--log-period', '1'])
+    rows2, _ = _train_rows(out_dir)
+    resumed = [r['step'] for r in rows2[len(rows):]]
+    if resumed != list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)):
+        raise AssertionError(f'resumed steps {resumed}')
+    _, _, step = load_model_dir(out_dir)
+    if step != RESUME_STEPS:
+        raise AssertionError(f'the last checkpoint is at step {step}')
+    phase(f'4d (a) --resume --max-iter {RESUME_STEPS}: continued at step {resumed[0]}, '
+          f'ended at {step} in {time.perf_counter() - t:.2f} s; total_loss at '
+          f'{RESUME_STEPS}: {rows2[-1]["total_loss"]:.4f} [{card}]')
+
+    items = read_annotations(export, default_keypoint_names)
+    train_step_split(cfg, items, card, seed)
+    train_card_vs_cpu(card, seed)
+
+    export_dir = os.path.join(tmp, 'export')
+    os.makedirs(export_dir)
+    shutil.copy(os.path.join(out_dir, 'config.yaml'), export_dir)
+    trained_cfg, state, _ = load_model_dir(out_dir)
+    save_params_npz(os.path.join(export_dir, 'params_f16.npz'), state,
+                    trained_cfg.box_pooler_resolution)
+    _, from_npz, _ = load_model_dir(export_dir)
+    off = [k for k, v in state.items()
+           if not torch.equal(from_npz[k], v.to(torch.float16).to(torch.float32))]
+    if set(from_npz) != set(state) or off:
+        raise AssertionError(f'the npz does not hold the f16 checkpoint weights: {off[:5]}')
+    frames = np.stack([read_image(it['file_name']) for it in items[:EXPORT_VIEWS]]) \
+        .astype(np.uint8)
+    batch = 8
+    predictor = Predictor.from_model_dir(export_dir, batch_size=batch, score_threshold=0.0)
+    from_ckpt = Predictor.from_model_dir(out_dir, batch_size=batch, score_threshold=0.0)
+    roi_align_kernel.launch_count = 0
+    det = predictor(torch.from_numpy(frames))
+    torch.cuda.synchronize()
+    launches = roi_align_kernel.launch_count
+    ref = from_ckpt(torch.from_numpy(frames))
+    if launches != 3 * (EXPORT_VIEWS // batch):
+        raise AssertionError(f'roi_align launches {launches}, expected '
+                             f'{3 * (EXPORT_VIEWS // batch)}')
+    for key in ('boxes', 'scores', 'keypoints', 'mask_probs'):
+        if not bool(torch.isfinite(det[key]).all()):
+            raise AssertionError(f'non-finite {key} from the exported model')
+    score_err = float((det['scores'][:, 0] - ref['scores'][:, 0]).abs().max())
+    phase(f'4d (d) params_f16.npz (save_params_npz): its {len(state)} tensors equal the '
+          f'checkpoint\'s rounded to f16; through Predictor.from_model_dir on '
+          f'{EXPORT_VIEWS} views: roi_align launches {launches}; top score median '
+          f'{float(det["scores"][:, 0].median()):.3f}, against the f32 checkpoint\'s '
+          f'top scores max abs diff {score_err:.2e} [{card}]')
+    phase(f'4d: {time.perf_counter() - t_phase:.1f} s [{card}]')
+    return {'roi_align': launches}, export, cfg_path, out_dir
+
+
+ZOO_KEYPOINTS = 17                 # phase 4e: the COCO keypoint head of the zoo checkpoint
+INIT_STEPS = 10                    # train --init-weights steps
+EXPORT_BATCH = 10                  # compile-model's batch
+
+
+def zoo_checkpoint(path: str, cfg, seed: int) -> dict:
+    '''Write a Detectron2 ``keypoint_rcnn_R_50_FPN_3x`` checkpoint made
+    from ``seed`` with numpy as the zoo's ``.pkl``: its names and shapes
+    (R50 with FrozenBN, an FPN without norms whose convs carry biases, the
+    RPN, the box head with person and background logits, the keypoint head
+    of 17 COCO keypoints, no mask head). Returns the state.'''
+    import pickle
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch.models.convert import detectron2_name_map
+    from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
+    with torch.device('meta'):
+        shapes = {k: tuple(v.shape) for k, v in MaskKeypointRCNN(cfg).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    state = {}
+    for d2, name in detectron2_name_map():
+        fpn = d2.startswith('backbone.fpn_')
+        if '.mask_head.' in d2 or (fpn and '.norm.' in d2):
+            continue
+        shape = (cfg.fpn_channels,) if fpn and d2.endswith('.bias') else shapes.get(name)
+        if shape is None:
+            continue
+        if 'score_lowres' in d2:
+            shape = (shape[0], ZOO_KEYPOINTS) + shape[2:] if len(shape) == 4 else (ZOO_KEYPOINTS,)
+        value = rng.normal(0, 0.01, shape)
+        if d2.endswith('running_var'):
+            value = np.abs(value) + 1.0
+        state[d2] = value.astype(np.float32)
+    with open(path, 'wb') as fh:
+        pickle.dump({'model': state, '__author__': 'synthesized from a seed'}, fh, protocol=4)
+    return state
+
+
+def _nan_equal(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and torch.equal(torch.nan_to_num(a, nan=-7.0),
+                                              torch.nan_to_num(b, nan=-7.0))
+
+
+def check_lifecycle(card: str, seed: int, export: str, cfg_path: str, trained: str,
+                    session_path: str, prepared: dict, tmp: str) -> int:
+    '''Phase 4e, the model lifecycle through ``cli``: (a) convert-weights
+    on a zoo-shaped checkpoint and train --init-weights; (b) evaluate on the
+    card and on the CPU; (c) compile-model (export, the post-export
+    evaluation) and the loaded program against the live model; (d)
+    infer-dataset; (e) find-roi against prepare_session. Returns the
+    ROIAlign launches of the phase (all of them on the card's path).'''
+    import contextlib
+    import io
+    import random
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import cli
+    from moseq2_detectron_extract_tpu_torch.io.annot import dataset_catalog_get, read_annotations
+    from moseq2_detectron_extract_tpu_torch.io.image import read_image
+    from moseq2_detectron_extract_tpu_torch.models import deploy
+    from moseq2_detectron_extract_tpu_torch.models.checkpoint import load_model_dir
+    from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
+    from moseq2_detectron_extract_tpu_torch.models.convert import convert_checkpoint
+    from moseq2_detectron_extract_tpu_torch.models.eval import evaluate_model
+    from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+    from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
+    from moseq2_detectron_extract_tpu_torch.models.train import init_flax_defaults
+    from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+
+    t_phase = time.perf_counter()
+    os.makedirs(tmp, exist_ok=True)
+    cfg = ModelConfig.from_yaml(cfg_path)
+    roi_align_kernel.launch_count = 0
+
+    # (a) convert the zoo checkpoint, then train from it
+    t = time.perf_counter()
+    pkl = os.path.join(tmp, 'zoo.pkl')
+    state = zoo_checkpoint(pkl, cfg, seed)
+    write_s = time.perf_counter() - t
+    converted = os.path.join(tmp, 'converted')
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(['convert-weights', pkl, '--model-dir', converted, '--config', cfg_path])
+    convert_s = time.perf_counter() - t
+    template = init_flax_defaults(MaskKeypointRCNN(cfg), torch.Generator().manual_seed(0))
+    cpu_state, report = convert_checkpoint(pkl, template.state_dict())
+    counts = {k: len(v) for k, v in report.items()}
+    # the zoo's FPN has conv biases and no norms; it has no mask head
+    expect = {'loaded': len(state) - 8 - 2, 'shape_mismatch': 2,
+              'missing_in_source': 16 + 2 * (len(cfg.mask_conv_dims) + 2), 'unused': 0}
+    line = (f'loaded {counts["loaded"]} tensors, {counts["shape_mismatch"]} kept '
+            f'initialization (shape mismatch), {counts["unused"]} source keys unused')
+    _, written, step = load_model_dir(converted)
+    same = all(torch.equal(written[k], v) for k, v in cpu_state.items())
+    phase(f'4e (a) convert-weights: a {len(state)}-tensor zoo-shaped .pkl '
+          f'({os.path.getsize(pkl) / 1e6:.0f} MB, written in {write_s:.1f} s) converted in '
+          f'{convert_s:.1f} s; report counts {counts}, the CPU converter\'s on the same file '
+          f'{expect == counts}; printed {printed.getvalue().splitlines()[0]!r}; checkpoint step '
+          f'{step}, equal to the CPU conversion {same} [{card}]')
+    if rc != 0 or counts != expect or printed.getvalue().splitlines()[0] != line or not same \
+            or step != 0:
+        raise AssertionError(f'4e (a): convert-weights counts {counts}, expected {expect}')
+    init_dir = os.path.join(tmp, 'init')
+    t = time.perf_counter()
+    cli.main(['train', export, '--model-dir', init_dir, '--config', cfg_path, '--max-iter',
+              str(INIT_STEPS), '--init-weights', pkl, '--log-period', '1'])
+    rows, _ = _train_rows(init_dir)
+    loss_keys = [k for k in rows[0] if k.startswith('loss_') or k == 'total_loss']
+    finite = all(np.isfinite(r[k]) for r in rows for k in loss_keys)
+    phase(f'4e (a) train --init-weights: {len(rows)} steps in {time.perf_counter() - t:.2f} s; '
+          f'total_loss {rows[0]["total_loss"]:.4f} -> {rows[-1]["total_loss"]:.4f}; every loss '
+          f'finite {finite} [{card}]')
+    if [r['step'] for r in rows] != list(range(1, INIT_STEPS + 1)) or not finite:
+        raise AssertionError('4e (a): train --init-weights')
+
+    # (b) evaluate phase 4d's model on its views' test split, card and CPU
+    results = {}
+    for device in ('cuda', 'cpu'):
+        random.seed(seed)
+        t = time.perf_counter()
+        results[device] = cli.evaluate([export, '--model-dir', trained, '--device', device])
+        phase(f'4e (b) evaluate --device {device} ({time.perf_counter() - t:.2f} s): '
+              + '; '.join(f'{task} ' + ', '.join(f'{k} {v:.3f}' for k, v in m.items())
+                          for task, m in results[device].items()) + f' [{card}]')
+    test_items = dataset_catalog_get('moseq_test')
+    n_test = len(test_items)
+    # bf16 on both sides, summed in other orders: a detection whose IoU
+    # (or OKS) with its ground truth lies near a threshold may match on one
+    # side and not the other, which moves an AP by up to 100 / n_test
+    # points for each image it happens in; one image a threshold is allowed
+    ap_tol = 100.0 / n_test + 1e-9
+    gap = max(abs(results['cuda'][task][k] - results['cpu'][task][k])
+              for task in results['cpu'] for k in results['cpu'][task])
+    views = torch.from_numpy(np.stack([read_image(it['file_name']) for it in test_items])
+                             .astype(np.uint8))
+    dets = {dev: Predictor.from_model_dir(trained, batch_size=n_test, device=dev)(views)
+            for dev in ('cuda', 'cpu')}
+    card_boxes, cpu_boxes = dets['cuda']['boxes'][:, 0].cpu(), dets['cpu']['boxes'][:, 0]
+    lt = torch.maximum(card_boxes[:, :2], cpu_boxes[:, :2])
+    rb = torch.minimum(card_boxes[:, 2:], cpu_boxes[:, 2:])
+    inter = (rb - lt).clamp(min=0).prod(-1)
+    area = (card_boxes[:, 2:] - card_boxes[:, :2]).prod(-1) + \
+        (cpu_boxes[:, 2:] - cpu_boxes[:, :2]).prod(-1)
+    box_iou = inter / (area - inter)
+    score_gap = (dets['cuda']['scores'][:, 0].cpu() - dets['cpu']['scores'][:, 0]).abs()
+    found = [(bool(dets['cuda']['valid'][i, 0]), bool(dets['cpu']['valid'][i, 0]))
+             for i in range(n_test)]
+    phase(f'4e (b) {n_test} test views: card against CPU, largest AP difference {gap:.3f} '
+          f'points (tolerance {ap_tol:.3f}: one image a threshold); the top detection, card '
+          f'against CPU (valid on each): ' + ', '.join(
+              f'{f} box IoU {float(box_iou[i]):.4f} score diff {float(score_gap[i]):.4f}'
+              if any(f) else f'{f}' for i, f in enumerate(found)) + f' [{card}]')
+    if gap > ap_tol:
+        raise AssertionError(f'4e (b): card and CPU AP differ by {gap}')
+
+    # (c) export at batch 10, canvas 160, with the post-export evaluation
+    export_dir = os.path.join(tmp, 'export')
+    export_s = {}
+    real_export = deploy.export_model
+
+    def timed_export(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_export(*args, **kwargs)
+        export_s['s'] = time.perf_counter() - t0
+        return out
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    deploy.export_model = timed_export
     try:
+        random.seed(seed)
         t = time.perf_counter()
-        export = write_annotated_views(os.path.join(tmp, 'data'), TRAIN_VIEWS,
-                                       size=TRAIN_VIEW_SIZE, seed=seed)
-        base = ModelConfig.from_yaml(os.path.join(model_dir, 'config.yaml'))
-        cfg = base.replace(**TRAIN_CHANGES)
-        cfg_path = os.path.join(tmp, 'config.yaml')
-        cfg.to_yaml(cfg_path)
-        phase(f'4d (a) wrote {TRAIN_VIEWS} annotated {TRAIN_VIEW_SIZE}x{TRAIN_VIEW_SIZE} views '
-              f'and their export in {time.perf_counter() - t:.2f} s; config '
-              f'{os.path.relpath(model_dir, REPO)}/config.yaml with '
-              + ', '.join(f'{k} {getattr(base, k)} -> {v}' for k, v in TRAIN_CHANGES.items())
-              + f' (amp {cfg.amp_dtype}, batch {cfg.ims_per_batch}, canvas {cfg.image_size}) '
-              f'[{card}]')
-        out_dir = os.path.join(tmp, 'model')
-        torch.cuda.reset_peak_memory_stats()
+        _, post = cli.compile_model([export, '--model-dir', trained, '--batch-size',
+                                     str(EXPORT_BATCH), '--image-size', str(cfg.image_size),
+                                     '--output', export_dir])
+        compile_s = time.perf_counter() - t
+        deploy.export_model = real_export
+        live_eval = evaluate_model(trained, dataset_catalog_get('moseq_test'),
+                                   batch_size=EXPORT_BATCH)
         t = time.perf_counter()
-        cli.main(['train', export, '--model-dir', out_dir, '--config', cfg_path,
-                  '--max-iter', str(TRAIN_STEPS), '--log-period', '1'])
-        train_s = time.perf_counter() - t
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        rows, val = _train_rows(out_dir)
-        if [r['step'] for r in rows] != list(range(1, TRAIN_STEPS + 1)):
-            raise AssertionError(f'logged steps {[r["step"] for r in rows]}')
-        loss_keys = [k for k in rows[0] if k.startswith('loss_') or k == 'total_loss']
-        if not all(np.isfinite(r[k]) for r in rows for k in loss_keys):
-            raise AssertionError('a logged loss is not finite')
-        first = float(np.mean([r['total_loss'] for r in rows[:10]]))
-        last = float(np.mean([r['total_loss'] for r in rows[-10:]]))
-        if not last < first:
-            raise AssertionError(f'mean total_loss of the last 10 steps {last:.4f} is not below '
-                                 f'the first 10\'s {first:.4f}')
-        ckpts = sorted(os.listdir(os.path.join(out_dir, 'checkpoints')))
-        with open(os.path.join(out_dir, 'last_checkpoint'), encoding='utf-8') as fh:
-            pointer = fh.read().strip()
-        if pointer != f'model_{TRAIN_STEPS:07d}.pt' or pointer not in ckpts:
-            raise AssertionError(f'checkpoints {ckpts}, last_checkpoint {pointer!r}')
-        rates = [r['iters_per_sec'] for r in rows[5:]]
-        it_s = statistics.median(rates)
-        phase(f'4d (a) cli train: {TRAIN_STEPS} steps in {train_s:.2f} s wall (annotation '
-              f'loading, the validations and checkpoints included); {it_s:.2f} iterations/s, '
-              f'{it_s * cfg.ims_per_batch:.1f} images/s (median after step 5); peak device '
-              f'memory {peak_gib:.2f} GiB; mean total_loss first 10 {first:.4f}, last 10 '
-              f'{last:.4f}; validation_loss {[round(v["validation_loss"], 4) for v in val]}; '
-              f'checkpoints {ckpts} [{card}]')
-        for label, row in (('first', rows[0]), ('last', rows[-1])):
-            phase(f'4d (a) {label} step: ' + ', '.join(f'{k} {row[k]:.4f}' for k in loss_keys)
-                  + f', lr {row["lr"]:.6f} [{card}]')
-        t = time.perf_counter()
-        cli.main(['train', export, '--model-dir', out_dir, '--config', cfg_path,
-                  '--max-iter', str(RESUME_STEPS), '--resume', '--log-period', '1'])
-        rows2, _ = _train_rows(out_dir)
-        resumed = [r['step'] for r in rows2[len(rows):]]
-        if resumed != list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)):
-            raise AssertionError(f'resumed steps {resumed}')
-        _, _, step = load_model_dir(out_dir)
-        if step != RESUME_STEPS:
-            raise AssertionError(f'the last checkpoint is at step {step}')
-        phase(f'4d (a) --resume --max-iter {RESUME_STEPS}: continued at step {resumed[0]}, '
-              f'ended at {step} in {time.perf_counter() - t:.2f} s; total_loss at '
-              f'{RESUME_STEPS}: {rows2[-1]["total_loss"]:.4f} [{card}]')
-
+        program = deploy.load_exported_model(export_dir)
+        load_s = time.perf_counter() - t
+        live = Predictor.from_model_dir(trained, batch_size=EXPORT_BATCH)
         items = read_annotations(export, default_keypoint_names)
-        train_step_split(cfg, items, card, seed)
-        train_card_vs_cpu(card, seed)
-
-        export_dir = os.path.join(tmp, 'export')
-        os.makedirs(export_dir)
-        shutil.copy(os.path.join(out_dir, 'config.yaml'), export_dir)
-        trained_cfg, state, _ = load_model_dir(out_dir)
-        save_params_npz(os.path.join(export_dir, 'params_f16.npz'), state,
-                        trained_cfg.box_pooler_resolution)
-        _, from_npz, _ = load_model_dir(export_dir)
-        off = [k for k, v in state.items()
-               if not torch.equal(from_npz[k], v.to(torch.float16).to(torch.float32))]
-        if set(from_npz) != set(state) or off:
-            raise AssertionError(f'the npz does not hold the f16 checkpoint weights: {off[:5]}')
-        frames = np.stack([read_image(it['file_name']) for it in items[:EXPORT_VIEWS]]) \
-            .astype(np.uint8)
-        batch = 8
-        predictor = Predictor.from_model_dir(export_dir, batch_size=batch, score_threshold=0.0)
-        from_ckpt = Predictor.from_model_dir(out_dir, batch_size=batch, score_threshold=0.0)
-        roi_align_kernel.launch_count = 0
-        det = predictor(torch.from_numpy(frames))
+        frames = torch.from_numpy(np.stack([read_image(it['file_name'])
+                                            for it in items[:EXPORT_BATCH]]).astype(np.uint8))
+        before = roi_align_kernel.launch_count
+        got = program(frames)
         torch.cuda.synchronize()
-        launches = roi_align_kernel.launch_count
-        ref = from_ckpt(torch.from_numpy(frames))
-        if launches != 3 * (EXPORT_VIEWS // batch):
-            raise AssertionError(f'roi_align launches {launches}, expected '
-                                 f'{3 * (EXPORT_VIEWS // batch)}')
-        for key in ('boxes', 'scores', 'keypoints', 'mask_probs'):
-            if not bool(torch.isfinite(det[key]).all()):
-                raise AssertionError(f'non-finite {key} from the exported model')
-        score_err = float((det['scores'][:, 0] - ref['scores'][:, 0]).abs().max())
-        phase(f'4d (d) params_f16.npz (save_params_npz): its {len(state)} tensors equal the '
-              f'checkpoint\'s rounded to f16; through Predictor.from_model_dir on '
-              f'{EXPORT_VIEWS} views: roi_align launches {launches}; top score median '
-              f'{float(det["scores"][:, 0].median()):.3f}, against the f32 checkpoint\'s '
-              f'top scores max abs diff {score_err:.2e} [{card}]')
-        phase(f'4d: {time.perf_counter() - t_phase:.1f} s [{card}]')
-        return {'roi_align': launches}
+        program_launches = roi_align_kernel.launch_count - before
+        ref = live(frames)
+        torch.cuda.synchronize()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        deploy.export_model = real_export
+        torch.backends.cudnn.deterministic = deterministic
+    differ = [k for k in ref if not _nan_equal(got[k], ref[k])]
+    size = os.path.getsize(os.path.join(export_dir, deploy.PROGRAM_NAME))
+    phase(f'4e (c) compile-model (batch {EXPORT_BATCH}, canvas {cfg.image_size}): export '
+          f'{export_s["s"]:.2f} s wall, the command with the post-export evaluation '
+          f'{compile_s:.2f} s; model.pt2 {size / 1e6:.1f} MB; torch.export.load '
+          f'{load_s:.2f} s; on {EXPORT_BATCH} views with cudnn.deterministic the program\'s '
+          f'{len(ref)} outputs against the live Predictor: '
+          + (f'differ {differ}' if differ else 'all equal bit for bit')
+          + f'; roi_align launches through the program {program_launches} (one batch); '
+          f'post-export evaluation equal to the live one {post == live_eval} [{card}]')
+    if differ or program_launches != 3 or post != live_eval:
+        raise AssertionError(f'4e (c): outputs {differ}, launches {program_launches}, '
+                             f'post-export {post} against live {live_eval}')
+
+    # (d) pre-annotate the views
+    pre_path = os.path.join(tmp, 'predictions.json')
+    t = time.perf_counter()
+    rc = cli.main(['infer-dataset', export, '--model-dir', trained, '--output', pre_path,
+                   '--instance-threshold', '0.0'])
+    pre_s = time.perf_counter() - t
+    with open(pre_path, encoding='utf-8') as fh:
+        tasks = json.load(fh)
+    kinds = [r['type'] for task in tasks for r in task['predictions'][0]['result']]
+    polygons, keypoints = kinds.count('polygonlabels'), kinds.count('keypointlabels')
+    phase(f'4e (d) infer-dataset --instance-threshold 0.0 on {len(tasks)} views: '
+          f'{pre_s * 1e3 / len(tasks):.1f} ms per image (the command\'s wall, model load '
+          f'included); {polygons} polygons and {keypoints} keypoints written; the JSON loads '
+          f'[{card}]')
+    if rc != 0 or len(tasks) != TRAIN_VIEWS or keypoints != 8 * TRAIN_VIEWS or polygons < 1:
+        raise AssertionError(f'4e (d): {len(tasks)} tasks, {polygons} polygons, '
+                             f'{keypoints} keypoints')
+
+    # (e) find-roi on phase 4b's session
+    t = time.perf_counter()
+    session = cli.find_roi([session_path, '--output-dir', os.path.join(tmp, 'roi')])
+    roi_s = time.perf_counter() - t
+    same = {'roi': bool(np.array_equal(session.roi, prepared['roi'])),
+            'bground_im': bool(np.array_equal(session.bground_im, prepared['bground_im'])),
+            'true_depth': session.true_depth == prepared['true_depth']}
+    phase(f'4e (e) find-roi on phase 4b\'s session: {roi_s:.2f} s; equal to prepare_session\'s '
+          f'{same}; true depth {session.true_depth} [{card}]')
+    if not all(same.values()):
+        raise AssertionError('4e (e): find-roi differs from prepare_session')
+
+    launches = roi_align_kernel.launch_count
+    expect_launches = 3 * (n_test + 1 + n_test + n_test + 1 + 1 + TRAIN_VIEWS)
+    phase(f'4e: roi_align launches {launches} (expected {expect_launches}: 3 per image of the '
+          f'card evaluation, the post-export and the live evaluation and the pre-annotation, '
+          f'and per batch of the test views\' detections and the program check); '
+          f'{time.perf_counter() - t_phase:.1f} s [{card}]')
+    if launches != expect_launches:
+        raise AssertionError(f'4e: roi_align launches {launches}, expected {expect_launches}')
+    return launches
 
 
 def start_build():
@@ -1813,13 +2098,24 @@ def main() -> int:
           f'{box_err:.4f} px, scores {score_err:.2e}, cleaned windows equal at '
           f'{n_same} of 4 shared origins')
 
-    phase('4b/5 session path: write_raw_session + prepare_session + extract_chunks')
-    session_launches, extract_launches = check_session(predictor, card, args.seed,
-                                                       args.model_dir)
+    work = tempfile.mkdtemp(prefix='m2de-smoke-')
+    try:
+        phase('4b/5 session path: write_raw_session + prepare_session + extract_chunks')
+        session_launches, extract_launches, session_path, prepared = check_session(
+            predictor, card, args.seed, args.model_dir, os.path.join(work, 'session'))
 
-    phase('4d/5 training: the train command at full width, the step split, card vs CPU, '
-          'the export')
-    train_launches = check_training(card, args.seed, args.model_dir)
+        phase('4d/5 training: the train command at full width, the step split, card vs CPU, '
+              'the export')
+        train_launches, export, cfg_path, trained = check_training(
+            card, args.seed, args.model_dir, os.path.join(work, 'train'))
+
+        phase('4e/5 the model lifecycle: convert-weights, train --init-weights, evaluate, '
+              'compile-model, infer-dataset, find-roi')
+        lifecycle_launches = check_lifecycle(card, args.seed, export, cfg_path, trained,
+                                             session_path, prepared,
+                                             os.path.join(work, 'lifecycle'))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     phase(f'5/5 report (the whole smoke: {time.perf_counter() - T0:.1f} s wall) [{card}]')
     kernels = [
@@ -1828,10 +2124,11 @@ def main() -> int:
          'launches': launches['roi_align'], 'session_launches': session_launches['roi_align'],
          'extract_launches': extract_launches['roi_align'],
          'train_export_launches': train_launches['roi_align'],
+         'lifecycle_launches': lifecycle_launches,
          'max_abs_err': roi['max_abs_err'], 'max_ulps': roi['max_ulps'],
          'one_ulp': roi['one_ulp'],
-         'ms': roi['ms'], 'plain_ms': roi['plain_ms'], 'bound_ms': roi['bound_ms'],
-         'bound_by': roi['bound_by'], 'library_ms': None},
+         'ms': roi['ms'], 'op_ms': roi['op_ms'], 'plain_ms': roi['plain_ms'],
+         'bound_ms': roi['bound_ms'], 'bound_by': roi['bound_by'], 'library_ms': None},
         {'name': 'clean', 'route': 'cuda', 'source': f'{PKG}/csrc/clean.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_clean.py:74',
          'launches': launches['clean'], 'session_launches': session_launches['clean'],

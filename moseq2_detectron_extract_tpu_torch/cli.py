@@ -1,22 +1,34 @@
-'''The command line of the port: the ``extract`` and ``train`` commands.
+'''The command line of the port: the model lifecycle around ``extract``.
 
     python -m moseq2_detectron_extract_tpu_torch.cli extract <depth.dat> \
         --model benchmarks/bench_model_fast160 [--device cpu] [--output-dir DIR]
+    python -m moseq2_detectron_extract_tpu_torch.cli convert-weights <zoo.pkl> \
+        --model-dir DIR [--config YAML]
     python -m moseq2_detectron_extract_tpu_torch.cli train <export.json> \
-        --model-dir DIR [--config YAML] [--max-iter N] [--resume] [--device cpu]
+        --model-dir DIR [--config YAML] [--max-iter N] [--resume] \
+        [--init-weights <zoo.pkl>] [--device cpu]
+    python -m moseq2_detectron_extract_tpu_torch.cli evaluate <export.json> --model-dir DIR
+    python -m moseq2_detectron_extract_tpu_torch.cli compile-model [<export.json>] \
+        --model-dir DIR [--output DIR] [--batch-size 10]
+    python -m moseq2_detectron_extract_tpu_torch.cli infer-dataset <tasks.json> --model-dir DIR
+    python -m moseq2_detectron_extract_tpu_torch.cli find-roi <depth.dat> [--output-dir DIR]
 
-Port of ``moseq2_detectron_extract_tpu/cli.py:37-129`` on ``argparse``: the
-same option names, defaults and help strings, ``--config-file`` as
+Port of ``moseq2_detectron_extract_tpu/cli.py`` on ``argparse`` (the card's
+machine has no click): the same option names, defaults and help strings.
+``--device`` (default ``cuda``) is the port's own on every command that
+runs a model or the ROI search.
+
+``extract`` is ``cli.py:37-129``: ``--config-file`` as
 ``io/click.py:command_with_config`` gives it, the ``allowed_detections``
 rule, and the config keys ``use_tracking_model``, ``flip_classifier``,
-``dataset_name`` and ``param_annotations``. ``--device`` (default
-``cuda``) is the port's own. ``--report-outliers`` and
+``dataset_name`` and ``param_annotations``. ``--report-outliers`` and
 ``--device-input prescaled`` are not ported yet and raise.
 
-``train`` is ``cli.py:131-166``: the same options; ``--device`` (default
-``cuda``) and ``--log-period`` (the metrics' period, 20 as in the JAX
-trainer) are the port's own. ``--init-weights`` needs the Detectron2
-checkpoint converter, which is not ported yet: it raises.
+``train`` is ``cli.py:131-166`` (``--log-period``, the metrics' period,
+20 as in the JAX trainer, is the port's own); ``convert-weights``,
+``evaluate``, ``compile-model``, ``infer-dataset`` and ``find-roi`` are
+``cli.py:169-321``. ``compile-model`` writes a ``torch.export`` program,
+``model.pt2``, in place of ``model.hlo`` (``models/deploy.py``).
 '''
 import argparse
 import logging
@@ -46,6 +58,36 @@ def _existing_file(path: str) -> str:
     return path
 
 
+def _add_bg_roi_options(p: argparse.ArgumentParser) -> None:
+    '''The ROI search's options, shared by ``extract`` and ``find-roi``.'''
+    p.add_argument('--bg-roi-dilate', default=(10, 10), **_pair(int), help='Size of the mask dilation (to include environment walls)')
+    p.add_argument('--bg-roi-shape', default='ellipse', type=str, help='Shape to use for the mask dilation (ellipse or rect)')
+    p.add_argument('--bg-roi-index', default=0, type=int, help='Index of which background mask(s) to use')
+    p.add_argument('--bg-roi-weights', default=(1, .1, 1), nargs=3, type=float, help='Feature weighting (area, extent, dist) of the background mask')
+    p.add_argument('--bg-roi-depth-range', default=(650, 750), **_pair(float), help='Range to search for floor of arena (in mm)')
+    p.add_argument('--bg-roi-gradient-filter', default=False, type=click_bool, help='Exclude walls with gradient filtering')
+    p.add_argument('--bg-roi-gradient-threshold', default=3000, type=float, help='Gradient must be < this to include points')
+    p.add_argument('--bg-roi-gradient-kernel', default=7, type=int, help='Kernel size for Sobel gradient filtering')
+    p.add_argument('--bg-roi-fill-holes', default=True, type=click_bool, help='Fill holes in ROI')
+    p.add_argument('--use-plane-bground', action='store_true', help='Use a plane fit for the background')
+
+
+def _typed_defaults(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    '''Pass each default through its option's type, as click passes a
+    default as a given value: (650, 750) of a float pair is (650.0, 750.0).'''
+    for action in p._actions:
+        if action.type is not None and action.default is not None \
+                and not isinstance(action.default, str):
+            action.default = tuple(map(action.type, action.default)) \
+                if isinstance(action.default, tuple) else action.type(action.default)
+    return p
+
+
+def _replace_pairs(replace_paths):
+    '''``--replace-paths`` search:replace strings -> (search, replace) pairs.'''
+    return [tuple(rp.split(':', 1)) for rp in replace_paths] if replace_paths else None
+
+
 def extract_parser() -> argparse.ArgumentParser:
     '''The ``extract`` command's options, in the reference's order.'''
     p = argparse.ArgumentParser(prog='extract', description='Extract a moseq session raw data',
@@ -57,16 +99,7 @@ def extract_parser() -> argparse.ArgumentParser:
     p.add_argument('--instance-threshold', default=0.5, type=float_range(0.0, 1.0), help='Minimum score threshold to filter inference results')
     p.add_argument('--expected-instances', default=1, type=int_range(min=1), help='Maximum number of instances expected in each frame')
     p.add_argument('--allowed-detections', default=None, type=optional(int_range(min=1)), help='Maximum number of detections reported by the detector')
-    p.add_argument('--bg-roi-dilate', default=(10, 10), **_pair(int), help='Size of the mask dilation (to include environment walls)')
-    p.add_argument('--bg-roi-shape', default='ellipse', type=str, help='Shape to use for the mask dilation (ellipse or rect)')
-    p.add_argument('--bg-roi-index', default=0, type=int, help='Index of which background mask(s) to use')
-    p.add_argument('--bg-roi-weights', default=(1, .1, 1), nargs=3, type=float, help='Feature weighting (area, extent, dist) of the background mask')
-    p.add_argument('--bg-roi-depth-range', default=(650, 750), **_pair(float), help='Range to search for floor of arena (in mm)')
-    p.add_argument('--bg-roi-gradient-filter', default=False, type=click_bool, help='Exclude walls with gradient filtering')
-    p.add_argument('--bg-roi-gradient-threshold', default=3000, type=float, help='Gradient must be < this to include points')
-    p.add_argument('--bg-roi-gradient-kernel', default=7, type=int, help='Kernel size for Sobel gradient filtering')
-    p.add_argument('--bg-roi-fill-holes', default=True, type=click_bool, help='Fill holes in ROI')
-    p.add_argument('--use-plane-bground', action='store_true', help='Use a plane fit for the background')
+    _add_bg_roi_options(p)
     p.add_argument('--output-dir', default=None, help='Output directory to save the extraction output files')
     p.add_argument('--frame-dtype', default='uint8', choices=['uint8', 'uint16'], help='Data type for processed frames')
     p.add_argument('--min-height', default=0, type=int, help='Min mouse height from floor (mm)')
@@ -88,14 +121,7 @@ def extract_parser() -> argparse.ArgumentParser:
     p.add_argument('--config-file', default=None)
     p.add_argument('--device', default='cuda',
                    help='Device that runs the model and the device path (cuda, or cpu)')
-    # click passes a default through the option's type, as a given value:
-    # (650, 750) of a float pair is (650.0, 750.0)
-    for action in p._actions:
-        if action.type is not None and action.default is not None \
-                and not isinstance(action.default, str):
-            action.default = tuple(map(action.type, action.default)) \
-                if isinstance(action.default, tuple) else action.type(action.default)
-    return p
+    return _typed_defaults(p)
 
 
 class _OnOff(argparse.Action):
@@ -163,9 +189,6 @@ def train_parser() -> argparse.ArgumentParser:
 def train(argv: Sequence[str]) -> str:
     '''Run the ``train`` command; returns the model dir.'''
     args = train_parser().parse_args(list(argv))
-    if args.init_weights:
-        raise NotImplementedError('--init-weights is not ported yet (it needs the Detectron2 '
-                                  'checkpoint converter, models/convert.py)')
     from moseq2_detectron_extract_tpu_torch.device import resolve_device
     from moseq2_detectron_extract_tpu_torch.io.annot import load_annotations_helper
     from moseq2_detectron_extract_tpu_torch.io.util import ensure_dir
@@ -174,9 +197,8 @@ def train(argv: Sequence[str]) -> str:
 
     device = resolve_device(args.device)
     setup_logging()
-    replace = [tuple(rp.split(':', 1)) for rp in args.replace_paths] \
-        if args.replace_paths else None
-    load_annotations_helper(args.annot_files, 'RGB', replace_paths=replace, register=True)
+    load_annotations_helper(args.annot_files, 'RGB',
+                            replace_paths=_replace_pairs(args.replace_paths), register=True)
 
     cfg = get_base_config()
     if args.config_yaml:
@@ -187,11 +209,175 @@ def train(argv: Sequence[str]) -> str:
     cfg.to_yaml(os.path.join(args.model_dir, 'config.yaml'))
     trainer = Trainer(cfg, args.model_dir, log_period=args.log_period, device=device)
     trainer.resume_or_load(resume=args.resume)
+    if args.init_weights and not args.resume:
+        from moseq2_detectron_extract_tpu_torch.models.convert import convert_checkpoint
+        model = trainer.state.model
+        state, _ = convert_checkpoint(args.init_weights, model.state_dict())
+        model.load_state_dict(state)
     trainer.train()
     return args.model_dir
 
 
-COMMANDS = {'extract': extract, 'train': train}
+def convert_weights(argv: Sequence[str]) -> str:
+    '''Convert a Detectron2 ``.pkl``/``.pth`` checkpoint (the zoo's
+    ``keypoint_rcnn_R_50_FPN_3x`` weights the reference trains from) into a
+    model dir: ``config.yaml`` and ``checkpoints/model_0000000.pt``. Heads
+    of another shape (17 COCO keypoints against 8) keep a fresh
+    initialisation and are reported. Returns the checkpoint's path.'''
+    p = argparse.ArgumentParser(prog='convert-weights', allow_abbrev=False,
+                                description='Convert a Detectron2 checkpoint to a model dir')
+    p.add_argument('src', metavar='SRC', type=_existing)
+    p.add_argument('--model-dir', required=True, help='Output model directory')
+    p.add_argument('--config', dest='config_yaml', default=None, type=_existing,
+                   help='Model config yaml to use (defaults to base config)')
+    args = p.parse_args(list(argv))
+    import torch
+
+    from moseq2_detectron_extract_tpu_torch.io.util import ensure_dir
+    from moseq2_detectron_extract_tpu_torch.models.checkpoint import save_checkpoint
+    from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig, get_base_config
+    from moseq2_detectron_extract_tpu_torch.models.convert import convert_checkpoint
+    from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
+    from moseq2_detectron_extract_tpu_torch.models.train import init_flax_defaults
+
+    setup_logging()
+    cfg = ModelConfig.from_yaml(args.config_yaml) if args.config_yaml else get_base_config()
+    template = init_flax_defaults(MaskKeypointRCNN(cfg), torch.Generator().manual_seed(0))
+    state, report = convert_checkpoint(args.src, template.state_dict())
+    ensure_dir(args.model_dir)
+    cfg.to_yaml(os.path.join(args.model_dir, 'config.yaml'))
+    path = save_checkpoint(args.model_dir, 0, {'step': 0, 'model': state})
+    print(f'loaded {len(report["loaded"])} tensors, '
+          f'{len(report["shape_mismatch"])} kept initialization '
+          f'(shape mismatch), {len(report["unused"])} source keys unused')
+    print(f'wrote {path}')
+    return path
+
+
+def _log_results(results, prefix: str = '') -> None:
+    for task, metrics in results.items():
+        logging.info('%s%s: %s', prefix, task, metrics)
+
+
+def evaluate(argv: Sequence[str]):
+    '''COCO-style AP (bbox, segm, keypoints with the config's OKS sigmas)
+    of a model dir over the test split of annotations; returns the results.'''
+    p = argparse.ArgumentParser(prog='evaluate', allow_abbrev=False,
+                                description='Evaluate a model checkpoint')
+    p.add_argument('annot_files', metavar='ANNOT_FILES', nargs='*', type=_existing)
+    p.add_argument('--model-dir', required=True, type=_existing)
+    p.add_argument('--checkpoint', default='last')
+    p.add_argument('--replace-paths', default=None, action='append')
+    p.add_argument('--device', default='cuda', help='Device that runs the model (cuda, or cpu)')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.annot import (dataset_catalog_get,
+                                                             load_annotations_helper)
+    from moseq2_detectron_extract_tpu_torch.models.eval import evaluate_model
+
+    setup_logging()
+    load_annotations_helper(args.annot_files, 'RGB',
+                            replace_paths=_replace_pairs(args.replace_paths), register=True)
+    results = evaluate_model(args.model_dir, dataset_catalog_get('moseq_test'),
+                             checkpoint=args.checkpoint, device=args.device)
+    _log_results(results)
+    return results
+
+
+def compile_model(argv: Sequence[str]):
+    '''Export a model dir (``models/deploy.py``: config, checkpoint and a
+    ``torch.export`` program at a fixed batch and canvas), then evaluate
+    any EVAL_ANNOT_FILES through the loaded program (the reference's
+    post-export COCO evaluation). Returns (the export dir, the results or
+    None).'''
+    p = argparse.ArgumentParser(prog='compile-model', allow_abbrev=False,
+                                description='Export a model')
+    p.add_argument('eval_annot_files', metavar='EVAL_ANNOT_FILES', nargs='*', type=_existing)
+    p.add_argument('--model-dir', required=True, type=_existing)
+    p.add_argument('--checkpoint', default='last')
+    p.add_argument('--output', default=None, help='Output path for the exported model archive')
+    p.add_argument('--batch-size', default=10, type=int)
+    p.add_argument('--image-size', default=None, type=optional(int))
+    p.add_argument('--replace-paths', default=None, action='append')
+    p.add_argument('--device', default='cuda', help='Device that runs the model (cuda, or cpu)')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.models.deploy import (export_model,
+                                                                  load_exported_model)
+    setup_logging()
+    out = export_model(args.model_dir, checkpoint=args.checkpoint, output=args.output,
+                       batch_size=args.batch_size, image_size=args.image_size,
+                       device=args.device)
+    logging.info('Exported model to %s', out)
+    results = None
+    if args.eval_annot_files:
+        from moseq2_detectron_extract_tpu_torch.io.annot import (dataset_catalog_get,
+                                                                 load_annotations_helper)
+        from moseq2_detectron_extract_tpu_torch.models.eval import evaluate_model
+        load_annotations_helper(args.eval_annot_files, 'RGB',
+                                replace_paths=_replace_pairs(args.replace_paths), register=True)
+        predictor = load_exported_model(out, device=args.device)
+        results = evaluate_model(out, dataset_catalog_get('moseq_test'), predictor=predictor)
+        _log_results(results, 'post-export ')
+    return out, results
+
+
+def infer_dataset(argv: Sequence[str]) -> str:
+    '''Run the model over Label Studio tasks and write pre-annotations
+    (polygons and keypoints); returns the output's path.'''
+    p = argparse.ArgumentParser(prog='infer-dataset', allow_abbrev=False,
+                                description='Pre-annotate dataset tasks with model predictions')
+    p.add_argument('tasks_file', metavar='TASKS_FILE', type=_existing)
+    p.add_argument('--model-dir', required=True, type=_existing)
+    p.add_argument('--checkpoint', default='last')
+    p.add_argument('--output', default=None)
+    p.add_argument('--instance-threshold', default=0.5, type=float)
+    p.add_argument('--device', default='cuda', help='Device that runs the model (cuda, or cpu)')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.dataset import write_predictions_as_annotations
+    setup_logging()
+    out = write_predictions_as_annotations(args.tasks_file, args.model_dir,
+                                           checkpoint=args.checkpoint, output=args.output,
+                                           instance_threshold=args.instance_threshold,
+                                           device=args.device)
+    logging.info('Wrote pre-annotations to %s', out)
+    return out
+
+
+def find_roi(argv: Sequence[str]):
+    '''Find and cache a session's ROI and background (``first_frame.tiff``,
+    ``bground.tiff``, ``roi_<index>.tiff`` in ``--output-dir``, default the
+    session's ``proc``); returns the session.'''
+    p = argparse.ArgumentParser(prog='find-roi', allow_abbrev=False,
+                                description='Finds the ROI and background image')
+    p.add_argument('input_file', metavar='INPUT_FILE', type=_existing_file)
+    _add_bg_roi_options(p)
+    p.add_argument('--output-dir', default=None)
+    p.add_argument('--device', default='cuda', help='Device that runs the ROI search (cuda, or cpu)')
+    args = _typed_defaults(p).parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.device import resolve_device
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.io.util import ensure_dir
+
+    device = resolve_device(args.device)
+    setup_logging()
+    session = Session(args.input_file)
+    output_dir = args.output_dir or os.path.join(session.dirname, 'proc')
+    ensure_dir(output_dir)
+    session.find_roi(bg_roi_dilate=tuple(args.bg_roi_dilate), bg_roi_shape=args.bg_roi_shape,
+                     bg_roi_index=args.bg_roi_index, bg_roi_weights=tuple(args.bg_roi_weights),
+                     bg_roi_depth_range=tuple(args.bg_roi_depth_range),
+                     bg_roi_gradient_filter=args.bg_roi_gradient_filter,
+                     bg_roi_gradient_threshold=args.bg_roi_gradient_threshold,
+                     bg_roi_gradient_kernel=args.bg_roi_gradient_kernel,
+                     bg_roi_fill_holes=args.bg_roi_fill_holes,
+                     use_plane_bground=args.use_plane_bground,
+                     cache_dir=output_dir, verbose=True, device=device)
+    logging.info('Detected true depth: %s', session.true_depth)
+    return session
+
+
+COMMANDS = {'extract': extract, 'train': train, 'convert-weights': convert_weights,
+            'evaluate': evaluate, 'compile-model': compile_model,
+            'infer-dataset': infer_dataset, 'find-roi': find_roi}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

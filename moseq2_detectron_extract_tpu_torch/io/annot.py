@@ -14,7 +14,14 @@ cv2 is replaced where the reference calls it:
   outline pixels are inside the mask too; an edge that leaves the image is
   drawn and followed along its ``clipLine`` segment, as cv2 5.0 does;
 * :func:`point_in_polygon` is ``cv2.pointPolygonTest(..., False) >= 0`` on
-  float32 points (a point on an edge is inside).
+  float32 points (a point on an edge is inside);
+* :func:`mask_to_poly` is ``cv2.findContours(mask, RETR_EXTERNAL,
+  CHAIN_APPROX_SIMPLE)``: Suzuki and Abe's border following of the outer
+  borders on the mask framed by one row and column of zeros, with cv2's
+  raster scan, its start pixel and search directions, its marking of the
+  followed pixels, its rule for skipping components inside another one's
+  hole, one point where the chain code changes direction, and its order
+  (the last contour found first).
 
 ``get_polygon_data`` scales a polygon's x by the image's height and its y
 by its width, as the reference does (a fault of the reference, kept so
@@ -221,6 +228,86 @@ def poly_to_mask(poly: np.ndarray, out_shape: Tuple[int, int]) -> np.ndarray:
     return fill_poly(mask, pts, 1)[..., None]
 
 
+# chain-code directions (dx, dy): east, then counterclockwise on the screen
+_CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1), (1, 1))
+_RIGHT_BOUND = -126          # cv2's ``nbd | -128`` as a signed char, nbd 2
+_BORDER = 2
+
+
+def _follow_outer_border(img: np.ndarray, y0: int, x0: int) -> List[Tuple[int, int]]:
+    '''Follow the outer border that starts at (y0, x0) of the framed int
+    image, marking its pixels as cv2 does, and return its points (x, y) of
+    the unframed mask, one at each change of direction.'''
+    s = s_end = 4
+    while True:                         # clockwise from north-west for a neighbour
+        s = (s - 1) & 7
+        y1, x1 = y0 + _CHAIN[s][1], x0 + _CHAIN[s][0]
+        if img[y1, x1] != 0 or s == s_end:
+            break
+    if s == s_end:                      # a single pixel
+        img[y0, x0] = _RIGHT_BOUND
+        return [(x0 - 1, y0 - 1)]
+    points = []
+    y3, x3 = y0, x0
+    prev_s = s ^ 4
+    px, py = x0 - 1, y0 - 1
+    while True:
+        s_end = s
+        while s < 15:                   # counterclockwise from the previous pixel
+            s += 1
+            y4, x4 = y3 + _CHAIN[s & 7][1], x3 + _CHAIN[s & 7][0]
+            if img[y4, x4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:             # the east neighbour was examined and is 0
+            img[y3, x3] = _RIGHT_BOUND
+        elif img[y3, x3] == 1:
+            img[y3, x3] = _BORDER
+        if s != prev_s:
+            points.append((px, py))
+            prev_s = s
+        px, py = px + _CHAIN[s][0], py + _CHAIN[s][1]
+        if (y4, x4) == (y0, x0) and (y3, x3) == (y1, x1):
+            return points
+        y3, x3 = y4, x4
+        s = (s + 4) & 7
+
+
+def mask_to_poly(mask: np.ndarray) -> List[np.ndarray]:
+    '''Outer boundary polygons of a binary mask, each an (n, 1, 2) int32
+    array of (x, y) points, as ``cv2.findContours(mask, cv2.RETR_EXTERNAL,
+    cv2.CHAIN_APPROX_SIMPLE)`` gives them.'''
+    mask = np.asarray(mask)
+    h, w = mask.shape
+    img = np.zeros((h + 2, w + 2), np.int16)
+    img[1:-1, 1:-1] = mask != 0
+    contours = []
+    lnbd = (1, 0)                       # the last labelled pixel met by the scan
+    for y in range(1, h + 1):
+        row = img[y]
+        x, prev = 1, 0
+        while x <= w:
+            changed = np.flatnonzero(row[x:w + 1] != prev)
+            if not changed.size:
+                break
+            x += int(changed[0])
+            p = int(row[x])
+            if prev == 0 and p == 1:            # an outer border starts here
+                if img[lnbd] <= 0:              # not inside another component
+                    contours.append(_follow_outer_border(img, y, x))
+                    prev = int(row[x])
+                    x += 1
+                    continue
+            elif p == 0 and prev == _BORDER:
+                lnbd = (y, x - 1)               # a hole starts (not followed)
+            prev = p
+            if p not in (0, 1):
+                lnbd = (y, x)
+            x += 1
+        lnbd = (y + 1, 0)
+    return [np.asarray(c, np.int32).reshape(-1, 1, 2) for c in reversed(contours)]
+
+
 def point_in_polygon(point: Tuple[float, float], poly: np.ndarray) -> bool:
     '''``cv2.pointPolygonTest(poly, point, False) >= 0``: inside or on an
     edge, on float32 coordinates.'''
@@ -393,6 +480,20 @@ def read_annotations(annot_file: str, keypoint_names: Optional[List[str]] = None
         item['rescale_intensity'] = rescale
         out.append(item)
     return out
+
+
+def read_tasks(tasks_file: str, rescale: float = 1.0) -> List[DataItem]:
+    '''Read task entries without annotations (``m2de/io/annot.py:330-349``).'''
+    with open(tasks_file, 'r', encoding='utf-8') as in_file:
+        data = json.load(in_file)
+    tasks = []
+    for entry in data:
+        image_path = get_image_path(entry)
+        image = read_image(image_path)
+        tasks.append({'file_name': image_path, 'width': image.shape[1],
+                      'height': image.shape[0], 'image_id': image_path,
+                      'rescale_intensity': rescale, 'annotations': []})
+    return tasks
 
 
 def load_annotations_helper(annot_files, image_format: str,

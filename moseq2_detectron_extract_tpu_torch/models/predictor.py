@@ -48,6 +48,10 @@ class Predictor:
         cast_to_compute_dtype(self.model)
         self.model.to(self.device)
         self.batch_size = int(batch_size)
+        # deploy.load_exported_model puts the loaded torch.export program's
+        # module here; step then runs it in place of the live model at the
+        # program's batch size
+        self._exported_forward = None
 
     @classmethod
     def from_model_dir(cls, model_dir: str, batch_size: int = 10,
@@ -86,7 +90,10 @@ class Predictor:
         b = x.shape[0]
         image_sizes = torch.tensor([[new_h, new_w]], dtype=torch.float32,
                                    device=x.device).repeat(b, 1)
-        out = self.model.inference(x, image_sizes)
+        if self._exported_forward is not None and b == self.batch_size:
+            out = self._exported_forward(x, image_sizes)
+        else:
+            out = self.model.inference(x, image_sizes)
 
         inv = 1.0 / scale
         keypoints = out['keypoints'].clone()

@@ -101,7 +101,9 @@ class Trainer:
 
     def resume_or_load(self, resume: bool = False) -> None:
         '''Initialise the model and optimizer, restoring the latest
-        checkpoint (step, weights, momentum) when resuming.'''
+        checkpoint (step, weights, momentum) when resuming. A checkpoint
+        without momentum (``convert-weights`` writes one) restores the step
+        and the weights.'''
         self.state = create_train_state(self.cfg, seed=0, device=self.device)
         if resume:
             ckpt = get_last_checkpoint(self.model_dir)
@@ -109,7 +111,8 @@ class Trainer:
                 logging.info('Resuming from %s', ckpt)
                 restored = load_checkpoint(ckpt)
                 self.state.model.load_state_dict(restored['model'])
-                self.state.optimizer.load_state_dict(restored['optimizer'])
+                if 'optimizer' in restored:
+                    self.state.optimizer.load_state_dict(restored['optimizer'])
                 self.state.step = int(restored['step'])
 
     def checkpoint(self) -> str:

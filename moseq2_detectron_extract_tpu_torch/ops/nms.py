@@ -4,6 +4,13 @@ Port of ``moseq2_detectron_extract_tpu/ops/nms.py:20-67``: a box is kept iff
 no higher-ranked kept box overlaps it above the threshold. Ranks order by
 score, ties by index (the earlier index wins). The decided-state propagation
 runs at most ``MAX_ITERS`` rounds, as the reference's bounded while loop.
+
+Eagerly, each round first asks the host whether a box is still undecided
+and stops when none is. While ``torch.export`` traces (``models/deploy.py``)
+that test is a data-dependent branch the tracer cannot take, so the loop
+runs exactly ``MAX_ITERS`` rounds with no test: once nothing is undecided a
+round changes nothing, so the answer is the early-exit loop's, also where
+the loop is cut at the cap.
 '''
 import torch
 
@@ -32,12 +39,14 @@ def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None):
     dominates = (iou > iou_threshold) & rank_before & valid[..., None, :]
 
     global sync_count
+    exporting = torch.compiler.is_exporting()
     keep = torch.zeros_like(valid)
     supp = torch.zeros_like(valid)
     for _ in range(MAX_ITERS):
-        sync_count += 1
-        if not bool(torch.any(valid & ~keep & ~supp)):
-            break
+        if not exporting:
+            sync_count += 1
+            if not bool(torch.any(valid & ~keep & ~supp)):
+                break
         keep = keep | (valid & ~supp & ~torch.any(dominates & ~supp[..., None, :], dim=-1))
         supp = supp | torch.any(dominates & keep[..., None, :], dim=-1)
     return keep

@@ -5,9 +5,16 @@ Replaces ``moseq2_detectron_extract_tpu/ops/pallas_roi_align.py`` (Pallas
 TPU kernel ``_kernel``, entry ``pallas_separable_roi_align``). On a CUDA
 tensor :func:`roi_align` launches the kernel or raises; on a CPU tensor it
 runs the plain version, ``roi_align.separable_batched_roi_align``.
+
+The launch is the registered op ``m2de::roi_align_bf16``
+(``torch.library.custom_op``): its CUDA implementation is
+:func:`roi_align_cuda`, its CPU implementation the plain version, and its
+fake implementation gives the output's shape, so that ``torch.export``
+records the op in the graph (``models/deploy.py``) instead of tracing the
+``ctypes`` call, which needs real device pointers.
 '''
 import ctypes
-from typing import NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
@@ -93,6 +100,29 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     return out
 
 
+@torch.library.custom_op('m2de::roi_align_bf16', mutates_args=(), device_types='cuda')
+def roi_align_bf16(levels: List[torch.Tensor], boxes: torch.Tensor, output_size: int,
+                   min_level: int) -> torch.Tensor:
+    '''The registered op on CUDA tensors: one launch of the kernel
+    (:func:`roi_align_cuda`, with its checks and its launch count).'''
+    return roi_align_cuda(levels, boxes, output_size, min_level)
+
+
+@roi_align_bf16.register_kernel('cpu')
+def _roi_align_bf16_cpu(levels: List[torch.Tensor], boxes: torch.Tensor, output_size: int,
+                        min_level: int) -> torch.Tensor:
+    return separable_batched_roi_align(levels, boxes, output_size, min_level,
+                                       out_dtype=torch.bfloat16)
+
+
+@roi_align_bf16.register_fake
+def _roi_align_bf16_fake(levels: List[torch.Tensor], boxes: torch.Tensor, output_size: int,
+                         min_level: int) -> torch.Tensor:
+    b, k = boxes.shape[:2]
+    return boxes.new_empty((b, k, output_size, output_size, levels[0].shape[-1]),
+                           dtype=torch.bfloat16)
+
+
 def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
               output_size: int, min_level: int = 2) -> torch.Tensor:
     '''Multilevel ROIAlignV2 of (B, K, 4) boxes over NHWC levels
@@ -106,7 +136,6 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     if boxes.is_cuda:
         levels = [f if f.dtype == torch.bfloat16 and f.stride(3) == 1
                   else f.to(torch.bfloat16).contiguous() for f in features]
-        return roi_align_cuda(levels, boxes.float().contiguous(), output_size,
-                              min_level)
-    return separable_batched_roi_align([f.to(torch.bfloat16) for f in features], boxes,
-                                       output_size, min_level, out_dtype=torch.bfloat16)
+        return roi_align_bf16(levels, boxes.float().contiguous(), output_size, min_level)
+    return roi_align_bf16([f.to(torch.bfloat16) for f in features], boxes, output_size,
+                          min_level)

@@ -584,3 +584,51 @@ def test_cuda_train_step_matches_cpu(cuda_device):
         scale = max(float((value - state_dict[name]).abs().max()), 1e-12)
         assert float((w_gpu[name] - value).abs().max()) <= 1e-4 * max(
             float(value.abs().max()), scale), name
+
+
+@pytest.mark.parametrize('out,k,c', [(7, 16, 256), (14, 1, 256), (7, 1, 256), (5, 3, 6)])
+def test_cuda_registered_op_is_the_kernel(cuda_device, out, k, c):
+    '''``m2de::roi_align_bf16`` on CUDA tensors: one launch of the kernel,
+    bit for bit ``roi_align_cuda``'s output.'''
+    feats, boxes = random_pyramid(3, k, c, seed=out * k + c)
+    levels = [torch.from_numpy(f).to(cuda_device, torch.bfloat16) for f in feats]
+    bx = torch.from_numpy(boxes).to(cuda_device)
+    before = roi_align_kernel.launch_count
+    via_op = torch.ops.m2de.roi_align_bf16(levels, bx, out, 2)
+    assert roi_align_kernel.launch_count == before + 1
+    direct = roi_align_kernel.roi_align_cuda(levels, bx, out, 2)
+    torch.cuda.synchronize()
+    assert via_op.dtype == torch.bfloat16 and torch.equal(via_op, direct)
+
+
+def test_cuda_export_tiny_model(cuda_device, tmp_path):
+    '''``models/deploy.py`` on the card: the loaded program launches the
+    ROIAlign kernel 3 times a batch and, with deterministic cuDNN, equals
+    the live model bit for bit.'''
+    import os
+    from moseq2_detectron_extract_tpu_torch.models.checkpoint import save_checkpoint
+    from moseq2_detectron_extract_tpu_torch.models.deploy import (export_model,
+                                                                  load_exported_model)
+    cfg, state = small_model()
+    model_dir = str(tmp_path / 'model')
+    os.makedirs(model_dir)
+    cfg.replace(test_score_thresh=0.0).to_yaml(os.path.join(model_dir, 'config.yaml'))
+    save_checkpoint(model_dir, 0, {'step': 0, 'model': state})
+    out = export_model(model_dir, batch_size=2, device='cuda')
+    frames = torch.from_numpy(make_sentinel_chunk(4, 96, 128, seed=1)).to(cuda_device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        program = load_exported_model(out, device='cuda')
+        assert program._exported_forward is not None
+        live = Predictor.from_model_dir(model_dir, batch_size=2, device='cuda')
+        roi_align_kernel.launch_count = 0
+        got = program(frames)
+        torch.cuda.synchronize()
+        assert roi_align_kernel.launch_count == 3 * 2
+        ref = live(frames)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for key in got:
+        assert torch.equal(torch.nan_to_num(got[key], nan=-7.0),
+                           torch.nan_to_num(ref[key], nan=-7.0)), key

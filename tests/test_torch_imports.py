@@ -5,7 +5,9 @@ through the host brain and the output ops, with the mouse away for a few
 frames), the ``extract`` command on a model directory (its pipeline threads,
 results file and status YAML, read back), the ``train`` command (a
 synthetic Label Studio export of PNG views, two steps, a checkpoint, then
-``Predictor`` on the trained dir), the C++ Kalman core and the stage-2
+``Predictor`` on the trained dir), the model lifecycle's commands
+(``convert-weights``, ``train --init-weights``, ``evaluate``,
+``compile-model``, ``infer-dataset``, ``find-roi``), the C++ Kalman core and the stage-2
 experiment's check on the CPU with all of them blocked.'''
 import ast
 import os
@@ -122,6 +124,35 @@ with tempfile.TemporaryDirectory() as tmp:
     assert os.listdir(os.path.join(tdir, 'checkpoints')) == ['model_0000002.pt']
     trained = Predictor.from_model_dir(tdir, batch_size=2, device='cpu')
     assert trained.cfg.max_iter == 2
+    # the model lifecycle: convert-weights on a Detectron2 pickle of the tiny
+    # model's weights, train --init-weights, evaluate, compile-model (export
+    # and the post-export evaluation), infer-dataset and find-roi
+    import json, pickle
+    from moseq2_detectron_extract_tpu_torch.models.convert import detectron2_name_map
+    tiny_state = MaskKeypointRCNN(tcfg).state_dict()
+    d2 = {src: tiny_state[name].numpy() for src, name in detectron2_name_map()
+          if name in tiny_state}
+    with open(os.path.join(tmp, 'zoo.pkl'), 'wb') as fh:
+        pickle.dump({'model': d2}, fh)
+    cdir = os.path.join(tmp, 'converted')
+    assert cli.main(['convert-weights', os.path.join(tmp, 'zoo.pkl'), '--model-dir', cdir,
+                     '--config', os.path.join(tmp, 'train.yaml')]) == 0
+    assert Predictor.from_model_dir(cdir, batch_size=2, device='cpu').cfg == tcfg
+    assert cli.main(['train', export, '--model-dir', os.path.join(tmp, 'init'), '--config',
+                     os.path.join(tmp, 'train.yaml'), '--max-iter', '1', '--device', 'cpu',
+                     '--init-weights', os.path.join(tmp, 'zoo.pkl')]) == 0
+    results = cli.evaluate([export, '--model-dir', mdir, '--device', 'cpu'])
+    assert set(results) == {'bbox', 'segm', 'keypoints'}
+    edir, post = cli.compile_model([export, '--model-dir', mdir, '--batch-size', '2',
+                                    '--output', os.path.join(tmp, 'export'), '--device', 'cpu'])
+    assert os.path.exists(os.path.join(edir, 'model.pt2')) and set(post) == set(results)
+    pre = cli.infer_dataset([export, '--model-dir', mdir, '--instance-threshold', '0.0',
+                             '--device', 'cpu'])
+    with open(pre, encoding='utf-8') as fh:
+        assert len(json.load(fh)) == 6
+    found = cli.find_roi([os.path.join(tmp, 'depth.dat'), '--output-dir',
+                          os.path.join(tmp, 'roi'), '--device', 'cpu'])
+    assert found.roi.any()
 import numpy as np
 from moseq2_detectron_extract_tpu_torch.proc import kalman
 params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),
