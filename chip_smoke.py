@@ -111,7 +111,14 @@ Phases, each printed with its elapsed seconds as it starts:
    here): the overall frames/s that ``extract_session`` logs, each stage's
    ``busy_s``, ``cpu_s`` and chunks from the status file's ``stage_stats``,
    the peak device memory, the file's size against its uncompressed bytes,
-   and the serial ``extract_chunks`` frames/s on the same session;
+   and the serial ``extract_chunks`` frames/s on the same session. Each run
+   also writes the preview, ``results_00.avi`` (Motion-JPEG, drawn by the
+   C++ core ``csrc/draw_host.cpp`` and encoded by ``csrc/mjpeg_host.cpp``,
+   both built with g++ from the checkout): its index must hold exactly the
+   session's frames, each a well-formed JPEG (SOI, a SOF0 of the video's
+   size, EOI); its size, and the ``Preview Video`` and ``Preview Encode``
+   stages' ``busy_s`` and ``cpu_s`` per 1,000 frames with the render's
+   ``sub_times``, are printed;
 4d. training (no kernel of its own: the training path reaches no
    ``pallas_call`` in the JAX package): (a) a Label Studio export of 48
    synthetic 150x150 ``_depth.png`` views (``synthetic.write_annotated_views``,
@@ -159,6 +166,12 @@ Phases, each printed with its elapsed seconds as it starts:
    background and true depth must equal ``prepare_session``'s. The ROIAlign
    launches of the phase are counted from 0 and must equal 3 per image
    evaluated or pre-annotated on the card and per program batch;
+4f. the preview commands: ``visualize-raw`` on phase 4b's session and
+   ``visualize-result`` on phase 4c (a)'s results file (kept for it), each
+   timed (seconds, frames/s), each AVI's index holding every frame as a
+   well-formed JPEG; and ``ops/warp.py:reverse_crop_and_rotate_frames`` on
+   the card against the CPU on the results file's first 200 crops (max abs
+   error, to 1e-3);
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
@@ -1031,8 +1044,9 @@ def check_session(predictor, card: str, seed: int, model_dir: str, tmp: str):
     against the CPU; the smoother backends; a session with the mouse away;
     the card's ROI against the CPU's and the C++ prep against the plain one.
     Then phase 4c on the same session and on a longer one. Returns the
-    path's kernel launches, phase 4c's, and the session's path and
-    ``prepare_session`` result (for phase 4e).'''
+    path's kernel launches, phase 4c's, the session's path and
+    ``prepare_session`` result (for phase 4e) and phase 4c (a)'s results
+    file (for phase 4f).'''
     import numpy as np
     import torch
     from moseq2_detectron_extract_tpu_torch import extract
@@ -1154,8 +1168,10 @@ def check_session(predictor, card: str, seed: int, model_dir: str, tmp: str):
         raise AssertionError('the C++ host prep differs from the plain version')
 
     phase('4c/5 extract through the CLI: (a) the session above, (b) a 4,000-frame session')
-    extract_launches = check_extract(path, run['results'], prepared, card, seed, model_dir)
-    return launches, extract_launches, path, prepared
+    results_h5 = os.path.join(tmp, 'results_4c.h5')
+    extract_launches = check_extract(path, run['results'], prepared, card, seed, model_dir,
+                                     results_h5)
+    return launches, extract_launches, path, prepared, results_h5
 
 
 def _compare_file(h5_path: str, results: dict) -> dict:
@@ -1178,10 +1194,32 @@ def _compare_file(h5_path: str, results: dict) -> dict:
     return differ
 
 
-def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str):
+def check_avi(avi_path: str, nframes: int, card: str, label: str) -> dict:
+    '''The AVI's index must hold exactly ``nframes`` frames, each a JPEG with
+    SOI, a SOF0 of the video's size and EOI; prints its size. Returns the
+    index (``io/mjpeg.py:read_avi_index``).'''
+    from moseq2_detectron_extract_tpu_torch.io.mjpeg import read_avi_index
+    index = read_avi_index(avi_path)
+    size = os.path.getsize(avi_path)
+    sof = index['sof_sizes']
+    bad = [i for i, hw in enumerate(sof) if hw != (index['height'], index['width'])]
+    phase(f'{label}: {os.path.basename(avi_path)} {size / 1e6:.2f} MB, {len(index["frames"])} '
+          f'frames in the index ({size / max(len(index["frames"]), 1) / 1e3:.1f} KB a frame), '
+          f'{index["width"]}x{index["height"]} at {index["rate"]} fps, RIFFs {index["riffs"]}; '
+          f'SOI/EOI {"all" if index["jpeg_ok"] else "NOT all"} well formed, SOF0 sizes off '
+          f'{len(bad)} [{card}]')
+    if len(index['frames']) != nframes or index['dmlh_frames'] != nframes \
+            or not index['jpeg_ok'] or bad or len(sof) != nframes:
+        raise AssertionError(f'{label}: {avi_path} holds {len(index["frames"])} frames of '
+                             f'{nframes}; JPEGs well formed {index["jpeg_ok"]}, SOF0 off {bad[:5]}')
+    return index
+
+
+def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str, nframes: int):
     '''``cli.main(['extract', path, '--model', model_dir, '--output-dir',
     out_dir])`` with the launch counts set to 0 just before and read just
-    after; fails unless the status says ``complete: true``. Returns the
+    after; fails unless the status says ``complete: true`` and the preview
+    holds the session's ``nframes`` frames (``check_avi``). Returns the
     status, the launches, the wall seconds, the peak device memory and the
     overall frames/s line that extract_session logged.'''
     import torch
@@ -1212,6 +1250,15 @@ def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str):
         phase(f'{label}: stage {name}: busy {st["busy_s"]} s, cpu {st["cpu_s"]} s, chunks '
               f'{st["chunks"]}' + (f', sub_times {st["sub_times"]}' if 'sub_times' in st else '')
               + f' [{card}]')
+    per_k = 1000 / nframes
+    for name in ('Preview Video', 'Preview Encode'):
+        st = status['stage_stats'][name]
+        phase(f'{label}: {name} per 1,000 frames: busy {st["busy_s"] * per_k:.3f} s, cpu '
+              f'{st["cpu_s"] * per_k:.3f} s'
+              + (', sub_times ' + ', '.join(f'{k} {v * per_k:.3f} s' for k, v in
+                                            st['sub_times'].items()) if 'sub_times' in st else '')
+              + f' [{card}]')
+    check_avi(os.path.join(out_dir, 'results_00.avi'), nframes, card, label)
     return status, launches, wall, peak_gib
 
 
@@ -1221,7 +1268,7 @@ def _expected_launches(nframes: int, chunk: int, batch: int) -> dict:
 
 
 def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
-                  model_dir: str) -> dict:
+                  model_dir: str, keep_h5: str) -> dict:
     '''Phase 4c: the ``extract`` command (``cli.main``, the CLI's defaults)
     (a) on phase 4b's session: the results file read back with the port's
     reader against phase 4b's serial ``extract_chunks`` results, dataset by
@@ -1229,7 +1276,8 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
     batch size), its metadata against ``prepare_session``'s, the TSV and the
     instance log; (b) on a 4,000-frame session (4 chunks of 1000, no tail):
     frames/s, ``stage_stats``, peak memory and the file's size beside the
-    serial path's frames/s. Returns (a)'s launches.'''
+    serial path's frames/s. Returns (a)'s launches; (a)'s results file is
+    copied to ``keep_h5`` for phase 4f.'''
     import shutil
     import tempfile
     import numpy as np
@@ -1246,11 +1294,13 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
     tmp = tempfile.mkdtemp(prefix='m2de-extract-')
     try:
         out_a = os.path.join(tmp, 'a')
-        status, launches, _, _ = _run_cli(path, model_dir, out_a, card, '4c (a)')
+        status, launches, _, _ = _run_cli(path, model_dir, out_a, card, '4c (a)',
+                                          SESSION_FRAMES)
         expect = _expected_launches(SESSION_FRAMES, defaults.chunk_size, cli_batch)
         if launches != expect:
             raise AssertionError(f'4c (a) launches {launches}, expected {expect}')
         h5_path = os.path.join(out_a, 'results_00.h5')
+        shutil.copy(h5_path, keep_h5)
         differ = _compare_file(h5_path, serial)
         phase(f'4c (a): results_00.h5 against phase 4b\'s serial extract_chunks (batch '
               f'{BATCH}): {len(serial)} per-frame datasets, '
@@ -1279,7 +1329,7 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
             try:
                 torch.backends.cudnn.deterministic = True
                 out_d = os.path.join(tmp, 'a-deterministic')
-                _run_cli(path, model_dir, out_d, card, '4c (a) deterministic')
+                _run_cli(path, model_dir, out_d, card, '4c (a) deterministic', SESSION_FRAMES)
                 results = {}
                 for out in extract.extract_chunks(session, predictor, again):
                     written_rows(out, again['first_frame_idx'], results)
@@ -1319,7 +1369,8 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
               f'({os.path.getsize(long_path) / 1e9:.2f} GB) in {time.perf_counter() - t:.1f} s '
               f'[{card}]')
         out_b = os.path.join(tmp, 'b')
-        status, launches_b, wall, peak = _run_cli(long_path, model_dir, out_b, card, '4c (b)')
+        status, launches_b, wall, peak = _run_cli(long_path, model_dir, out_b, card, '4c (b)',
+                                                  LONG_SESSION_FRAMES)
         expect = _expected_launches(LONG_SESSION_FRAMES, defaults.chunk_size, cli_batch)
         if launches_b != expect:
             raise AssertionError(f'4c (b) launches {launches_b}, expected {expect}')
@@ -1332,7 +1383,8 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
             found = int(np.isfinite(r['scalars/centroid_x_px'][()]).sum())
         size = os.path.getsize(h5_path)
         phase(f'4c (b): {LONG_SESSION_FRAMES} frames at {LONG_SESSION_FRAMES / wall:.1f} '
-              f'frames/s (cli wall, find_roi and model load included); results_00.h5 '
+              f'frames/s (cli wall, find_roi and model load included; the preview written, '
+              f'which PR 14\'s 192.4 frames/s left out); results_00.h5 '
               f'{size / 1e6:.1f} MB of {raw_bytes / 1e6:.1f} MB uncompressed '
               f'({raw_bytes / size:.2f}x); centroid found in {found} frames [{card}]')
 
@@ -1680,14 +1732,31 @@ def check_training(card: str, seed: int, model_dir: str, tmp: str):
     for key in ('boxes', 'scores', 'keypoints', 'mask_probs'):
         if not bool(torch.isfinite(det[key]).all()):
             raise AssertionError(f'non-finite {key} from the exported model')
-    score_err = float((det['scores'][:, 0] - ref['scores'][:, 0]).abs().max())
+    score_gap = (det['scores'][:, 0] - ref['scores'][:, 0]).abs()
+    score_err = float(score_gap.max())
+    top_iou = box_iou_pairs(det['boxes'][:, 0], ref['boxes'][:, 0])
     phase(f'4d (d) params_f16.npz (save_params_npz): its {len(state)} tensors equal the '
           f'checkpoint\'s rounded to f16; through Predictor.from_model_dir on '
           f'{EXPORT_VIEWS} views: roi_align launches {launches}; top score median '
           f'{float(det["scores"][:, 0].median()):.3f}, against the f32 checkpoint\'s '
           f'top scores max abs diff {score_err:.2e} [{card}]')
+    phase('4d (d) each view\'s top detection, npz against checkpoint: score gap / box IoU '
+          + ', '.join(f'{g:.3f}/{u:.3f}' for g, u in zip(score_gap.tolist(), top_iou.tolist()))
+          + f'; the same detection (IoU >= 0.9) in {int((top_iou >= 0.9).sum())} of '
+          f'{len(top_iou)} views, min IoU {float(top_iou.min()):.3f} [{card}]')
     phase(f'4d: {time.perf_counter() - t_phase:.1f} s [{card}]')
     return {'roi_align': launches}, export, cfg_path, out_dir
+
+
+def box_iou_pairs(a, b):
+    '''IoU of each pair of rows of two (N, 4) [x0, y0, x1, y1] box tensors.'''
+    import torch
+    a, b = a.float().cpu(), b.float().cpu()
+    w = (torch.minimum(a[:, 2], b[:, 2]) - torch.maximum(a[:, 0], b[:, 0])).clamp(min=0)
+    h = (torch.minimum(a[:, 3], b[:, 3]) - torch.maximum(a[:, 1], b[:, 1])).clamp(min=0)
+    inter = w * h
+    area = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]) + (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return inter / (area - inter).clamp(min=1e-12)
 
 
 ZOO_KEYPOINTS = 17                 # phase 4e: the COCO keypoint head of the zoo checkpoint
@@ -1943,6 +2012,52 @@ def check_lifecycle(card: str, seed: int, export: str, cfg_path: str, trained: s
     return launches
 
 
+REVERSE_FRAMES = 200               # phase 4f: crops put back, card against CPU
+
+
+def check_preview_commands(card: str, session_path: str, results_h5: str, tmp: str) -> None:
+    '''Phase 4f: ``visualize-raw`` on the session and ``visualize-result``
+    on the results file, timed, their AVIs checked (``check_avi``); then
+    ``reverse_crop_and_rotate_frames`` on the card against the CPU.'''
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import cli
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    from moseq2_detectron_extract_tpu_torch.ops.warp import reverse_crop_and_rotate_frames
+    os.makedirs(tmp)
+    for command, source, name in (('visualize-raw', session_path, 'raw.avi'),
+                                  ('visualize-result', results_h5, 'result.avi')):
+        out = os.path.join(tmp, name)
+        t = time.perf_counter()
+        if cli.main([command, source, '-o', out]) != 0:
+            raise AssertionError(f'{command} failed')
+        seconds = time.perf_counter() - t
+        phase(f'4f {command}: {SESSION_FRAMES} frames in {seconds:.2f} s, '
+              f'{SESSION_FRAMES / seconds:.1f} frames/s [{card}]')
+        check_avi(out, SESSION_FRAMES, card, f'4f {command}')
+    with hdf5.File(results_h5, 'r') as h5:
+        frames = h5['frames'][0:REVERSE_FRAMES].astype('float32')
+        centers = np.stack([h5['scalars/centroid_x_px'][0:REVERSE_FRAMES],
+                            h5['scalars/centroid_y_px'][0:REVERSE_FRAMES]], axis=1)
+        angles = np.rad2deg(h5['scalars/angle'][0:REVERSE_FRAMES])
+        roi = h5['metadata/extraction/roi'][()]
+    ys, xs = np.nonzero(roi > 0)
+    dest = (int(xs.max() - xs.min()), int(ys.max() - ys.min()))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card_out = reverse_crop_and_rotate_frames(torch.from_numpy(frames).cuda(), centers, angles,
+                                              dest)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) * 1e3
+    cpu_out = reverse_crop_and_rotate_frames(torch.from_numpy(frames), centers, angles, dest)
+    err = float((card_out.cpu() - cpu_out).abs().max())
+    phase(f'4f reverse_crop_and_rotate_frames: {REVERSE_FRAMES} crops into {dest[0]}x{dest[1]} '
+          f'in {card_ms:.2f} ms on the card (first call); card vs CPU max abs err {err:.2e} '
+          f'[{card}]')
+    if not err <= 1e-3:
+        raise AssertionError(f'reverse_crop_and_rotate_frames: card vs CPU {err}')
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -2101,7 +2216,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix='m2de-smoke-')
     try:
         phase('4b/5 session path: write_raw_session + prepare_session + extract_chunks')
-        session_launches, extract_launches, session_path, prepared = check_session(
+        session_launches, extract_launches, session_path, prepared, results_h5 = check_session(
             predictor, card, args.seed, args.model_dir, os.path.join(work, 'session'))
 
         phase('4d/5 training: the train command at full width, the step split, card vs CPU, '
@@ -2114,6 +2229,10 @@ def main() -> int:
         lifecycle_launches = check_lifecycle(card, args.seed, export, cfg_path, trained,
                                              session_path, prepared,
                                              os.path.join(work, 'lifecycle'))
+
+        phase('4f/5 the preview commands: visualize-raw, visualize-result, the reverse '
+              'crop-rotate card vs CPU')
+        check_preview_commands(card, session_path, results_h5, os.path.join(work, 'preview'))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -12,6 +12,9 @@
         --model-dir DIR [--output DIR] [--batch-size 10]
     python -m moseq2_detectron_extract_tpu_torch.cli infer-dataset <tasks.json> --model-dir DIR
     python -m moseq2_detectron_extract_tpu_torch.cli find-roi <depth.dat> [--output-dir DIR]
+    python -m moseq2_detectron_extract_tpu_torch.cli visualize-raw <depth.dat> [-o preview.avi]
+    python -m moseq2_detectron_extract_tpu_torch.cli visualize-result <results_00.h5> \
+        [-o results_00.preview.avi]
 
 Port of ``moseq2_detectron_extract_tpu/cli.py`` on ``argparse`` (the card's
 machine has no click): the same option names, defaults and help strings.
@@ -29,6 +32,9 @@ rule, and the config keys ``use_tracking_model``, ``flip_classifier``,
 ``evaluate``, ``compile-model``, ``infer-dataset`` and ``find-roi`` are
 ``cli.py:169-321``. ``compile-model`` writes a ``torch.export`` program,
 ``model.pt2``, in place of ``model.hlo`` (``models/deploy.py``).
+``visualize-raw`` and ``visualize-result`` are ``cli.py:362-394``; they
+write Motion-JPEG AVIs (``preview.avi``, ``<results>.preview.avi``) where
+the reference writes ``.mp4`` (``viz.py``).
 '''
 import argparse
 import logging
@@ -375,9 +381,51 @@ def find_roi(argv: Sequence[str]):
     return session
 
 
+def _preview_parser(prog: str, description: str, input_name: str) -> argparse.ArgumentParser:
+    '''The two preview commands' options (``cli.py:362-394``).'''
+    p = argparse.ArgumentParser(prog=prog, description=description, allow_abbrev=False)
+    p.add_argument(input_name, metavar=input_name.upper(), type=_existing_file)
+    p.add_argument('-o', '--output-file', default=None)
+    p.add_argument('--min-height', default=0, type=int)
+    p.add_argument('--max-height', default=100, type=int)
+    p.add_argument('--chunk-size', default=1000, type=int)
+    p.add_argument('--fps', default=30, type=int)
+    p.add_argument('--device', default='cuda', help='Device of the ROI search or the '
+                                                     'reverse crop-rotate (cuda, or cpu)')
+    return p
+
+
+def visualize_raw(argv: Sequence[str]) -> str:
+    '''Background-subtracted preview movie of a raw session; returns its path.'''
+    args = _preview_parser('visualize-raw', 'Preview movie of a raw session',
+                           'input_file').parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.viz import generate_raw_preview
+    setup_logging()
+    out = generate_raw_preview(args.input_file, args.output_file, min_height=args.min_height,
+                               max_height=args.max_height, chunk_size=args.chunk_size,
+                               fps=args.fps, device=args.device)
+    logging.info('Wrote preview to %s', out)
+    return out
+
+
+def visualize_result(argv: Sequence[str]) -> str:
+    '''Re-render a preview movie from a results file; returns its path.'''
+    args = _preview_parser('visualize-result', 'Re-render preview movie from result h5',
+                           'result_file').parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.viz import H5ResultPreviewVideoGenerator
+    setup_logging()
+    out = H5ResultPreviewVideoGenerator(args.result_file, args.output_file,
+                                        vmin=args.min_height, vmax=args.max_height,
+                                        chunk_size=args.chunk_size, fps=args.fps,
+                                        device=args.device).generate()
+    logging.info('Wrote preview to %s', out)
+    return out
+
+
 COMMANDS = {'extract': extract, 'train': train, 'convert-weights': convert_weights,
             'evaluate': evaluate, 'compile-model': compile_model,
-            'infer-dataset': infer_dataset, 'find-roi': find_roi}
+            'infer-dataset': infer_dataset, 'find-roi': find_roi,
+            'visualize-raw': visualize_raw, 'visualize-result': visualize_result}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -11,7 +11,9 @@ and ``SelectInstancesStep``, selection, the window gather, the window clean
 and moments and the height stats), then ``process_features``
 (``ProcessFeaturesStep``: the host brain and the output ops) and
 ``fetch_results`` (``FetchResultsStep``: what the writers take). The
-preview writers are not ported.
+pipeline's preview steps render each chunk and encode it into
+``results_NN.avi``, Motion-JPEG where the reference writes h264 or mp4v
+into ``results_NN.mp4`` (the card's machine has no ffmpeg and no cv2).
 '''
 import logging
 import os
@@ -29,7 +31,9 @@ from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
 from moseq2_detectron_extract_tpu_torch.io.util import attach_file_logger, ensure_dir, write_yaml
 from moseq2_detectron_extract_tpu_torch.pipeline.pipeline import Pipeline, WorkerError
 from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers, FetchResultsStep,
-                                                               InferenceStep, ProcessFeaturesStep,
+                                                               InferenceStep, PreviewEncodeStep,
+                                                               PreviewVideoWriterStep,
+                                                               ProcessFeaturesStep,
                                                                ProduceFramesStep,
                                                                ResultWriterStep,
                                                                SelectInstancesStep,
@@ -152,7 +156,8 @@ def extract_session(session: Session, config: dict) -> str:
     (default ``'cuda'``) runs the model and the device path, and
     ``predictor`` may hand in a loaded Predictor. Writes into
     ``output_dir`` (default: ``proc`` beside the session): ``results_NN.h5``,
-    ``keypoints_NN.tsv``, ``instance_log.tsv``, the ROI caches,
+    ``results_NN.avi`` (the preview), ``keypoints_NN.tsv``,
+    ``instance_log.tsv``, the ROI caches,
     ``results_NN.log`` and ``results_NN.yaml`` (NN: ``bg_roi_index``). A
     session whose status already says ``complete: true`` is skipped. A
     failure of any step is logged, and the status keeps ``complete: false``:
@@ -195,6 +200,8 @@ def extract_session(session: Session, config: dict) -> str:
         features = pipeline.add_step('Process Features', ProcessFeaturesStep,
                                      show_progress=True, config=config)
         fetch = pipeline.add_step('   Fetch Results', FetchResultsStep, config=config)
+        preview = pipeline.add_step('   Preview Video', PreviewVideoWriterStep, config=config)
+        encode = pipeline.add_step('  Preview Encode', PreviewEncodeStep, config=config)
         # the writer last: log_processing_status reads steps[-1]; its name is
         # the reference's, spelling included, so that stage_stats keys agree
         writer = pipeline.add_step('    Write Reults', ResultWriterStep, show_progress=True,
@@ -203,7 +210,8 @@ def extract_session(session: Session, config: dict) -> str:
         pipeline.link(inference, select)
         pipeline.link(select, features)
         pipeline.link(features, fetch)
-        pipeline.link(fetch, writer)
+        pipeline.link(fetch, preview, writer)
+        pipeline.link(preview, encode)
         pipeline.add_timed_callback(30.0, log_processing_status)
 
         pipeline.start()

@@ -1,11 +1,19 @@
-'''Raw depth video: frame counts and reads of 16-bit ``.dat`` files.
+'''Raw depth video: frame counts and reads of 16-bit ``.dat`` files; the
+jet colormap and the preview video's writer.
 
 Port of ``moseq2_detectron_extract_tpu/io/video.py`` (``get_raw_info``,
-``read_frames_raw``, ``load_movie_data``, ``get_movie_info``). Random
+``read_frames_raw``, ``load_movie_data``, ``get_movie_info``;
+``_jet_lut``, ``apply_colormap_jet`` and ``PreviewVideoWriter``, lines
+440-635). Random
 access is coalesced into one seek and read per run of consecutive frames,
 and a run that lands on consecutive output rows is read straight into them.
 Compressed depth (``.avi``, ``.mp4``) needs an ffmpeg decoder, which the
 port does not have: it raises :class:`CompressedVideoError`.
+
+The preview writer writes Motion-JPEG in an AVI (``io/mjpeg.py``) where the
+JAX package writes h264 or mp4v through ffmpeg or cv2, which the card's
+machine does not have; its frames are the JAX writer's, frame numbers
+included (``ops/draw.py``).
 '''
 import os
 import tarfile
@@ -14,6 +22,9 @@ from operator import itemgetter
 from typing import Iterable, List, Optional, Tuple, TypedDict, Union
 
 import numpy as np
+
+from moseq2_detectron_extract_tpu_torch.io.mjpeg import RIFF_LIMIT, MjpegAviWriter
+from moseq2_detectron_extract_tpu_torch.ops.draw import DrawList
 
 VideoFile = Union[str, tarfile.TarInfo]
 
@@ -132,3 +143,98 @@ def get_movie_info(filename: VideoFile, frame_dims: Tuple[int, int] = (512, 424)
     '''Size and shape of a raw ``.dat`` stream; compressed streams raise.'''
     _refuse_compressed(filename)
     return get_raw_info(filename, frame_dims=frame_dims, bit_depth=bit_depth)
+
+
+def _jet_lut() -> np.ndarray:
+    x = np.linspace(0.0, 1.0, 256)
+    r = np.clip(1.5 - np.abs(4.0 * x - 3.0), 0, 1)
+    g = np.clip(1.5 - np.abs(4.0 * x - 2.0), 0, 1)
+    b = np.clip(1.5 - np.abs(4.0 * x - 1.0), 0, 1)
+    return (np.stack([r, g, b], axis=-1) * 255).astype('uint8')
+
+
+_JET_LUT = _jet_lut()
+_JET_LUT_BGR = np.ascontiguousarray(_JET_LUT[:, ::-1])
+
+
+def apply_colormap_jet(frames: np.ndarray, vmin: float = 0, vmax: float = 100,
+                       out: Optional[np.ndarray] = None, order: str = 'rgb') -> np.ndarray:
+    '''Single-channel frames -> uint8 colour frames (``frames.shape + (3,)``)
+    through a 256-entry jet table, in ``order`` 'rgb' or 'bgr'. uint8 frames
+    fold the [vmin, vmax] rescale into the table; others are rescaled,
+    clipped and cast first. ``out`` is written when it has the result's
+    shape.'''
+    if order not in ('rgb', 'bgr'):
+        raise ValueError(f"order must be 'rgb' or 'bgr', got {order!r}")
+    frames = np.asarray(frames)
+    base_lut = _JET_LUT if order == 'rgb' else _JET_LUT_BGR
+    scale = 255.0 / max(vmax - vmin, 1e-6)
+    if frames.dtype == np.uint8:
+        vals = np.clip((np.arange(256) - vmin) * scale, 0, 255).astype('uint8')
+        lut = base_lut[vals]
+    else:
+        frames = np.clip((frames.astype('float32') - vmin) * scale, 0, 255).astype('uint8')
+        lut = base_lut
+    if out is not None and out.shape == frames.shape + (3,):
+        np.take(lut, frames, axis=0, out=out)
+        return out
+    return lut[frames]
+
+
+class PreviewVideoWriter:
+    '''The preview video: blocks of frames into a Motion-JPEG AVI.
+
+    Gray (N, H, W) blocks are colormapped; colour (N, H, W, 3) blocks are in
+    ``channel_order``. Odd heights and widths are padded to even with
+    zeros, each frame's number is stamped at (5, h - 40) as the JAX writer
+    stamps it (``cv2.putText``, scale 1, thickness 2, white), and the
+    frames are encoded in ``channel_order`` at ``io/mjpeg.py``'s quality.
+    ``riff_limit`` is the AVI's RIFF size (``io/mjpeg.py``).'''
+
+    def __init__(self, filename: str, fps: int = 30, vmin: float = 0, vmax: float = 100,
+                 channel_order: str = 'rgb', riff_limit: int = RIFF_LIMIT) -> None:
+        self.filename = filename
+        self.fps = fps
+        self.vmin = vmin
+        self.vmax = vmax
+        self.channel_order = channel_order
+        self.riff_limit = riff_limit
+        self._avi: Optional[MjpegAviWriter] = None
+        self._buf: Optional[np.ndarray] = None
+
+    def write_frames(self, frame_idxs: Optional[np.ndarray], frames: np.ndarray,
+                     writable: bool = False) -> None:
+        '''Append ``frames``; ``frame_idxs`` (or None) are stamped on them.
+
+        ``writable=True`` declares a C-contiguous uint8 colour block safe to
+        stamp in place (a render buffer the caller does not read again);
+        otherwise the block is copied into a buffer kept between calls.'''
+        if frames.shape[1] % 2:
+            frames = np.pad(frames, ((0, 0), (0, 1)) + ((0, 0),) * (frames.ndim - 2))
+        if frames.shape[2] % 2:
+            frames = np.pad(frames, ((0, 0), (0, 0), (0, 1)) + ((0, 0),) * (frames.ndim - 3))
+        if frames.ndim == 3:
+            block = apply_colormap_jet(frames, self.vmin, self.vmax, order=self.channel_order)
+        elif frames.dtype == np.uint8 and writable and frames.flags.c_contiguous:
+            block = frames
+        else:
+            if self._buf is None or self._buf.shape != frames.shape:
+                self._buf = np.empty(frames.shape, np.uint8)
+            block = self._buf
+            block[...] = frames if frames.dtype == np.uint8 else frames.astype('uint8')
+        n, h, w = block.shape[:3]
+        if frame_idxs is not None:
+            stamps = DrawList()
+            for i in range(n):
+                stamps.number(i, int(frame_idxs[i]), (5, h - 40), 'stamp', (255, 255, 255))
+            stamps.draw(block)
+        if self._avi is None:
+            self._avi = MjpegAviWriter(self.filename, w, h, fps=self.fps,
+                                       riff_limit=self.riff_limit)
+        self._avi.write_frames(block, order=self.channel_order)
+
+    def close(self) -> None:
+        '''Write the AVI's indexes and close it.'''
+        if self._avi is not None:
+            self._avi.close()
+            self._avi = None

@@ -6,8 +6,10 @@ with the fused selection of ``ops/instances.py:nms_and_centers``. uint8
 depth frames go in, full-resolution masks and keypoints come out, all on
 the predictor's device.
 '''
+import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,16 +22,56 @@ from moseq2_detectron_extract_tpu_torch.ops.instances import nms_and_centers
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import compute_test_scale
 
 
+@functools.lru_cache(maxsize=64)
+def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    '''(in_size, out_size) f32 weights of ``jax.image.resize(..., 'bilinear')``
+    along one axis, computed as its ``compute_weight_mat`` does: the triangle
+    kernel at ``(o + 0.5) * inv_scale - 0.5``, widened by ``inv_scale`` on a
+    downscale, each column divided by its sum (taken in row order), and
+    zero for samples outside ``[-0.5, in_size - 0.5]``; every step in f32.'''
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    # XLA fuses the multiply and the subtraction (one rounding): the f64
+    # product of two f32 values is exact, so f64 then one cast to f32 is it
+    sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)).astype(np.float64)
+              * np.float64(inv_scale) - 0.5).astype(np.float32)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    weights = np.maximum(np.float32(0), np.float32(1) - np.abs(x))
+    total = np.zeros(out_size, np.float32)
+    for row in weights:
+        total += row
+    weights = np.where(np.abs(total) > np.float32(1000 * np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, np.float32(1)), np.float32(0))
+    inside = (sample >= -0.5) & (sample <= np.float32(in_size - 0.5))
+    return np.where(inside[None, :], weights, np.float32(0)).astype(np.float32)
+
+
 def _resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    '''Bilinear resize of the last two axes with half-pixel centres; it
-    anti-aliases on a downscale, as ``jax.image.resize(..., 'bilinear')``
-    does (without it a 404 -> 150 px resize is 139.7 grey levels off).'''
-    if tuple(x.shape[-2:]) == tuple(size):
+    '''Bilinear resize of the last two axes of an f32 tensor, as
+    ``jax.image.resize(..., 'bilinear')`` computes it: the weight matrices
+    of ``_resize_weights`` (anti-aliased on a downscale), contracted one
+    axis at a time in the order XLA's einsum picks, the one with fewer
+    multiplications (rows first on a tie). An axis whose size does not
+    change is left as it is.'''
+    (in_h, in_w), (out_h, out_w) = x.shape[-2:], size
+    if (in_h, in_w) == (out_h, out_w):
         return x
     lead = x.shape[:-2]
-    y = F.interpolate(x.reshape(-1, 1, *x.shape[-2:]), size=size, mode='bilinear',
-                      align_corners=False, antialias=True)
-    return y.reshape(*lead, *size)
+    y = x.reshape(-1, in_h, in_w)
+    b = y.shape[0]
+
+    def weights(m, n):
+        return torch.from_numpy(_resize_weights(m, n)).to(x.device)
+
+    rows_first = b * in_h * out_h * in_w + b * out_h * in_w * out_w
+    cols_first = b * in_h * in_w * out_w + b * in_h * out_w * out_h
+    steps = ['h', 'w'] if rows_first <= cols_first else ['w', 'h']
+    for axis in steps:
+        if axis == 'h' and in_h != out_h:
+            y = torch.matmul(weights(in_h, out_h).T, y)
+        elif axis == 'w' and in_w != out_w:
+            y = torch.matmul(y, weights(in_w, out_w))
+    return y.reshape(*lead, out_h, out_w)
 
 
 class Predictor:

@@ -12,11 +12,13 @@ never at import.
 
 A failed build raises with nvcc's stderr; there is no fallback.
 
-The host's C++ cores, ``csrc/prep_host.cpp`` (the host prep) and
-``csrc/kalman_host.cpp`` (the Kalman filter and smoother), are built the
-same way with ``g++`` (nvcc's host compiler), each into a library of its
-own beside them (``build_host_library``), with one loader each; a failed
-build raises with g++'s stderr.
+The host's C++ cores, ``csrc/prep_host.cpp`` (the host prep),
+``csrc/kalman_host.cpp`` (the Kalman filter and smoother),
+``csrc/draw_host.cpp`` (the preview's drawing) and ``csrc/mjpeg_host.cpp``
+(the preview's JPEG encoder, which runs threads: ``-pthread``), are built
+the same way with ``g++`` (nvcc's host compiler), each into a library of
+its own beside them (``build_host_library``), with one loader each; a
+failed build raises with g++'s stderr.
 
 Every ``nvcc`` gets its own copy of the environment (``env=``). Without it
 the child reads the C ``environ`` array while it starts, and a thread that
@@ -52,7 +54,11 @@ HOST_SOURCE = os.path.join(CSRC_DIR, 'prep_host.cpp')
 HOST_LIB_NAME = 'libm2de_prep_host.so'
 KALMAN_SOURCE = os.path.join(CSRC_DIR, 'kalman_host.cpp')
 KALMAN_LIB_NAME = 'libm2de_kalman_host.so'
-HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
+DRAW_SOURCE = os.path.join(CSRC_DIR, 'draw_host.cpp')
+DRAW_LIB_NAME = 'libm2de_draw_host.so'
+MJPEG_SOURCE = os.path.join(CSRC_DIR, 'mjpeg_host.cpp')
+MJPEG_LIB_NAME = 'libm2de_mjpeg_host.so'
+HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-pthread')
 
 def find_nvcc() -> str:
     '''Path of ``nvcc``: $CUDA_HOME/bin, then $PATH, then /usr/local/cuda.'''
@@ -253,4 +259,36 @@ def load_kalman_library() -> ctypes.CDLL:
     lib.kalman_smooth_native.argtypes = [d, d, d, d, d,        # A, filtered and predicted
                                          i, i, d, d, d]        # T, S, out means, covs, lags
     lib.kalman_smooth_native.restype = i
+    return lib
+
+
+@_loaded_once
+def load_draw_library() -> ctypes.CDLL:
+    '''The preview's drawing core, built on first use.'''
+    lib = ctypes.CDLL(build_host_library(DRAW_SOURCE, DRAW_LIB_NAME))
+    u8, i32, i64 = (ctypes.POINTER(t) for t in (ctypes.c_uint8, ctypes.c_int32, ctypes.c_int64))
+    i = ctypes.c_int
+    lib.m2de_draw_ops.argtypes = [u8, i, i, i, i,                 # frames, N, H, W, channels
+                                  i32, i, u8, i32]                # records, count, glyphs, meta
+    lib.m2de_draw_ops.restype = i
+    lib.m2de_resize_linear_u8.argtypes = [u8, i, i, i, i, u8, i, i]  # src N H W C, dst h w
+    lib.m2de_resize_linear_u8.restype = i
+    lib.m2de_blend_windows.argtypes = [u8, i, i, i, i,            # frames, N, H, W, channels
+                                       u8, i, i, i64, u8]         # masks, mh, mw, origins, lut
+    lib.m2de_blend_windows.restype = i
+    return lib
+
+
+@_loaded_once
+def load_mjpeg_library() -> ctypes.CDLL:
+    '''The preview's baseline JPEG encoder, built on first use.'''
+    lib = ctypes.CDLL(build_host_library(MJPEG_SOURCE, MJPEG_LIB_NAME))
+    u8, i32, i64 = (ctypes.POINTER(t) for t in (ctypes.c_uint8, ctypes.c_int32, ctypes.c_int64))
+    i = ctypes.c_int
+    lib.m2de_jpeg_encode_block.argtypes = [u8, i, i, i, i, i,     # frames, N, H, W, quality, bgr
+                                           i, u8, ctypes.c_int64,  # threads, out, capacity
+                                           i64]                    # sizes
+    lib.m2de_jpeg_encode_block.restype = i
+    lib.m2de_jpeg_forward.argtypes = [u8, i, i, i, i, i32]        # frame, H, W, quality, bgr, out
+    lib.m2de_jpeg_forward.restype = i
     return lib

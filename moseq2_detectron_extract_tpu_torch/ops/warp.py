@@ -1,10 +1,11 @@
 '''Batched crop-and-rotate of frames around their centroids, on the device.
 
-Port of ``moseq2_detectron_extract_tpu/ops/warp.py`` (lines 18-118):
+Port of ``moseq2_detectron_extract_tpu/ops/warp.py`` (lines 18-153):
 ``_cv2_rotation_matrix``, ``_invert_affine``, ``_bilinear_window_sample``,
-``_inverse_map_grid`` and ``crop_and_rotate_frames``, batched over frames
-in f32 with explicit index arithmetic (``grid_sample``'s border and corner
-rules are not this function's).
+``_inverse_map_grid``, ``crop_and_rotate_frames`` and its inverse
+``reverse_crop_and_rotate_frames``, batched over frames in f32 with
+explicit index arithmetic (``grid_sample``'s border and corner rules are
+not these functions').
 
 The reference crops the window before it rotates, so an output pixel whose
 rotated source lies outside the crop window is zero even where the frame
@@ -117,4 +118,41 @@ def crop_and_rotate_frames(frames: torch.Tensor, centers, angles_deg,
     inv = _invert_affine(_cv2_rotation_matrix((crop_w // 2, crop_h // 2), safe_angle))
     wx, wy = _inverse_map_grid(inv, crop_h, crop_w)
     out = _bilinear_window_sample(frames, wx, wy, ox, oy, crop_w, crop_h)
+    return torch.where(invalid[:, None, None], zero, out)
+
+
+def reverse_crop_and_rotate_frames(frames: torch.Tensor, centers, angles_deg,
+                                   dest_size=(512, 424)) -> torch.Tensor:
+    '''The inverse of ``crop_and_rotate_frames``: (N, crop_h, crop_w) crops
+    put back into a ``dest_size`` (width, height) canvas at ``centers`` (N,
+    2 [x, y]), unrotated by ``angles_deg`` (N,).
+
+    Two bilinear warps as the reference's: rotate by -angle about the crop's
+    centre into the canvas (zero outside the crop), then translate by
+    (centre - crop centre) (zero outside the canvas). A NaN angle or centre
+    gives a zero frame. Returns f32 (N, dest_h, dest_w) on the frames'
+    device.'''
+    dest_w, dest_h = int(dest_size[0]), int(dest_size[1])
+    n, crop_h, crop_w = frames.shape
+    dev = frames.device
+    centers = torch.as_tensor(centers, device=dev).to(torch.float32)
+    angles = torch.as_tensor(angles_deg, device=dev).to(torch.float32)
+    invalid = torch.isnan(angles) | torch.isnan(centers).any(-1)
+    zero = torch.zeros((), device=dev)
+    safe_center = torch.where(torch.isnan(centers), zero, centers)
+    safe_angle = torch.where(torch.isnan(angles), zero, angles)
+
+    src_center = (crop_w // 2, crop_h // 2)
+    inv = _invert_affine(_cv2_rotation_matrix(src_center, -safe_angle))
+    wx, wy = _inverse_map_grid(inv, dest_h, dest_w)
+    no_offset = torch.zeros(n, device=dev)
+    stage1 = _bilinear_window_sample(frames.to(torch.float32), wx, wy, no_offset, no_offset,
+                                     crop_w, crop_h)
+    tx = (safe_center[:, 0] - src_center[0])[:, None, None]
+    ty = (safe_center[:, 1] - src_center[1])[:, None, None]
+    ygrid = torch.arange(dest_h, dtype=torch.float32, device=dev)[None, :, None]
+    xgrid = torch.arange(dest_w, dtype=torch.float32, device=dev)[None, None, :]
+    out = _bilinear_window_sample(stage1, (xgrid - tx).expand(n, dest_h, dest_w),
+                                  (ygrid - ty).expand(n, dest_h, dest_w), no_offset,
+                                  no_offset, dest_w, dest_h)
     return torch.where(invalid[:, None, None], zero, out)

@@ -9,8 +9,10 @@ branch) as ``run_inference``, ``SelectInstancesStep._select_instances``
 (lines 200-310, the branch with the depth chunk on the device, with the
 instance log) and its height-stats dispatch (181-190),
 ``ProcessFeaturesStep`` (311-401) and ``FetchResultsStep`` (403-445), as
-functions of one chunk; then the step classes around them, and
-``ResultWriterStep`` (447-494). The preview steps are not ported.
+functions of one chunk; then the step classes around them,
+``ResultWriterStep`` (447-494), and the preview's ``PreviewVideoWriterStep``
+and ``PreviewEncodeStep`` (497-661), which write ``results_NN.avi``
+(Motion-JPEG, where the reference writes ``results_NN.mp4``).
 
 The steps run on threads of their own (``pipeline.Pipeline``) and launch
 their device work on the device's default stream, so it runs in the order
@@ -20,6 +22,7 @@ reads them.
 '''
 import logging
 import os
+import time
 from functools import partial
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -432,3 +435,144 @@ class ResultWriterStep(PipelineStep):
 
     def finalize(self):
         self.h5.close()
+
+
+class PreviewVideoWriterStep(PipelineStep):
+    '''Render the 3-view preview of each chunk in blocks of 128 frames: the
+    cleaned crop over the rotated keypoints on the left, the arena with the
+    ROI outline, mask fill, boxes and keypoints on the right (``viz.py``),
+    in BGR as the reference renders it; each block goes on to the encode
+    step as it is rendered. ``sub_times`` holds the seconds spent taking the
+    chunk apart (``marshal``) and rendering (``render``).'''
+
+    block = 128
+
+    def initialize(self):
+        from moseq2_detectron_extract_tpu_torch.viz import (ArenaView, CleanedFramesView,
+                                                            RotatedKeypointsView)
+        from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+        config = self.config
+        order = 'bgr'
+        vmin, vmax = config['min_height'], config['max_height']
+        self.arena_view = ArenaView(config.get('roi'), vmin=vmin, vmax=vmax,
+                                    scale=config.get('preview_arena_scale', 1.0), order=order)
+        self.rot_kpt_view = RotatedKeypointsView(scale=config.get('preview_crop_scale', 1.5),
+                                                 order=order)
+        self.clean_view = CleanedFramesView(vmin=vmin, vmax=vmax,
+                                            scale=config.get('preview_crop_scale', 1.5),
+                                            order=order)
+        self.kp_names = default_keypoint_names
+        self.sub_times = {'marshal': 0.0, 'render': 0.0}
+        # render buffers by (name, shape, slot); the composites travel to the
+        # encode step, so they rotate through a ring with a slot for each block
+        # a consumer queue can hold, one being consumed and one being rendered
+        self._bufs: dict = {}
+        self._ring = 1 + sum((q.maxsize if q.maxsize > 0 else 8) + 1
+                             for q in self.output_queues)
+        self._block_no = 0
+
+    def _buf(self, name, shape, slot: int = 0):
+        key = (name, shape[1:], slot)
+        buf = self._bufs.get(key)
+        if buf is None or buf.shape[0] < shape[0]:
+            buf = np.zeros(shape, np.uint8)
+            self._bufs[key] = buf
+        return buf[:shape[0]]
+
+    def _rotated_keypoints(self, kp_dict, n):
+        cols = []
+        for name in self.kp_names:
+            x = kp_dict.get(f'rotated/{name}_x_px')
+            y = kp_dict.get(f'rotated/{name}_y_px')
+            if x is None or y is None:
+                return None
+            cols.append(np.stack([x[:n], y[:n]], axis=1))
+        return np.stack(cols, axis=1)
+
+    def process(self, data):
+        from moseq2_detectron_extract_tpu_torch.viz import stack_videos
+        t0 = time.perf_counter()
+        offset = data['offset']
+        n_true = len(data['frame_idxs'])
+        chunk = np.asarray(data['chunk'])[offset:n_true]
+        cropped = np.asarray(data['depth_frames'])[offset:n_true]
+        masks = np.asarray(data['mask_frames'])[offset:n_true]
+        frame_idxs = np.asarray(data['frame_idxs'])[offset:]
+        arena_crops = data.get('arena_mask_crops')
+        arena_origins = data.get('arena_mask_origins')
+        if arena_crops is not None:
+            arena_crops = arena_crops[offset:n_true]
+            arena_origins = arena_origins[offset:n_true]
+        ref_kpts = np.asarray(data['features']['keypoints'])[offset:n_true]
+        boxes = data.get('kept_boxes')
+        if boxes is not None:
+            boxes = boxes[offset:n_true]
+        rot_kpts = self._rotated_keypoints(data['keypoints'], n_true)
+        if rot_kpts is not None:
+            rot_kpts = rot_kpts[offset:]
+        t1 = time.perf_counter()
+
+        for s in range(0, len(frame_idxs), self.block):
+            e = s + self.block
+            tb = time.perf_counter()
+            m = len(chunk[s:e])
+            cs = self.clean_view.scale
+            ch, cw = int(masks.shape[1] * cs), int(masks.shape[2] * cs)
+            ah = int(chunk.shape[1] * self.arena_view.scale)
+            aw = int(chunk.shape[2] * self.arena_view.scale)
+            arena = self.arena_view.render(
+                chunk[s:e], mask_crops=None if arena_crops is None else arena_crops[s:e],
+                mask_origins=None if arena_origins is None else arena_origins[s:e],
+                keypoints=ref_kpts[s:e], boxes=None if boxes is None else boxes[s:e],
+                out=self._buf('arena', (m, ah, aw, 3)))
+            clean = self.clean_view.render(cropped[s:e], masks[s:e],
+                                           out=self._buf('clean', (m, ch, cw, 3)))
+            if rot_kpts is not None:
+                rs = self.rot_kpt_view.scale
+                rh, rw = int(masks.shape[1] * rs), int(masks.shape[2] * rs)
+                rot = self.rot_kpt_view.render(masks[s:e], rot_kpts[s:e],
+                                               out=self._buf('rot', (m, rh, rw, 3)))
+                left = stack_videos([clean, rot], orientation='vertical',
+                                    out=self._buf('left', (m, clean.shape[1] + rot.shape[1],
+                                                           max(clean.shape[2], rot.shape[2]), 3)))
+            else:
+                left = clean
+            slot = self._block_no % self._ring
+            self._block_no += 1
+            composite = stack_videos(
+                [left, arena], orientation='horizontal',
+                out=self._buf('comp', (m, max(left.shape[1], arena.shape[1]),
+                                       left.shape[2] + arena.shape[2], 3), slot=slot))
+            tr = time.perf_counter()
+            self._forward({'frame_idxs': frame_idxs[s:e], 'composite': composite})
+            self.sub_times['render'] += tr - tb
+        self.sub_times['marshal'] += t1 - t0
+        return None
+
+    def finalize(self):
+        logging.info('[Preview Video] sub-stage busy: %s',
+                     {k: round(v, 2) for k, v in self.sub_times.items()},
+                     extra={'nostream': True})
+
+
+class PreviewEncodeStep(PipelineStep):
+    '''Encode the rendered blocks into ``results_NN.avi`` (NN:
+    ``bg_roi_index``), a stage of its own so that the encode of one block
+    overlaps the render of the next. The composites are the render step's
+    ring buffers, not read again there, so the frame numbers are stamped in
+    place.'''
+
+    def initialize(self):
+        from moseq2_detectron_extract_tpu_torch.io.video import PreviewVideoWriter
+        config = self.config
+        out_path = os.path.join(config['output_dir'], f"results_{config['bg_roi_index']:02d}.avi")
+        self.writer = PreviewVideoWriter(out_path, fps=config.get('fps', 30),
+                                         vmin=config['min_height'], vmax=config['max_height'],
+                                         channel_order='bgr')
+
+    def process(self, data):
+        self.writer.write_frames(data['frame_idxs'], data['composite'], writable=True)
+        return None
+
+    def finalize(self):
+        self.writer.close()

@@ -528,7 +528,8 @@ def test_extract_session_writes_what_extract_chunks_computes(extracted):
     assert_file_equals_chunks(os.path.join(out_dir, 'results_00.h5'), chunks)
     stats = status['stage_stats']
     assert sorted(stats) == ['Fetch Results', 'Instance Select', 'Model Inference',
-                             'Process Features', 'Read Depth Data', 'Write Reults']
+                             'Preview Encode', 'Preview Video', 'Process Features',
+                             'Read Depth Data', 'Write Reults']
     assert all(stage['chunks'] == 2 and stage['busy_s'] >= 0 and stage['cpu_s'] >= 0
                for stage in stats.values())
     with open(os.path.join(out_dir, 'keypoints_00.tsv'), encoding='utf-8') as fh:
@@ -591,7 +592,7 @@ def test_status_files_agree_with_jax(extracted):
     ours = _read_status(status_path)
     assert ours['parameters'].pop('output_dir') != ref['parameters'].pop('output_dir')
     assert ours['parameters'] == ref['parameters'] and ours['metadata'] == ref['metadata']
-    assert set(ours['stage_stats']) <= set(ref['stage_stats'])
+    assert set(ours['stage_stats']) == set(ref['stage_stats'])
 
 
 def test_extract_session_skips_a_complete_session(extracted, predictors, session_paths):

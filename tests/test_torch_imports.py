@@ -110,6 +110,16 @@ with tempfile.TemporaryDirectory() as tmp:
     with hdf5.File(os.path.join(out, 'results_00.h5'), 'r') as r:
         assert r['frames'].shape == (12, 80, 80) and len(r['keypoints/reference'].keys()) == 48
         assert r['scalars/area_px'][0:12].shape == (12,)
+    # the preview: extract's AVI, and the two preview commands (drawing and
+    # JPEG encoding in the C++ cores, without cv2)
+    from moseq2_detectron_extract_tpu_torch.io.mjpeg import read_avi_index
+    index = read_avi_index(os.path.join(out, 'results_00.avi'))
+    assert len(index['frames']) == 12 and index['jpeg_ok'], index
+    raw = cli.visualize_raw([os.path.join(tmp, 'depth.dat'), '-o', os.path.join(tmp, 'raw.avi'),
+                             '--device', 'cpu'])
+    assert len(read_avi_index(raw)['frames']) == 12
+    res = cli.visualize_result([os.path.join(out, 'results_00.h5'), '--device', 'cpu'])
+    assert len(read_avi_index(res)['frames']) == 12
     # the train command on a synthetic export: PNG views, two steps
     from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
     export = write_annotated_views(os.path.join(tmp, 'views'), 6, size=64, seed=0)
