@@ -151,11 +151,17 @@ Phases, each printed with its elapsed seconds as it starts:
    on the same file and to what the names give, then ``train
    --init-weights`` for 10 steps on the 48 views, every loss finite; (b)
    ``evaluate`` of phase 4d's model on the views' test split on the card
-   and with ``--device cpu``, each AP within 100 / (test views) points
-   (one image's match a threshold: bf16 compute on both, in other orders,
-   and cuDNN's run-to-run keypoint variation, move a detection's IoU or
-   OKS across a threshold), with the card's and the CPU's top detection
-   compared per view (box IoU, score difference); (c)
+   and with ``--device cpu``, in the model's bf16 and in f32 (a copy of
+   the model dir whose config says ``amp_dtype: float32``), every metric
+   in range; for each dtype the AP difference, the card's and the CPU's top
+   detection per view (box IoU, score difference), and the decisions the
+   AP is computed from that differ (``decisions_differ``) are printed. In
+   f32 the card is held to the CPU: the same valid detections, boxes to
+   1 px and scores to 1e-2 (as in the reference check), and every metric
+   equal unless a decision differs. In bf16 the two are not held to each
+   other: on a model trained 70 steps, bf16 rounding in other orders moves
+   a detection's IoU across a threshold, and one view's top detection
+   crossing one threshold moves AP75 of 5 views by 35.8 points; (c)
    ``compile-model`` at batch 10 and canvas 160 (``torch.export``): the
    export's wall time and ``model.pt2``'s size, the loaded program on 10
    views against the live Predictor bit for bit with
@@ -1764,6 +1770,89 @@ INIT_STEPS = 10                    # train --init-weights steps
 EXPORT_BATCH = 10                  # compile-model's batch
 
 
+EVAL_TASKS = ('bbox', 'segm', 'keypoints')
+
+
+def eval_decisions(items, predictions, oks_sigmas) -> list:
+    '''Per view, what ``models/eval.py:evaluate_predictions`` computes the
+    AP from: the valid detections (their flags, boxes and scores) and, per
+    task, their similarity to each ground truth and their areas, through
+    that module's own helpers.'''
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.models import eval as ev
+    sigmas = np.asarray(oks_sigmas, float)
+    out = []
+    for item, pred in zip(items, predictions):
+        gt_boxes, gt_masks, gt_kpts = ev._gt_from_item(item)
+        valid = np.asarray(pred['valid'], bool)
+        boxes = np.asarray(pred['boxes'], float)[valid]
+        masks = [np.asarray(m, bool) for m in np.asarray(pred['masks'])[valid]]
+        kpts = np.asarray(pred['keypoints'], float)[valid]
+        g_area = np.asarray([m.sum() for m in gt_masks], float)
+        kp_extent = ((kpts[:, :, 0].max(1) - kpts[:, :, 0].min(1))
+                     * (kpts[:, :, 1].max(1) - kpts[:, :, 1].min(1))) if kpts.size \
+            else np.zeros(len(boxes))
+        out.append({
+            'valid': valid, 'boxes': boxes, 'scores': np.asarray(pred['scores'], float)[valid],
+            'sims': {'bbox': ev._box_iou_matrix(boxes, gt_boxes),
+                     'segm': ev._mask_iou_matrix(masks, gt_masks),
+                     'keypoints': ev._oks_matrix(kpts, gt_kpts, g_area, sigmas,
+                                                 gt_boxes=gt_boxes)
+                     if gt_kpts.size else np.zeros((len(boxes), 0))},
+            'areas': {'bbox': np.prod(np.clip(boxes[:, 2:] - boxes[:, :2], 0, None), axis=1),
+                      'segm': np.asarray([m.sum() for m in masks], float),
+                      'keypoints': kp_extent}})
+    return out
+
+
+def decisions_differ(a: list, b: list) -> list:
+    '''Where two ``eval_decisions`` lists lead the COCO evaluation apart:
+    the valid flags of a view, the order of all scores (the precision-recall
+    sweep and each view's matching order), a similarity on either side of a
+    threshold, two similarities of one detection in the other order (which
+    ground truth it takes), an area on either side of a range's edge. The
+    evaluation decides from these alone, so where none differs the two give
+    equal AP.'''
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.models.eval import AREA_RANGES, IOU_THRESHOLDS
+    if any(not np.array_equal(x['valid'], y['valid']) for x, y in zip(a, b)):
+        return [f'view {i} valid' for i, (x, y) in enumerate(zip(a, b))
+                if not np.array_equal(x['valid'], y['valid'])]
+    out = []
+    order = [np.argsort(-np.concatenate([v['scores'] for v in d]), kind='stable') for d in (a, b)]
+    if not np.array_equal(*order):
+        out.append('score order')
+    for i, (x, y) in enumerate(zip(a, b)):
+        for task in EVAL_TASKS:
+            sx, sy = x['sims'][task], y['sims'][task]
+            for t in IOU_THRESHOLDS:
+                if np.any((sx >= min(t, 1 - 1e-10)) != (sy >= min(t, 1 - 1e-10))):
+                    out.append(f'view {i} {task} at {t:.2f}')
+            if not np.array_equal(np.sign(sx[:, :, None] - sx[:, None, :]),
+                                  np.sign(sy[:, :, None] - sy[:, None, :])):
+                out.append(f'view {i} {task} ground truth order')
+            for label, (lo, hi) in AREA_RANGES.items():
+                ax, ay = x['areas'][task], y['areas'][task]
+                if np.any(((ax >= lo) & (ax <= hi)) != ((ay >= lo) & (ay <= hi))):
+                    out.append(f'view {i} {task} area {label}')
+    return out
+
+
+def sim_gap(a: list, b: list, task: str) -> float:
+    '''Largest similarity difference of a task over views of equal valid
+    flags (nan where none).'''
+    import numpy as np
+    gaps = [float(np.abs(x['sims'][task] - y['sims'][task]).max()) for x, y in zip(a, b)
+            if np.array_equal(x['valid'], y['valid']) and x['sims'][task].size]
+    return max(gaps) if gaps else float('nan')
+
+
+def _metrics_equal(a: dict, b: dict) -> bool:
+    import math
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
 def zoo_checkpoint(path: str, cfg, seed: int) -> dict:
     '''Write a Detectron2 ``keypoint_rcnn_R_50_FPN_3x`` checkpoint made
     from ``seed`` with numpy as the zoo's ``.pkl``: its names and shapes
@@ -1877,45 +1966,87 @@ def check_lifecycle(card: str, seed: int, export: str, cfg_path: str, trained: s
     if [r['step'] for r in rows] != list(range(1, INIT_STEPS + 1)) or not finite:
         raise AssertionError('4e (a): train --init-weights')
 
-    # (b) evaluate phase 4d's model on its views' test split, card and CPU
-    results = {}
-    for device in ('cuda', 'cpu'):
-        random.seed(seed)
-        t = time.perf_counter()
-        results[device] = cli.evaluate([export, '--model-dir', trained, '--device', device])
-        phase(f'4e (b) evaluate --device {device} ({time.perf_counter() - t:.2f} s): '
-              + '; '.join(f'{task} ' + ', '.join(f'{k} {v:.3f}' for k, v in m.items())
-                          for task, m in results[device].items()) + f' [{card}]')
+    # (b) evaluate phase 4d's model on its views' test split, card and CPU:
+    # in the model's own bf16, then in f32, where the card is held to the CPU
+    from moseq2_detectron_extract_tpu_torch.models import eval as eval_mod
+    f32_dir = os.path.join(tmp, 'trained_f32')
+    os.makedirs(f32_dir)
+    ModelConfig.from_yaml(os.path.join(trained, 'config.yaml')).replace(
+        amp_dtype='float32').to_yaml(os.path.join(f32_dir, 'config.yaml'))
+    os.symlink(os.path.join(trained, 'checkpoints'), os.path.join(f32_dir, 'checkpoints'))
+    shutil.copy(os.path.join(trained, 'last_checkpoint'), f32_dir)
+    real_evaluate_predictions = eval_mod.evaluate_predictions
+    results, seen = {}, {}
+    for dtype, model_dir in (('bf16', trained), ('f32', f32_dir)):
+        for device in ('cuda', 'cpu'):
+            def capture(items, predictions, oks_sigmas, **kwargs):
+                seen[dtype, device] = (list(items), predictions, oks_sigmas)
+                return real_evaluate_predictions(items, predictions, oks_sigmas, **kwargs)
+
+            random.seed(seed)
+            eval_mod.evaluate_predictions = capture
+            try:
+                t = time.perf_counter()
+                results[dtype, device] = cli.evaluate([export, '--model-dir', model_dir,
+                                                       '--device', device])
+            finally:
+                eval_mod.evaluate_predictions = real_evaluate_predictions
+            phase(f'4e (b) evaluate ({dtype}) --device {device} '
+                  f'({time.perf_counter() - t:.2f} s): ' + '; '.join(
+                      f'{task} ' + ', '.join(f'{k} {v:.3f}' for k, v in m.items())
+                      for task, m in results[dtype, device].items()) + f' [{card}]')
     test_items = dataset_catalog_get('moseq_test')
     n_test = len(test_items)
-    # bf16 on both sides, summed in other orders: a detection whose IoU
-    # (or OKS) with its ground truth lies near a threshold may match on one
-    # side and not the other, which moves an AP by up to 100 / n_test
-    # points for each image it happens in; one image a threshold is allowed
-    ap_tol = 100.0 / n_test + 1e-9
-    gap = max(abs(results['cuda'][task][k] - results['cpu'][task][k])
-              for task in results['cpu'] for k in results['cpu'][task])
-    views = torch.from_numpy(np.stack([read_image(it['file_name']) for it in test_items])
-                             .astype(np.uint8))
-    dets = {dev: Predictor.from_model_dir(trained, batch_size=n_test, device=dev)(views)
-            for dev in ('cuda', 'cpu')}
-    card_boxes, cpu_boxes = dets['cuda']['boxes'][:, 0].cpu(), dets['cpu']['boxes'][:, 0]
-    lt = torch.maximum(card_boxes[:, :2], cpu_boxes[:, :2])
-    rb = torch.minimum(card_boxes[:, 2:], cpu_boxes[:, 2:])
-    inter = (rb - lt).clamp(min=0).prod(-1)
-    area = (card_boxes[:, 2:] - card_boxes[:, :2]).prod(-1) + \
-        (cpu_boxes[:, 2:] - cpu_boxes[:, :2]).prod(-1)
-    box_iou = inter / (area - inter)
-    score_gap = (dets['cuda']['scores'][:, 0].cpu() - dets['cpu']['scores'][:, 0]).abs()
-    found = [(bool(dets['cuda']['valid'][i, 0]), bool(dets['cpu']['valid'][i, 0]))
-             for i in range(n_test)]
-    phase(f'4e (b) {n_test} test views: card against CPU, largest AP difference {gap:.3f} '
-          f'points (tolerance {ap_tol:.3f}: one image a threshold); the top detection, card '
-          f'against CPU (valid on each): ' + ', '.join(
-              f'{f} box IoU {float(box_iou[i]):.4f} score diff {float(score_gap[i]):.4f}'
-              if any(f) else f'{f}' for i, f in enumerate(found)) + f' [{card}]')
-    if gap > ap_tol:
-        raise AssertionError(f'4e (b): card and CPU AP differ by {gap}')
+    names = {key: [it['file_name'] for it in got[0]] for key, got in seen.items()}
+    if any(v != [it['file_name'] for it in test_items] for v in names.values()):
+        raise AssertionError(f'4e (b): the evaluations saw other test splits: {names}')
+    for task, metrics in results['bf16', 'cpu'].items():
+        for dtype in ('bf16', 'f32'):
+            for device in ('cuda', 'cpu'):
+                m = results[dtype, device][task]
+                if set(m) != set(metrics) or not all(
+                        v == -1.0 or 0.0 <= v <= 100.0 for v in m.values()):
+                    raise AssertionError(f'4e (b): {dtype} {device} {task} metrics {m}')
+    decisions = {key: eval_decisions(*got) for key, got in seen.items()}
+    for dtype in ('bf16', 'f32'):
+        card_d, cpu_d = decisions[dtype, 'cuda'], decisions[dtype, 'cpu']
+        gap = max(abs(results[dtype, 'cuda'][task][k] - results[dtype, 'cpu'][task][k])
+                  for task in results[dtype, 'cpu'] for k in results[dtype, 'cpu'][task])
+        differ = decisions_differ(card_d, cpu_d)
+        top = []
+        for a, b in zip(card_d, cpu_d):
+            if len(a['scores']) and len(b['scores']):
+                iou = box_iou_pairs(torch.from_numpy(a['boxes'][:1]),
+                                    torch.from_numpy(b['boxes'][:1]))
+                top.append(f'box IoU {float(iou[0]):.4f} score diff '
+                           f'{abs(float(a["scores"][0] - b["scores"][0])):.4f}')
+            else:
+                top.append(f'({len(a["scores"])} and {len(b["scores"])} valid)')
+        phase(f'4e (b) {dtype}, {n_test} test views, card against CPU: largest AP difference '
+              f'{gap:.3f} points; the decisions the AP is computed from (valid detections, '
+              f'score order, similarity and area against each threshold) differ at '
+              f'{len(differ)}: {differ[:8]}; largest similarity difference ' + ', '.join(
+                  f'{task} {sim_gap(card_d, cpu_d, task):.2e}' for task in EVAL_TASKS)
+              + '; the top detection per view: ' + ', '.join(top) + f' [{card}]')
+    # f32: the detections agree as in the reference check, and the AP is a
+    # function of the decisions alone, so where none differs it is equal
+    card_d, cpu_d = decisions['f32', 'cuda'], decisions['f32', 'cpu']
+    same_valid = all(np.array_equal(a['valid'], b['valid']) for a, b in zip(card_d, cpu_d))
+    box_err = max((float(np.abs(a['boxes'] - b['boxes']).max()) for a, b in zip(card_d, cpu_d)
+                   if same_valid and len(a['boxes'])), default=0.0)
+    score_err = max((float(np.abs(a['scores'] - b['scores']).max())
+                     for a, b in zip(card_d, cpu_d) if same_valid and len(a['scores'])),
+                    default=0.0)
+    differ = decisions_differ(card_d, cpu_d)
+    equal = all(_metrics_equal(results['f32', 'cuda'][task], results['f32', 'cpu'][task])
+                for task in EVAL_TASKS)
+    phase(f'4e (b) f32: valid detections equal {same_valid}; boxes {box_err:.4f} px, scores '
+          f'{score_err:.2e} apart (to 1 px and 1e-2); AP equal {equal}'
+          + ('' if equal else f' (decisions differ at {differ})') + f' [{card}]')
+    if not same_valid or box_err > 1.0 or score_err > 1e-2 or (not equal and not differ):
+        raise AssertionError(f'4e (b): f32 card against CPU: valid equal {same_valid}, boxes '
+                             f'{box_err} px, scores {score_err}, AP equal {equal} with no '
+                             f'decision differing')
 
     # (c) export at batch 10, canvas 160, with the post-export evaluation
     export_dir = os.path.join(tmp, 'export')
@@ -2002,10 +2133,10 @@ def check_lifecycle(card: str, seed: int, export: str, cfg_path: str, trained: s
         raise AssertionError('4e (e): find-roi differs from prepare_session')
 
     launches = roi_align_kernel.launch_count
-    expect_launches = 3 * (n_test + 1 + n_test + n_test + 1 + 1 + TRAIN_VIEWS)
+    expect_launches = 3 * (n_test + n_test + n_test + n_test + 1 + 1 + TRAIN_VIEWS)
     phase(f'4e: roi_align launches {launches} (expected {expect_launches}: 3 per image of the '
-          f'card evaluation, the post-export and the live evaluation and the pre-annotation, '
-          f'and per batch of the test views\' detections and the program check); '
+          f'card\'s bf16 and f32 evaluations, the post-export and the live evaluation and the '
+          f'pre-annotation, and per batch of the program check); '
           f'{time.perf_counter() - t_phase:.1f} s [{card}]')
     if launches != expect_launches:
         raise AssertionError(f'4e: roi_align launches {launches}, expected {expect_launches}')

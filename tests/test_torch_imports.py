@@ -180,7 +180,11 @@ print('OK')
 
 
 def test_port_imports_and_runs_with_blocked_modules():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one intra-op thread: beside the other test workers, torch's OpenMP
+    # pool of one thread per core waits at each op's barrier for threads the
+    # scheduler has taken away (six such processes on 8 cores ran this
+    # script in ~460 s instead of ~30 s)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     result = subprocess.run([sys.executable, '-c', _SCRIPT % (BLOCKED, REPO)],
                             capture_output=True, text=True, env=env, cwd=REPO,
                             timeout=300, check=False)
