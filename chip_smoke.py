@@ -178,6 +178,19 @@ Phases, each printed with its elapsed seconds as it starts:
    well-formed JPEG; and ``ops/warp.py:reverse_crop_and_rotate_frames`` on
    the card against the CPU on the results file's first 200 crops (max abs
    error, to 1e-3);
+4g. the result upkeep, through ``cli``, on phase 4c (b)'s 4,000-frame
+   results file (kept for it), each step timed: ``find-outliers``, whose
+   three reports must equal a numpy recomputation from the file;
+   ``trim-result --start 100 --stop 1100``, after which every trimmed
+   dataset must equal rows 100-1099 of the backup and the metadata be
+   untouched; ``manual-flip`` twice with the same ranges, which must give
+   back the frames, masks and flips bit for bit and keep ``flips_1`` and
+   ``flips_2``; ``verify-flips`` (exit code 0, then 1 on overlapping
+   ranges); ``generate-extract-config``, whose YAML the ``--config-file``
+   path must read back to the defaults; ``dataset-info`` on phase 4d's
+   views; ``system-info``, which must name the card; and ``extract
+   --report-outliers`` on 300 frames of phase 4b's session (``--frame-trim
+   0 800``), whose reports must equal numpy's;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
@@ -243,6 +256,7 @@ CHUNKS = 5                         # timed chunks of the main path
 SESSION_FRAMES = 1100              # frames of the raw session of phase 4b
 SESSION_CHUNK = 1000               # the extract CLI's chunk_size
 LONG_SESSION_FRAMES = 4000         # phase 4c (b): 4 chunks of 1000, no tail
+LONG_RESULTS = 'results_4c_long.h5'  # phase 4c (b)'s results, kept for phase 4g
 ABSENT_SESSION = 400               # frames of the session with the mouse away at first
 ABSENT_FRAMES = 60                 # its leading frames without the mouse
 ABSENT_CHUNK = 200                 # its chunk size: two chunks, the first with missing rows
@@ -1283,7 +1297,8 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
     instance log; (b) on a 4,000-frame session (4 chunks of 1000, no tail):
     frames/s, ``stage_stats``, peak memory and the file's size beside the
     serial path's frames/s. Returns (a)'s launches; (a)'s results file is
-    copied to ``keep_h5`` for phase 4f.'''
+    copied to ``keep_h5`` for phase 4f, (b)'s to ``LONG_RESULTS`` beside it
+    for phase 4g.'''
     import shutil
     import tempfile
     import numpy as np
@@ -1388,6 +1403,7 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
                     raw_bytes += int(np.prod(ds.shape, dtype=np.int64)) * ds.dtype.itemsize
             found = int(np.isfinite(r['scalars/centroid_x_px'][()]).sum())
         size = os.path.getsize(h5_path)
+        shutil.copy(h5_path, os.path.join(os.path.dirname(keep_h5), LONG_RESULTS))
         phase(f'4c (b): {LONG_SESSION_FRAMES} frames at {LONG_SESSION_FRAMES / wall:.1f} '
               f'frames/s (cli wall, find_roi and model load included; the preview written, '
               f'which PR 14\'s 192.4 frames/s left out); results_00.h5 '
@@ -2189,6 +2205,198 @@ def check_preview_commands(card: str, session_path: str, results_h5: str, tmp: s
         raise AssertionError(f'reverse_crop_and_rotate_frames: card vs CPU {err}')
 
 
+TRIM = (100, 1100)                 # phase 4g: trim-result's --start and --stop
+FLIP_RANGES = ((100, 400), (1000, 1010), (2500, 3999))   # phase 4g: manual-flip's ranges
+REPORT_TRIM = (0, 800)             # phase 4g: extract --report-outliers on 300 frames
+
+
+def _ranges_text(indices) -> str:
+    '''Frame indices as a report writes them: one inclusive range a line.'''
+    lines, start = [], None
+    for i, idx in enumerate(indices):
+        if start is None:
+            start = idx
+        if i + 1 == len(indices) or indices[i + 1] != idx + 1:
+            lines.append(f'{start}-{idx}\n' if idx != start else f'{start}\n')
+            start = None
+    return ''.join(lines)
+
+
+def outlier_reports(h5_path: str) -> dict:
+    '''The three reports of ``find_outliers_h5`` recomputed from the file
+    with numpy: frames with a NaN keypoint; frames where a keypoint but the
+    tail tip lies more than 10 modified z-scores (0.6745 x its distance over
+    the median distance) from its trailing 4-frame median; frames where the
+    flips change.'''
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    names = ('Nose', 'Left Ear', 'Right Ear', 'Neck', 'Left Hip', 'Right Hip', 'TailBase',
+             'TailTip')
+    with hdf5.File(h5_path, 'r') as h5:
+        kp = np.stack([np.stack([h5[f'keypoints/reference/{n}_{c}'][()]
+                                 for c in ('x_px', 'y_px', 'score')], -1) for n in names], 1)
+        flips = h5['metadata/extraction/flips'][()]
+    kp = kp.astype(float)
+    xy = kp[:, :-1, :2]
+    window = min(4, len(xy))
+    med = np.empty_like(xy)
+    for i in range(window - 1):
+        med[i] = np.median(xy[:i + 1], axis=0)
+    med[window - 1:] = np.median(np.lib.stride_tricks.sliding_window_view(xy, window, axis=0),
+                                 axis=-1)
+    dist = np.sqrt(((xy - med) ** 2).sum(-1))
+    diff = np.abs(np.nan_to_num(dist - np.nanmedian(dist, axis=0)))
+    with np.errstate(divide='ignore', invalid='ignore'):
+        jumping = (0.6745 * diff / np.median(diff, axis=0) > 10).any(axis=1)
+    return {'nan_keypoints': np.flatnonzero(np.isnan(kp).any(axis=(1, 2))),
+            'jumping_keypoints': np.flatnonzero(jumping),
+            'flips': np.flatnonzero(np.diff(flips.astype(int))) + 1}
+
+
+def check_reports(h5_path: str) -> dict:
+    '''Each report beside the results file names the frames of
+    ``outlier_reports``; returns how many each names.'''
+    counts = {}
+    for name, frames in outlier_reports(h5_path).items():
+        with open(f'{os.path.splitext(h5_path)[0]}.{name}.txt', encoding='utf-8') as fh:
+            got = fh.read()
+        if got != _ranges_text(frames):
+            raise AssertionError(f'{name} report of {h5_path} differs from numpy\'s: '
+                                 f'{got[:200]!r} against {_ranges_text(frames)[:200]!r}')
+        counts[name] = len(frames)
+    return counts
+
+
+def _datasets(h5_path: str) -> dict:
+    from moseq2_detectron_extract_tpu_torch.io import hdf5
+    with hdf5.File(h5_path, 'r') as h5:
+        return {name: (ds[()], dict(ds.attrs)) for name, ds in h5.visit_datasets()}
+
+
+def _same(a, b) -> bool:
+    import numpy as np
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(
+            a, b, equal_nan=a.dtype.kind == 'f')
+    return type(a) is type(b) and (repr(a) == repr(b))
+
+
+def check_result_upkeep(card: str, long_h5: str, session_path: str, export: str,
+                        model_dir: str, tmp: str) -> None:
+    '''Phase 4g: the result upkeep through ``cli`` on phase 4c (b)'s
+    results file (copies in ``tmp``), each step timed: ``find-outliers``
+    (its reports against ``outlier_reports``), ``trim-result`` (the trimmed
+    datasets against the backup's rows, the rest untouched), ``manual-flip``
+    twice (frames, masks and flips back bit for bit, ``flips_1`` and
+    ``flips_2`` kept), ``verify-flips`` (0, then 1 on overlapping ranges),
+    ``generate-extract-config`` (read back through ``--config-file``),
+    ``dataset-info`` on phase 4d's views, ``system-info`` (it must name the
+    card) and ``extract --report-outliers`` on 300 frames of phase 4b's
+    session.'''
+    import contextlib
+    import io
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch import cli
+    from moseq2_detectron_extract_tpu_torch.io.options import apply_config_file
+    from moseq2_detectron_extract_tpu_torch.io.util import read_yaml
+    os.makedirs(tmp)
+    t_phase = time.perf_counter()
+
+    def run(label: str, argv, expect_rc: int = 0) -> float:
+        t = time.perf_counter()
+        rc = cli.main(list(argv))
+        seconds = time.perf_counter() - t
+        if rc != expect_rc:
+            raise AssertionError(f'4g {label}: exit code {rc}, expected {expect_rc}')
+        return seconds
+
+    work = os.path.join(tmp, 'results_00.h5')
+    shutil.copy(long_h5, work)
+    seconds = run('find-outliers', ['find-outliers', work])
+    counts = check_reports(work)
+    phase(f'4g find-outliers on {LONG_SESSION_FRAMES} frames: {seconds:.2f} s; the three '
+          f'reports equal numpy\'s recomputation (frames: {counts}) [{card}]')
+
+    original = _datasets(long_h5)
+    seconds = run('trim-result', ['trim-result', work, '--start', str(TRIM[0]),
+                                  '--stop', str(TRIM[1])])
+    trimmed, backup = _datasets(work), _datasets(work + '.bak')
+    cut = [n for n in backup if ('flips' in n or 'metadata' not in n)
+           and np.ndim(backup[n][0]) and len(backup[n][0]) >= TRIM[1]]
+    bad = [n for n in backup if not _same(trimmed[n][0], backup[n][0][TRIM[0]:TRIM[1]]
+                                          if n in cut else backup[n][0])
+           or trimmed[n][1] != backup[n][1]]
+    if sorted(trimmed) != sorted(backup) or bad or len(cut) < 100:
+        raise AssertionError(f'4g trim-result: datasets that differ {bad[:5]}')
+    phase(f'4g trim-result --start {TRIM[0]} --stop {TRIM[1]}: {seconds:.2f} s; {len(cut)} '
+          f'datasets equal rows {TRIM[0]}-{TRIM[1] - 1} of the backup, the other '
+          f'{len(backup) - len(cut)} (metadata) untouched; {os.path.getsize(work) / 1e6:.1f} MB '
+          f'of {os.path.getsize(work + ".bak") / 1e6:.1f} MB [{card}]')
+
+    flipped = os.path.join(tmp, 'flipped', 'results_00.h5')
+    os.makedirs(os.path.dirname(flipped))
+    shutil.copy(long_h5, flipped)
+    flips_txt = os.path.join(tmp, 'flips.txt')
+    with open(flips_txt, 'w', encoding='utf-8') as fh:
+        fh.write('# frames to turn\n' + ''.join(f'{a}-{b}\n' for a, b in FLIP_RANGES))
+    flip_s = [run('manual-flip', ['manual-flip', flipped, flips_txt]) for _ in range(2)]
+    after = _datasets(flipped)
+    back = [n for n in ('/frames', '/frames_mask', '/metadata/extraction/flips')
+            if not _same(after[n][0], original[n][0])]
+    layers = sorted(n for n in after if n.startswith('/metadata/extraction/flips_'))
+    if back or layers != [f'/metadata/extraction/flips_{i}' for i in range(3)] or \
+            not _same(after['/metadata/extraction/flips_0'][0],
+                      original['/metadata/extraction/flips'][0]):
+        raise AssertionError(f'4g manual-flip twice: {back} not back; layers {layers}')
+    once = sum(b - a for a, b in FLIP_RANGES)
+    phase(f'4g manual-flip twice ({once} frames each): {flip_s[0]:.2f} s and '
+          f'{flip_s[1]:.2f} s; frames, masks and flips back bit for bit, layers '
+          f'{[n.rsplit("/", 1)[1] for n in layers]} [{card}]')
+
+    overlap = os.path.join(tmp, 'overlap.txt')
+    with open(overlap, 'w', encoding='utf-8') as fh:
+        fh.write('0-100\n50-60\n')
+    seconds = run('verify-flips', ['verify-flips', flips_txt]) + \
+        run('verify-flips', ['verify-flips', overlap], expect_rc=1)
+    phase(f'4g verify-flips: exit code 0 on the flips file, 1 on overlapping ranges '
+          f'({seconds:.3f} s) [{card}]')
+
+    config = os.path.join(tmp, 'extract-config.yaml')
+    seconds = run('generate-extract-config', ['generate-extract-config', '-o', config])
+    parser = cli.extract_parser()
+    defaults = vars(parser.parse_args([session_path]))
+    argv = [session_path, '--config-file', config]
+    args = parser.parse_args(argv)
+    apply_config_file(parser, args, argv)
+    if dict(vars(args), config_file=None) != defaults:
+        raise AssertionError('4g: the generated config does not read back to the defaults')
+    phase(f'4g generate-extract-config: {seconds:.3f} s; {len(read_yaml(config))} keys, read '
+          f'back through --config-file to the defaults [{card}]')
+
+    seconds = run('dataset-info', ['dataset-info', export])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        seconds_info = run('system-info', ['system-info'])
+    import torch
+    name = torch.cuda.get_device_name(0)
+    if name not in out.getvalue():
+        raise AssertionError(f'4g system-info does not name the card: {out.getvalue()!r}')
+    phase(f'4g dataset-info on phase 4d\'s views: {seconds:.2f} s; system-info '
+          f'{seconds_info:.2f} s: ' + '; '.join(out.getvalue().splitlines()) + f' [{card}]')
+
+    report_out = os.path.join(tmp, 'report')
+    seconds = run('extract --report-outliers',
+                  ['extract', session_path, '--model', model_dir, '--output-dir', report_out,
+                   '--frame-trim', *map(str, REPORT_TRIM), '--report-outliers'])
+    if read_yaml(os.path.join(report_out, 'results_00.yaml'))['complete'] is not True:
+        raise AssertionError('4g extract --report-outliers did not complete')
+    counts = check_reports(os.path.join(report_out, 'results_00.h5'))
+    nframes = SESSION_FRAMES - sum(REPORT_TRIM)
+    phase(f'4g extract --report-outliers on {nframes} frames: {seconds:.2f} s, reports equal '
+          f'numpy\'s (frames: {counts}) [{card}]')
+    phase(f'4g: {time.perf_counter() - t_phase:.1f} s [{card}]')
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -2364,6 +2572,12 @@ def main() -> int:
         phase('4f/5 the preview commands: visualize-raw, visualize-result, the reverse '
               'crop-rotate card vs CPU')
         check_preview_commands(card, session_path, results_h5, os.path.join(work, 'preview'))
+
+        phase('4g/5 the result upkeep: find-outliers, trim-result, manual-flip, verify-flips, '
+              'generate-extract-config, dataset-info, system-info, extract --report-outliers')
+        check_result_upkeep(card, os.path.join(os.path.dirname(results_h5), LONG_RESULTS),
+                            session_path, export, args.model_dir,
+                            os.path.join(work, 'upkeep'))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -15,6 +15,17 @@
     python -m moseq2_detectron_extract_tpu_torch.cli visualize-raw <depth.dat> [-o preview.avi]
     python -m moseq2_detectron_extract_tpu_torch.cli visualize-result <results_00.h5> \
         [-o results_00.preview.avi]
+    python -m moseq2_detectron_extract_tpu_torch.cli find-outliers <results_00.h5> \
+        [--window 4] [--threshold 10]
+    python -m moseq2_detectron_extract_tpu_torch.cli trim-result <results_00.h5> \
+        --start N --stop M [--no-backup]
+    python -m moseq2_detectron_extract_tpu_torch.cli manual-flip <results_00.h5> <flips.txt> \
+        [--no-backup]
+    python -m moseq2_detectron_extract_tpu_torch.cli verify-flips <flips.txt>... [--max-frames N]
+    python -m moseq2_detectron_extract_tpu_torch.cli dataset-info <export.json>...
+    python -m moseq2_detectron_extract_tpu_torch.cli generate-extract-config \
+        [-o extract-config.yaml]
+    python -m moseq2_detectron_extract_tpu_torch.cli system-info
 
 Port of ``moseq2_detectron_extract_tpu/cli.py`` on ``argparse`` (the card's
 machine has no click): the same option names, defaults and help strings.
@@ -24,8 +35,9 @@ runs a model or the ROI search.
 ``extract`` is ``cli.py:37-129``: ``--config-file`` as
 ``io/click.py:command_with_config`` gives it, the ``allowed_detections``
 rule, and the config keys ``use_tracking_model``, ``flip_classifier``,
-``dataset_name`` and ``param_annotations``. ``--report-outliers`` and
-``--device-input prescaled`` are not ported yet and raise.
+``dataset_name`` and ``param_annotations``. ``--report-outliers`` searches
+the finished results for outlier frames (``quality.py``), as ``find-outliers``
+does; ``--device-input prescaled`` is not ported yet and raises.
 
 ``train`` is ``cli.py:131-166`` (``--log-period``, the metrics' period,
 20 as in the JAX trainer, is the port's own); ``convert-weights``,
@@ -35,6 +47,16 @@ rule, and the config keys ``use_tracking_model``, ``flip_classifier``,
 ``visualize-raw`` and ``visualize-result`` are ``cli.py:362-394``; they
 write Motion-JPEG AVIs (``preview.avi``, ``<results>.preview.avi``) where
 the reference writes ``.mp4`` (``viz.py``).
+
+The result upkeep is ``cli.py:431-530``: ``dataset-info``, ``find-outliers``,
+``manual-flip``, ``verify-flips`` (exit code 1 on a bad flips file),
+``trim-result`` and ``generate-extract-config`` (the extract defaults, with
+the port's ``device``). ``manual-flip`` and ``trim-result`` copy the file to
+``<result>.bak`` first unless ``--no-backup``, then write the edited file
+anew beside it and rename it onto the old one (``io/hdf5.py:rewrite``).
+``system-info`` (``cli.py:606-632``) prints torch, CUDA and cuDNN in place
+of jax and flax, and the CUDA devices, or says there is none. ``main``
+returns the command's exit code.
 '''
 import argparse
 import logging
@@ -146,8 +168,6 @@ def extract(argv: Sequence[str]) -> str:
                 'frame_trim'):
         if isinstance(getattr(args, key), list):
             setattr(args, key, tuple(getattr(args, key)))
-    if args.report_outliers:
-        raise NotImplementedError('--report-outliers is not ported yet (find_outliers_h5)')
     if args.device_input != 'full':
         raise NotImplementedError("--device-input prescaled is not ported yet (it resizes on "
                                   "the host with cv2)")
@@ -171,7 +191,22 @@ def extract(argv: Sequence[str]) -> str:
         'param_annotations': click_param_annot(parser),
     })
     session = Session(args.input_file, frame_trim=args.frame_trim)
-    return extract_session(session=session, config=config_data)
+    status_filename = extract_session(session=session, config=config_data)
+
+    if args.report_outliers:
+        from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+        from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
+        from moseq2_detectron_extract_tpu_torch.quality import find_outliers_h5
+        logging.info('')
+        if not check_completion_status(status_filename):
+            logging.info('Skipping search for outlier frames because session '
+                         'extraction was not completed!')
+        else:
+            logging.info('Searching for outlier frames....')
+            find_outliers_h5(os.path.splitext(status_filename)[0] + '.h5',
+                             keypoint_names=[kp for kp in default_keypoint_names
+                                             if kp != 'TailTip'])
+    return status_filename
 
 
 def train_parser() -> argparse.ArgumentParser:
@@ -422,10 +457,156 @@ def visualize_result(argv: Sequence[str]) -> str:
     return out
 
 
+def dataset_info(argv: Sequence[str]) -> None:
+    '''Log the statistics of annotation exports (``io/annot.py:show_dataset_info``).'''
+    p = argparse.ArgumentParser(prog='dataset-info', allow_abbrev=False,
+                                description='Show dataset statistics')
+    p.add_argument('annot_files', metavar='ANNOT_FILES', nargs='*', type=_existing)
+    p.add_argument('--replace-paths', default=None, action='append')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.annot import load_annotations_helper
+    setup_logging()
+    load_annotations_helper(args.annot_files, 'RGB',
+                            replace_paths=_replace_pairs(args.replace_paths),
+                            register=False, show_info=True)
+
+
+def _result_parser(prog: str, description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog, description=description, allow_abbrev=False)
+    p.add_argument('result_file', metavar='RESULT_FILE', type=_existing_file)
+    return p
+
+
+def find_outliers(argv: Sequence[str]) -> dict:
+    '''Search a results file for outlier frames and write the reports
+    (``quality.py``); returns each detector's frames.'''
+    p = _result_parser('find-outliers', 'Outlier frame detection on a result h5')
+    p.add_argument('--window', default=4, type=int)
+    p.add_argument('--threshold', default=10.0, type=float)
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.quality import find_outliers_h5
+    setup_logging()
+    return find_outliers_h5(args.result_file, jumping_window=args.window,
+                            jumping_thresh=args.threshold)
+
+
+def _backup(result_file: str) -> None:
+    import shutil
+    from moseq2_detectron_extract_tpu_torch.io.util import find_unused_file_path
+    backup = find_unused_file_path(result_file + '.bak')
+    shutil.copy2(result_file, backup)
+    logging.info('Backed up results to %s', backup)
+
+
+def manual_flip(argv: Sequence[str]) -> None:
+    '''Apply the ranges of a flips file to a results file (``io/flips.py``),
+    after copying it to ``<result>.bak`` (``.bak.N`` if taken) unless
+    ``--no-backup``.'''
+    p = _result_parser('manual-flip', 'Apply human flip corrections to a result h5')
+    p.add_argument('flips_file', metavar='FLIPS_FILE', type=_existing_file)
+    p.add_argument('--no-backup', action='store_true',
+                   help='Skip backing up the h5 before flipping')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.flips import (count_frames, flip_dataset,
+                                                             read_flips_file)
+    setup_logging()
+    nframes = count_frames(args.result_file)
+    ranges = read_flips_file(args.flips_file, verify=True, verify_vmax=nframes)
+    if not args.no_backup:
+        _backup(args.result_file)
+    flip_dataset(args.result_file, flip_ranges=ranges)
+    logging.info('Applied %d flip ranges', len(ranges))
+
+
+def verify_flips(argv: Sequence[str]) -> None:
+    '''Check flips files (parse, bounds, overlaps); exits with 1 if any fails.'''
+    p = argparse.ArgumentParser(prog='verify-flips', description='Lint flips files',
+                                allow_abbrev=False)
+    p.add_argument('flips_files', metavar='FLIPS_FILES', nargs='*', type=_existing_file)
+    p.add_argument('--max-frames', default=None, type=optional(int))
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.flips import read_flips_file
+    setup_logging()
+    failed = False
+    for path in args.flips_files:
+        try:
+            ranges = read_flips_file(path, verify=True,
+                                     verify_vmax=args.max_frames or sys.maxsize)
+            logging.info('%s: OK (%d ranges)', path, len(ranges))
+        except RuntimeError as exc:
+            logging.error('%s: FAILED\n%s', path, exc)
+            failed = True
+    if failed:
+        raise SystemExit(1)
+
+
+def trim_result(argv: Sequence[str]) -> None:
+    '''Cut a results file to frames ``[start, stop)`` (``io/result.py:
+    trim_results``), after copying it to ``<result>.bak`` unless
+    ``--no-backup``.'''
+    p = _result_parser('trim-result', 'Truncate result h5 datasets to a frame range')
+    p.add_argument('--start', required=True, type=int)
+    p.add_argument('--stop', required=True, type=int)
+    p.add_argument('--no-backup', action='store_true')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.result import trim_results
+    setup_logging()
+    if not args.no_backup:
+        _backup(args.result_file)
+    trim_results(args.result_file, args.start, args.stop)
+    logging.info('Trimmed results to frames [%d, %d)', args.start, args.stop)
+
+
+def generate_extract_config(argv: Sequence[str]) -> str:
+    '''Write the ``extract`` options' defaults to a YAML file that ``extract
+    --config-file`` reads; returns its path. As the reference's
+    ``get_command_defaults(extract)``, the options that declare no default
+    there (``--model``, ``--config-file``) are left out; ``device`` is the
+    port's own.'''
+    p = argparse.ArgumentParser(prog='generate-extract-config', allow_abbrev=False,
+                                description='Dump extract defaults to yaml')
+    p.add_argument('--output-file', '-o', default='extract-config.yaml')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.util import write_yaml
+    write_yaml(args.output_file, {a.dest: a.default for a in extract_parser()._actions
+                                  if a.option_strings
+                                  and a.dest not in ('help', 'model', 'config_file')})
+    print(f'Successfully generated extract config file at "{args.output_file}".')
+    return args.output_file
+
+
+def system_info(argv: Sequence[str]) -> None:
+    '''Print the versions (the port, Python, torch, CUDA, cuDNN, numpy) and
+    each CUDA device with its used and total memory.'''
+    argparse.ArgumentParser(prog='system-info', allow_abbrev=False,
+                            description='Show framework and device info').parse_args(list(argv))
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import __version__
+    print(f'moseq2-detectron-extract-tpu-torch: {__version__}')
+    print(f'python: {sys.version.split()[0]}')
+    print(f'torch: {torch.__version__}')
+    print(f'cuda: {torch.version.cuda}')
+    cudnn = torch.backends.cudnn.version() if torch.backends.cudnn.is_available() else None
+    print(f'cudnn: {cudnn}')
+    print(f'numpy: {np.__version__}')
+    if not torch.cuda.is_available():
+        print('no CUDA device')
+        return
+    for i in range(torch.cuda.device_count()):
+        free, total = torch.cuda.mem_get_info(i)
+        print(f'  device {i}: {torch.cuda.get_device_name(i)} '
+              f'({(total - free) / 2 ** 30:.2f}/{total / 2 ** 30:.2f} GiB)')
+
+
 COMMANDS = {'extract': extract, 'train': train, 'convert-weights': convert_weights,
             'evaluate': evaluate, 'compile-model': compile_model,
             'infer-dataset': infer_dataset, 'find-roi': find_roi,
-            'visualize-raw': visualize_raw, 'visualize-result': visualize_result}
+            'visualize-raw': visualize_raw, 'visualize-result': visualize_result,
+            'dataset-info': dataset_info, 'find-outliers': find_outliers,
+            'manual-flip': manual_flip, 'verify-flips': verify_flips,
+            'trim-result': trim_result, 'generate-extract-config': generate_extract_config,
+            'system-info': system_info}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -435,7 +616,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f'usage: python -m moseq2_detectron_extract_tpu_torch.cli '
               f'{{{",".join(COMMANDS)}}} ...', file=sys.stderr)
         return 2
-    COMMANDS[argv[0]](argv[1:])
+    try:
+        COMMANDS[argv[0]](argv[1:])
+    except SystemExit as exc:   # a command's own exit code, or argparse's
+        return exc.code if isinstance(exc.code, int) else int(exc.code is not None)
     return 0
 
 

@@ -45,6 +45,7 @@ from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers, 
                                                                run_inference, select_instances)
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
 from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
+from moseq2_detectron_extract_tpu_torch.utils.hostmem import tune_host_allocator
 
 # the extract CLI's defaults (cli.py:46-66, pipeline/steps.py:166-169, 319-393)
 DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
@@ -164,6 +165,9 @@ def extract_session(session: Session, config: dict) -> str:
     read the status, not the return value, to know whether it ran.
     '''
     start_time = time.time()
+    # keep the chunk-sized host buffers heap-resident across chunks (glibc's
+    # default mmap policy faults their pages in anew every chunk)
+    tune_host_allocator()
     config.setdefault('device', 'cuda')
     if config.get('output_dir') is None:
         config['output_dir'] = os.path.join(session.dirname, 'proc')

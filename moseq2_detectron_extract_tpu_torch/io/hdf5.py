@@ -27,11 +27,24 @@ later is read back first). Rows are never all held in memory. The metadata
 (object headers, heaps, B-trees) is written by ``close()``: the file is
 readable once it is closed, not after each ``flush()`` as h5py's is.
 
-The reader (``File(path, 'r')``) reads back the groups, datasets (whole, by
-an index, or by a range of the first axis) and attributes of the files this
-writer writes.
+The reader (``File(path, 'r')``) reads the groups, datasets (whole, by an
+index, or by a range of the first axis) and attributes of the files this
+writer writes, and of h5py's with the earliest file format (its default, in
+which the JAX package and the upstream extractor write their results):
+chunks split along any axis (h5py's guess cuts ``(1100, 80, 80)`` uint8 into
+``(138, 10, 20)``) and the fill value message of any version; messages it
+does not need (NIL, modification times, ...) are skipped, and a layout
+(compact) or filter (anything but deflate) it cannot decode raises.
+
+Editing. The writer writes a file once, so ``rewrite(path, changes, added)``
+edits one by copying it, changed, into a new file beside it and renaming
+that onto it (``os.replace``): a failure leaves the old file whole.
 '''
+import itertools
+import os
+import shutil
 import struct
+import tempfile
 import zlib
 from typing import Dict, List, Optional, Tuple
 
@@ -340,6 +353,18 @@ class _WGroup(_WNode):
         if data is not None:
             node[()] = data
         return node
+
+    def require_group(self, path: str) -> '_WGroup':
+        '''The group at ``path``, made (with its parents) if it is not there.'''
+        if not [p for p in path.split('/') if p]:
+            return self if not path.startswith('/') else self.file
+        group, leaf = self._walk(path, create=True)
+        child = group.children.get(leaf)
+        if child is None:
+            child = group.children[leaf] = _WGroup(self.file, f'{group.name.rstrip("/")}/{leaf}')
+        if not isinstance(child, _WGroup):
+            raise ValueError(f'{path} is a dataset')
+        return child
 
     def __getitem__(self, path: str) -> _WNode:
         group, leaf = self._walk(path, create=False)
@@ -780,6 +805,23 @@ class HDF5Reader:
         self.close()
 
 
+def _fill_value(body: bytes) -> Optional[bytes]:
+    '''The fill value's bytes from a fill value message (versions 1-3), or
+    None where it is undefined or the library's default.'''
+    version = body[0]
+    if version in (1, 2):
+        if version == 2 and not body[3]:
+            return None
+        size = struct.unpack_from('<I', body, 4)[0]
+        return body[8:8 + size] or None
+    if version == 3:
+        if not body[1] & 0x20:
+            return None
+        size = struct.unpack_from('<I', body, 2)[0]
+        return body[6:6 + size] or None
+    raise ValueError(f'fill value message version {version}')
+
+
 def _read_attrs(reader: HDF5Reader, msgs) -> Dict[str, object]:
     attrs = {}
     for mtype, _, body in msgs:
@@ -892,7 +934,7 @@ class ReadDataset:
         self.reader, self.name = reader, name
         msgs = reader.messages(addr)
         self.compression, self.compression_opts, self.chunks = None, None, None
-        self._layout = None
+        self._layout, fill = None, None
         for mtype, _, body in msgs:
             if mtype == MSG_DATASPACE:
                 self.shape = _decode_dataspace(body)
@@ -900,6 +942,8 @@ class ReadDataset:
                 self.dtype, _ = _decode_dtype(body)
             elif mtype == MSG_LAYOUT:
                 self._layout = body
+            elif mtype == MSG_FILL:
+                fill = _fill_value(body)
             elif mtype == MSG_PIPELINE:
                 nfilters, pos = body[1], 8
                 for _ in range(nfilters):
@@ -911,6 +955,10 @@ class ReadDataset:
                         raise ValueError(f'{name}: filter {fid} is not supported')
                     self.compression, self.compression_opts = 'gzip', vals[0]
         self.attrs = _read_attrs(reader, msgs)
+        self._fill = 0
+        if fill and self.shape is not None and self.dtype.kind in 'biuf' and \
+                len(fill) == self.dtype.itemsize:
+            self._fill = np.frombuffer(fill, _disk_dtype(self.dtype))[0]
         if self._layout[0] != 3:
             raise ValueError(f'{name}: layout message version {self._layout[0]}')
         if self._layout[1] == 2:
@@ -921,7 +969,11 @@ class ReadDataset:
         elif self._layout[1] != 1:
             raise ValueError(f'{name}: layout class {self._layout[1]} is not supported')
 
-    def _chunk_records(self, addr: int, rank: int, out: Dict[int, Tuple[int, int, int]]):
+    def _chunk_records(self, addr: int, rank: int,
+                       out: Dict[Tuple[int, ...], Tuple[int, int, int]]):
+        '''Each chunk's (address, bytes, filter mask), keyed by its index
+        along every axis: the B-tree key holds the chunk's offset in each
+        dimension (and a trailing 0 for the element).'''
         key_size = 8 + 8 * (rank + 1)
         hdr = self.reader._read(addr, 24)
         if hdr[:4] != b'TREE' or hdr[4] != 1:
@@ -931,33 +983,44 @@ class ReadDataset:
         for i in range(used):
             pos = i * (key_size + 8)
             nbytes, mask = struct.unpack_from('<II', body, pos)
-            first = struct.unpack_from('<Q', body, pos + 8)[0]
+            offsets = struct.unpack_from(f'<{rank}Q', body, pos + 8)
             child = struct.unpack_from('<Q', body, pos + key_size)[0]
             if level:
                 self._chunk_records(child, rank, out)
             else:
-                out[first // self.chunks[0]] = (child, nbytes, mask)
+                out[tuple(o // c for o, c in zip(offsets, self.chunks))] = (child, nbytes, mask)
 
     def _read_rows(self, start: int, stop: int) -> np.ndarray:
-        out = np.zeros((max(0, stop - start),) + self.shape[1:], self.dtype)
+        '''Rows ``start:stop``, assembled from every chunk that overlaps
+        them (chunks may split the other axes too, as h5py's do); a chunk
+        never written holds the fill value.'''
+        out = np.full((max(0, stop - start),) + self.shape[1:], self._fill, self.dtype)
         if stop <= start:
             return out
         if self._chunk_map is None:
             self._chunk_map = {}
             if self._index != UNDEF:
                 self._chunk_records(self._index, len(self.shape), self._chunk_map)
-        size, disk = self.chunks[0], _disk_dtype(self.dtype)
-        for chunk in range(start // size, (stop - 1) // size + 1):
-            rec = self._chunk_map.get(chunk)
+        disk = _disk_dtype(self.dtype)
+        grid = [range(start // self.chunks[0], (stop - 1) // self.chunks[0] + 1)]
+        grid += [range(-(-n // c)) for n, c in zip(self.shape[1:], self.chunks[1:])]
+        for index in itertools.product(*grid):
+            rec = self._chunk_map.get(index)
             if rec is None:
                 continue
             addr, nbytes, mask = rec
             raw = self.reader._read(addr, nbytes)
             if not mask & 1 and self.compression:
                 raw = zlib.decompress(raw)
-            data = np.frombuffer(raw, disk).reshape((size,) + self.shape[1:])
-            lo, hi = max(start, chunk * size), min(stop, (chunk + 1) * size)
-            out[lo - start:hi - start] = data[lo - chunk * size:hi - chunk * size]
+            data = np.frombuffer(raw, disk).reshape(self.chunks)
+            src, dst = [], []
+            for axis, (i, size, n) in enumerate(zip(index, self.chunks, self.shape)):
+                lo = i * size
+                a, b = (max(start, lo), min(stop, lo + size)) if axis == 0 else \
+                    (lo, min(n, lo + size))
+                src.append(slice(a - lo, b - lo))
+                dst.append(slice(a - start, b - start) if axis == 0 else slice(a, b))
+            out[tuple(dst)] = data[tuple(src)]
         return out
 
     def __getitem__(self, key=()):
@@ -965,9 +1028,12 @@ class ReadDataset:
             return Empty(self.dtype)
         if self.chunks is None:
             addr, size = struct.unpack_from('<QQ', self._layout, 2)
-            raw = self.reader._read(addr, size) if addr != UNDEF and size else \
-                b'\0' * (int(np.prod(self.shape, dtype=np.int64)) *
-                         (16 if is_vlen_str(self.dtype) else self.dtype.itemsize))
+            if addr != UNDEF and size:
+                raw = self.reader._read(addr, size)
+            else:                              # never written: the fill value
+                count = int(np.prod(self.shape, dtype=np.int64))
+                raw = b'\0' * (16 * count) if is_vlen_str(self.dtype) else \
+                    np.full(count, self._fill, _disk_dtype(self.dtype)).tobytes()
             values = _decode_values(self.reader, raw, self.dtype, self.shape)
             return values if _is_whole(key) else values[key]
         n = self.shape[0]
@@ -983,3 +1049,109 @@ class ReadDataset:
                 raise IndexError(key)
             return self._read_rows(row, row + 1)[0]
         return self._read_rows(0, n)[key]
+
+
+# -- editing a file: read it, write it anew beside it, rename -------------------------
+
+ROWS_PER_COPY = 1024        # rows that rewrite() moves at a time
+KEEP = 'keep'               # Rows(level=KEEP): the source's gzip level
+
+
+class Rows:
+    '''What ``rewrite`` writes in place of a dataset: its rows
+    ``start:stop`` of the source (all by default), each block of rows passed
+    through ``fn(first_row, block)`` (``first_row`` the block's first row in
+    the source) where ``fn`` is given, at gzip ``level`` (the source's by
+    default; None writes it uncompressed).'''
+
+    def __init__(self, start: int = 0, stop: Optional[int] = None, fn=None, level=KEEP):
+        self.start, self.stop, self.fn, self.level = start, stop, fn, level
+
+
+def replaced(values) -> Rows:
+    '''A ``Rows`` that writes ``values`` (the dataset's whole length) in
+    place of the source's rows.'''
+    values = np.asarray(values)
+    return Rows(fn=lambda first, block: values[first:first + len(block)])
+
+
+def _gzip(level: Optional[int]) -> Dict[str, object]:
+    return {'compression': None if level is None else 'gzip', 'compression_opts': level}
+
+
+def _copy_dataset(ds: ReadDataset, dst: File, rows: Rows) -> None:
+    name = ds.name
+    level = ds.compression_opts if rows.level == KEEP else rows.level
+    if ds.shape is None:
+        out = dst.create_dataset(name, data=Empty(ds.dtype))
+    elif not ds.shape or is_vlen_str(ds.dtype):
+        values = ds[()]
+        if rows.fn is not None:
+            values = rows.fn(0, values)
+        out = dst.create_dataset(name, data=values, **_gzip(level))
+    else:
+        n = ds.shape[0]
+        start, stop = rows.start, n if rows.stop is None else rows.stop
+        if not 0 <= start <= stop <= n:
+            raise IndexError(f'{name}: rows {start}:{stop} of {n}')
+        out = dst.create_dataset(name, (stop - start,) + tuple(ds.shape[1:]), ds.dtype,
+                                 **_gzip(level))
+        whole = ds[()] if ds.chunks is None else None     # a contiguous source is read once
+        for first in range(start, stop, ROWS_PER_COPY):
+            last = min(stop, first + ROWS_PER_COPY)
+            block = ds[first:last] if whole is None else whole[first:last]
+            if rows.fn is not None:
+                block = rows.fn(first, block)
+            out[first - start:last - start] = block
+    for key, value in ds.attrs.items():
+        out.attrs[key] = value
+
+
+def rewrite(path: str, changes: Optional[Dict[str, Rows]] = None,
+            added: Optional[Dict[str, Tuple[object, Optional[int], Dict[str, object]]]] = None
+            ) -> None:
+    '''Edit the HDF5 file at ``path`` by writing it anew: every group and
+    dataset, with its attributes, dtype and gzip level, is copied by the
+    port's writer into a new file beside it, which then replaces it
+    (``os.replace``). Until that rename the file stays as it was: a failure
+    on the way removes the new file and leaves the old one whole.
+
+    ``changes`` maps a dataset's path (``/a/b``) to a ``Rows``: what to
+    write in its place. ``added`` maps new datasets' paths to (data, gzip
+    level or None, attributes). A dataset is copied ``ROWS_PER_COPY`` rows
+    at a time, never whole (a 54,000-frame result holds about 1.4 GB of f32
+    masks); the new file's chunks are the writer's own (along the first
+    axis), not the source's.'''
+    changes = {'/' + k.lstrip('/'): v for k, v in (changes or {}).items()}
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
+                               prefix=os.path.basename(path) + '.', suffix='.tmp')
+    os.close(fd)
+    try:
+        with HDF5Reader(path) as src:
+            dst = File(tmp, 'w')
+            try:
+                def copy(group: ReadGroup):
+                    for key, value in group.attrs.items():
+                        dst.require_group(group.name).attrs[key] = value
+                    for key in group.keys():
+                        child = group._child(key)
+                        if isinstance(child, ReadGroup):
+                            dst.require_group(child.name)
+                            copy(child)
+                        else:
+                            _copy_dataset(child, dst, changes.pop(child.name, Rows()))
+                copy(src.root)
+                if changes:
+                    raise KeyError(f'no such datasets: {sorted(changes)}')
+                for name, (data, level, attrs) in (added or {}).items():
+                    out = dst.create_dataset(name, data=data, **_gzip(level))
+                    for key, value in attrs.items():
+                        out.attrs[key] = value
+            finally:
+                dst.close()
+        shutil.copymode(path, tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise

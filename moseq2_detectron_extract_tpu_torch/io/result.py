@@ -1,10 +1,13 @@
 '''The results HDF5 file: its datasets and metadata, and chunked writing.
 
 Port of ``moseq2_detectron_extract_tpu/io/result.py`` (``create_extract_h5``,
-lines 18-102, and ``write_extracted_chunk_to_h5``, 105-120) onto the port's
-HDF5 writer (``io.hdf5``): the same dataset names, shapes, dtypes,
-compression (gzip level 4) and descriptions. ``extract_version`` names this
-package, so that a file says which package wrote it.
+lines 18-102, ``write_extracted_chunk_to_h5``, 105-120, ``copy_frame`` and
+``trim_results``, 122-170) onto the port's HDF5 writer (``io.hdf5``): the
+same dataset names, shapes, dtypes, compression (gzip level 4) and
+descriptions. ``extract_version`` names this package, so that a file says
+which package wrote it. The reference edits a file in place (h5py's
+``r+``); here an edit writes the file anew beside it and renames it onto
+the old one (``hdf5.rewrite``), so a failed edit leaves the file whole.
 '''
 from typing import Dict, Optional
 
@@ -115,3 +118,44 @@ def write_extracted_chunk_to_h5(h5_file: hdf5.File, results: dict) -> None:
 
     for kp, values in results['keypoints'].items():
         h5_file[f'keypoints/{kp}'][frame_range] = values[offset:]
+
+
+def _per_frame_datasets(h5) -> list:
+    '''The datasets ``copy_frame`` copies a frame of: the frames, the masks,
+    every scalar and keypoint and every flips layer.'''
+    names = ['/frames', '/frames_mask']
+    for base in ('/scalars', '/keypoints/reference', '/keypoints/rotated'):
+        names += [f'{base}/{key}' for key in h5[base].keys()]
+    names += [f'/metadata/extraction/{key}' for key in h5['/metadata/extraction'].keys()
+              if key.startswith('flips')]
+    return names
+
+
+def copy_frame(h5_file: str, src_frame: int, dst_frame: int) -> None:
+    '''Copy every per-frame value of frame ``src_frame`` onto frame
+    ``dst_frame`` of the results file at ``h5_file`` (rewritten through
+    ``hdf5.rewrite``).'''
+    with hdf5.File(h5_file, 'r') as h5:
+        sources = {name: h5[name][src_frame] for name in _per_frame_datasets(h5)}
+
+    def put(value):
+        def fn(first, block):
+            if first <= dst_frame < first + len(block):
+                block = np.array(block)
+                block[dst_frame - first] = value
+            return block
+        return hdf5.Rows(fn=fn)
+    hdf5.rewrite(h5_file, {name: put(value) for name, value in sources.items()})
+
+
+def trim_results(h5_file: str, start: int, stop: int) -> None:
+    '''Cut the results file at ``h5_file`` to frames ``start:stop``: every
+    dataset whose name holds ``flips`` or lacks ``metadata`` and that has at
+    least ``stop`` rows is written anew with those rows, gzip level 4 (what
+    the reference's ``create_dataset(..., compression='gzip')`` gives), its
+    dtype and attributes kept.'''
+    with hdf5.File(h5_file, 'r') as h5:
+        to_trim = [name for name, ds in h5.visit_datasets()
+                   if ('flips' in name or 'metadata' not in name)
+                   and ds.shape and ds.shape[0] >= stop]
+    hdf5.rewrite(h5_file, {name: hdf5.Rows(start, stop, level=4) for name in to_trim})

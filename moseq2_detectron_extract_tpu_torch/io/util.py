@@ -6,6 +6,7 @@ lines 21-34; ``read_yaml``, ``write_yaml`` and ``_sanitize_for_yaml``, 37-64,
 on the port's own YAML emitter and reader; ``dict_to_h5``, 67-108, on the
 port's HDF5 writer; ``load_timestamps``, 111-132; ``load_metadata``,
 135-140; ``ensure_dir``, 143-146; ``find_unused_file_path``, 149-157;
+``backup_existing_file``, 160-166;
 ``setup_logging`` and ``attach_file_logger``, 168-231, with a plain stream
 handler where the reference's writes through tqdm).
 '''
@@ -66,6 +67,16 @@ def find_unused_file_path(path: str) -> str:
     while os.path.exists(f'{stem}.{i}{ext}'):
         i += 1
     return f'{stem}.{i}{ext}'
+
+
+def backup_existing_file(path: str) -> Optional[str]:
+    '''Rename ``path``, if it exists, to the first unused ``<path>.bak``
+    name (``find_unused_file_path``); returns the new name, or None.'''
+    if not os.path.exists(path):
+        return None
+    backup = find_unused_file_path(path + '.bak')
+    os.rename(path, backup)
+    return backup
 
 
 def ensure_dir(path: str) -> str:

@@ -1,7 +1,7 @@
 '''Angle helpers and the moving-median flip filter of the untracked path.
 
 Port of ``moseq2_detectron_extract_tpu/proc/angles.py`` (lines 16-95):
-``clamp_angles_deg``, ``angle_difference``, ``_move_median3``,
+``clamp_angles_deg``, ``clamp_angles_rad``, ``angle_difference``, ``_move_median3``,
 ``_move_median``, ``filter_angles`` and ``iterative_filter_angles``. The
 reference jits them in f32 (no x64) and iterates the filter in a
 ``while_loop`` to a fixpoint under ``jnp.allclose``'s defaults; here they are
@@ -17,6 +17,14 @@ def clamp_angles_deg(angles):
     '''Clamp angles into [0, 360).'''
     angles = np.asarray(angles)
     return np.where(angles < 0, 360 + angles, angles) % 360
+
+
+def clamp_angles_rad(angles):
+    '''Clamp angles into [0, 2*pi), in f32 as the reference computes it
+    (JAX without x64).'''
+    angles = np.asarray(angles, dtype=_F32)
+    two_pi = _F32(2 * np.pi)
+    return np.where(angles < 0, two_pi + angles, angles) % two_pi
 
 
 def angle_difference(angles1, angles2):

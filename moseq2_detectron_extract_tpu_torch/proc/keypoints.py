@@ -5,16 +5,19 @@ Port of ``moseq2_detectron_extract_tpu/proc/keypoints.py``:
 ``default_keypoint_connection_rules`` (the annotation metadata),
 ``rotate_points_batch`` (line 71),
 ``keypoint_attributes`` (87), ``dispatch_z_lookup`` (103) and
-``keypoints_to_dict`` (123). The z lookup
+``keypoints_to_dict`` (123); the outlier search's ``load_keypoint_data_from_h5``,
+``load_keypoint_data_from_dict``, ``_move_median_axis0``,
+``find_outliers_jumping`` and ``find_nan_keypoints`` (179-245). The z lookup
 gathers from the cleaned windows on their device; only the (N, K) values
 cross to the host.
 '''
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from moseq2_detectron_extract_tpu_torch.proc.util import convert_pxs_to_mm
+from moseq2_detectron_extract_tpu_torch.stats import is_outlier
 
 default_keypoint_names = [
     'Nose',
@@ -158,3 +161,70 @@ def keypoints_to_dict(keypoints: np.ndarray, frames: Optional[torch.Tensor],
         out[f'rotated/{kpn}_y_mm'] = rot_kpts_mm[:, kpi, 1]
         out[f'rotated/{kpn}_z_mm'] = z_data[:, kpi]
     return out
+
+
+def load_keypoint_data_from_h5(h5_file, keypoints: Optional[List[str]] = None,
+                               coord_system: str = 'reference', units: str = 'px',
+                               root: str = '/keypoints') -> np.ndarray:
+    '''The (N, K, 3 [x, y, score]) keypoints of a results file opened with
+    ``io.hdf5.File(path, 'r')``, in ``coord_system`` (reference or rotated)
+    and ``units`` (px or mm).'''
+    if keypoints is None:
+        keypoints = default_keypoint_names
+    root = '' if not root else (root if root.endswith('/') else root + '/')
+    keys = [f'{root}{coord_system}/{kp}' for kp in keypoints]
+    data = np.empty((h5_file['frames'].shape[0], len(keys), 3), dtype=float)
+    for kpi, kp in enumerate(keys):
+        data[:, kpi, 0] = h5_file[f'{kp}_x_{units}'][()]
+        data[:, kpi, 1] = h5_file[f'{kp}_y_{units}'][()]
+        data[:, kpi, 2] = h5_file[f'{kp}_score'][()]
+    return data
+
+
+def load_keypoint_data_from_dict(data: Dict[str, np.ndarray],
+                                 keypoints: Optional[List[str]] = None,
+                                 coord_system: str = 'reference', units: str = 'px',
+                                 root: str = '/keypoints') -> np.ndarray:
+    '''``load_keypoint_data_from_h5`` on a dict of arrays keyed as the
+    results file's datasets.'''
+    if keypoints is None:
+        keypoints = default_keypoint_names
+    root = '' if not root else (root if root.endswith('/') else root + '/')
+    keys = [f'{root}{coord_system}/{kp}' for kp in keypoints]
+    nframes = data[f'{keys[0]}_x_{units}'].shape[0]
+    out = np.empty((nframes, len(keys), 3), dtype=float)
+    for kpi, kp in enumerate(keys):
+        out[:, kpi, 0] = data[f'{kp}_x_{units}']
+        out[:, kpi, 1] = data[f'{kp}_y_{units}']
+        out[:, kpi, 2] = data[f'{kp}_score']
+    return out
+
+
+def _move_median_axis0(data: np.ndarray, window: int) -> np.ndarray:
+    '''Trailing moving median along axis 0, at least one value a window
+    (bottleneck's ``move_median`` with ``min_count=1``).'''
+    out = np.empty_like(data, dtype=float)
+    for i in range(data.shape[0]):
+        out[i] = np.median(data[max(0, i - window + 1):i + 1], axis=0)
+    return out
+
+
+def find_outliers_jumping(data: np.ndarray, window: int = 4,
+                          thresh: float = 10) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    '''Frames where a keypoint jumps: each keypoint's distance from its
+    trailing moving median, tested by the modified z-score (``stats``).
+    Scores and the last keypoint (the tail tip) are left out. Returns the
+    frames, the (N, K-1) distances and the (N, K-1) outlier mask.'''
+    data = np.copy(np.asarray(data)[:, :data.shape[1] - 1, :2])
+    window = min(window, data.shape[0])
+    windows = _move_median_axis0(data, window)
+    dist = np.sqrt(np.sum((data - windows) ** 2, axis=2))
+    outliers = np.zeros(dist.shape[:2], dtype=bool)
+    for i in range(dist.shape[1]):
+        outliers[:, i] = is_outlier(dist[:, i], thresh=thresh)
+    return np.where(outliers.any(axis=1))[0], dist, outliers
+
+
+def find_nan_keypoints(data: np.ndarray) -> np.ndarray:
+    '''Frames with any NaN in their keypoints.'''
+    return np.isnan(np.asarray(data)).any(axis=(1, 2)).nonzero()[0]

@@ -702,7 +702,7 @@ def test_cli_config_file_precedence(tmp_path):
         parser.parse_args([dat, '--instance-threshold', '1.5'])
 
 
-@pytest.mark.parametrize('flag', [['--report-outliers'], ['--device-input', 'prescaled']])
+@pytest.mark.parametrize('flag', [['--device-input', 'prescaled']])
 def test_cli_options_not_ported_raise(flag, session_paths, tmp_path):
     from moseq2_detectron_extract_tpu_torch import cli
     with pytest.raises(NotImplementedError, match='not ported yet'):

@@ -7,7 +7,10 @@ results file and status YAML, read back), the ``train`` command (a
 synthetic Label Studio export of PNG views, two steps, a checkpoint, then
 ``Predictor`` on the trained dir), the model lifecycle's commands
 (``convert-weights``, ``train --init-weights``, ``evaluate``,
-``compile-model``, ``infer-dataset``, ``find-roi``), the C++ Kalman core and the stage-2
+``compile-model``, ``infer-dataset``, ``find-roi``), the result upkeep
+(``extract --report-outliers``, ``find-outliers``, ``verify-flips``,
+``manual-flip``, ``trim-result``, ``generate-extract-config``,
+``dataset-info``, ``system-info``), the C++ Kalman core and the stage-2
 experiment's check on the CPU with all of them blocked.'''
 import ast
 import os
@@ -105,8 +108,10 @@ with tempfile.TemporaryDirectory() as tmp:
     shutil.copy(os.path.join(data, 'tiny_overfit_params.npz'), os.path.join(mdir, 'params_f16.npz'))
     out = os.path.join(tmp, 'out')
     assert cli.main(['extract', os.path.join(tmp, 'depth.dat'), '--model', mdir,
-                     '--device', 'cpu', '--chunk-size', '8', '--output-dir', out]) == 0
+                     '--device', 'cpu', '--chunk-size', '8', '--output-dir', out,
+                     '--report-outliers']) == 0
     assert read_yaml(os.path.join(out, 'results_00.yaml'))['complete'] is True
+    assert os.path.exists(os.path.join(out, 'results_00.jumping_keypoints.txt'))
     with hdf5.File(os.path.join(out, 'results_00.h5'), 'r') as r:
         assert r['frames'].shape == (12, 80, 80) and len(r['keypoints/reference'].keys()) == 48
         assert r['scalars/area_px'][0:12].shape == (12,)
@@ -163,6 +168,22 @@ with tempfile.TemporaryDirectory() as tmp:
     found = cli.find_roi([os.path.join(tmp, 'depth.dat'), '--output-dir',
                           os.path.join(tmp, 'roi'), '--device', 'cpu'])
     assert found.roi.any()
+    # the result upkeep: the outlier search, the flips, the trim (each edit
+    # written anew and renamed) and the small commands
+    res = os.path.join(out, 'results_00.h5')
+    assert cli.main(['find-outliers', res]) == 0
+    assert os.path.exists(os.path.join(out, 'results_00.flips.1.txt'))
+    flips = os.path.join(tmp, 'flips.txt')
+    with open(flips, 'w', encoding='utf-8') as fh:
+        fh.write('0-4\n')
+    assert cli.main(['verify-flips', flips]) == 0
+    assert cli.main(['manual-flip', res, flips]) == 0
+    assert cli.main(['trim-result', res, '--start', '1', '--stop', '11']) == 0
+    with hdf5.File(res, 'r') as r:
+        assert r['frames'].shape == (10, 80, 80) and 'metadata/extraction/flips_1' in r
+    assert cli.main(['generate-extract-config', '-o', os.path.join(tmp, 'cfg.yaml')]) == 0
+    assert cli.main(['dataset-info', export]) == 0
+    assert cli.main(['system-info']) == 0
 import numpy as np
 from moseq2_detectron_extract_tpu_torch.proc import kalman
 params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),
