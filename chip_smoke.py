@@ -101,13 +101,14 @@ Phases, each printed with its elapsed seconds as it starts:
    after each run, on (a) phase 4b's session: the status must say
    ``complete: true``; ``results_00.h5``, read back with the port's reader,
    is held against phase 4b's serial ``extract_chunks`` results dataset by
-   dataset (the frames that differ printed per dataset; where any differ,
-   chunk 0 runs twice through ``process_chunk`` with cuDNN's default and
-   deterministic algorithms, and the CLI runs again with deterministic
-   ones, whose file must equal a serial run at the CLI's batch size bit for
-   bit); its timestamps, true depth, ROI, background and first frame against
-   ``prepare_session``'s; the keypoints TSV's rows and the instance log's
-   frames; and (b) a session of 4,000 frames (1.74 GB, written and deleted
+   dataset (the frames that differ printed per dataset); the CLI runs again
+   with cuDNN's deterministic algorithms (its results are kept for phase
+   4h (b)), and where any dataset differed, chunk 0 runs twice through
+   ``process_chunk`` with cuDNN's default and deterministic algorithms, and
+   the deterministic run's file must equal a serial run at the CLI's batch
+   size bit for bit; its timestamps, true depth, ROI, background and first
+   frame against ``prepare_session``'s; the keypoints TSV's rows and the
+   instance log's frames; and (b) a session of 4,000 frames (1.74 GB, written and deleted
    here): the overall frames/s that ``extract_session`` logs, each stage's
    ``busy_s``, ``cpu_s`` and chunks from the status file's ``stage_stats``,
    the peak device memory, the file's size against its uncompressed bytes,
@@ -191,13 +192,32 @@ Phases, each printed with its elapsed seconds as it starts:
    views; ``system-info``, which must name the card; and ``extract
    --report-outliers`` on 300 frames of phase 4b's session (``--frame-trim
    0 800``), whose reports must equal numpy's;
+4h. compressed depth and dataset generation, through ``cli``: (a)
+   ``convert-raw-to-avi`` on phase 4b's session (its verify pass reads every
+   chunk back bit for bit), with the encode's and the verify decode's
+   frames/s, the slice and thread counts and the AVI's bytes against the
+   raw file's; then the committed libavcodec fixture
+   (``tests/data/ffv1_libavcodec_130x106.avi``), decoded by the port, held
+   bit for bit against its frames rebuilt from their seed
+   (``synthetic.codec_fixture_frames``); (b) ``extract`` with the CLI's
+   defaults on the ``.avi`` with ``cudnn.deterministic``, the kernels'
+   launch counts set to 0 just before and read just after: its
+   ``results_00.h5`` must hold the same datasets (all but the file names
+   and the run's uuid) as phase 4c (a)'s deterministic run on the ``.dat``,
+   and the two runs' frames/s are printed side by side; (c)
+   ``generate-dataset --sample-method kmeans --num-samples 50`` on the
+   ``.dat`` and the ``.avi`` session, whose picks must be the same, and the
+   k-means run once more on the CPU on the card's data
+   (``dataset.kmeans_features``), whose picks must equal the card's or cost
+   within 1% of them (the line says which); ``uniform`` and ``list`` timed;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
    experiment run; ROIAlign's and the clean's ``launches`` those of phase
    4's chunk, ``session_launches`` those of phase 4b and
    ``extract_launches`` those of phase 4c (a), ``train_export_launches``
-   those of phase 4d (d), ``lifecycle_launches`` those of phase 4e;
+   those of phase 4d (d), ``lifecycle_launches`` those of phase 4e,
+   ``avi_extract_launches`` those of phase 4h (b)'s ``.avi`` run;
    ROIAlign's ``op_ms`` its device time through the registered op (``ms``
    is the direct launch's), ``max_ulps`` and
    ``one_ulp`` its distance from the plain version in bf16 steps), the
@@ -1065,8 +1085,8 @@ def check_session(predictor, card: str, seed: int, model_dir: str, tmp: str):
     the card's ROI against the CPU's and the C++ prep against the plain one.
     Then phase 4c on the same session and on a longer one. Returns the
     path's kernel launches, phase 4c's, the session's path and
-    ``prepare_session`` result (for phase 4e) and phase 4c (a)'s results
-    file (for phase 4f).'''
+    ``prepare_session`` result (for phase 4e), phase 4c (a)'s results
+    file (for phase 4f) and its deterministic run (for phase 4h).'''
     import numpy as np
     import torch
     from moseq2_detectron_extract_tpu_torch import extract
@@ -1189,9 +1209,9 @@ def check_session(predictor, card: str, seed: int, model_dir: str, tmp: str):
 
     phase('4c/5 extract through the CLI: (a) the session above, (b) a 4,000-frame session')
     results_h5 = os.path.join(tmp, 'results_4c.h5')
-    extract_launches = check_extract(path, run['results'], prepared, card, seed, model_dir,
-                                     results_h5)
-    return launches, extract_launches, path, prepared, results_h5
+    extract_launches, dat_run = check_extract(path, run['results'], prepared, card, seed,
+                                              model_dir, results_h5)
+    return launches, extract_launches, path, prepared, results_h5, dat_run
 
 
 def _compare_file(h5_path: str, results: dict) -> dict:
@@ -1296,7 +1316,8 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
     batch size), its metadata against ``prepare_session``'s, the TSV and the
     instance log; (b) on a 4,000-frame session (4 chunks of 1000, no tail):
     frames/s, ``stage_stats``, peak memory and the file's size beside the
-    serial path's frames/s. Returns (a)'s launches; (a)'s results file is
+    serial path's frames/s. Returns (a)'s launches and its deterministic
+    run's datasets and wall seconds (for phase 4h); (a)'s results file is
     copied to ``keep_h5`` for phase 4f, (b)'s to ``LONG_RESULTS`` beside it
     for phase 4g.'''
     import shutil
@@ -1327,6 +1348,14 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
               f'{BATCH}): {len(serial)} per-frame datasets, '
               + (f'{len(differ)} differ: {differ}' if differ else 'all equal bit for bit')
               + f' [{card}]')
+        out_d = os.path.join(tmp, 'a-deterministic')
+        try:
+            torch.backends.cudnn.deterministic = True
+            _, _, wall_d, _ = _run_cli(path, model_dir, out_d, card, '4c (a) deterministic',
+                                       SESSION_FRAMES)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        dat_run = {'datasets': _datasets(os.path.join(out_d, 'results_00.h5')), 'wall': wall_d}
         if differ:
             # trace: is the card's forward repeatable, and does the file equal
             # the serial path once cuDNN runs deterministic algorithms?
@@ -1349,8 +1378,6 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
                 del runs
             try:
                 torch.backends.cudnn.deterministic = True
-                out_d = os.path.join(tmp, 'a-deterministic')
-                _run_cli(path, model_dir, out_d, card, '4c (a) deterministic', SESSION_FRAMES)
                 results = {}
                 for out in extract.extract_chunks(session, predictor, again):
                     written_rows(out, again['first_frame_idx'], results)
@@ -1428,7 +1455,7 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
               f'frames at {frames / serial_s:.1f} frames/s with find_roi ({t_roi:.2f} s), '
               f'{frames / (serial_s - t_roi):.1f} without; the pipeline through the writer '
               f'{LONG_SESSION_FRAMES / wall:.1f} [{card}]')
-        return launches
+        return launches, dat_run
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2397,6 +2424,172 @@ def check_result_upkeep(card: str, long_h5: str, session_path: str, export: str,
     phase(f'4g: {time.perf_counter() - t_phase:.1f} s [{card}]')
 
 
+CONVERT_THREADS = 3                # phase 4h (a): convert-raw-to-avi -t (its default)
+KMEANS_SAMPLES = 50                # phase 4h (c): generate-dataset --num-samples
+LIST_FRAMES = '0,17,250,999,1099'  # phase 4h (c): generate-dataset --frame-indices
+
+
+def _tasks_frames(out_dir: str) -> list:
+    with open(os.path.join(out_dir, 'tasks.json'), encoding='utf-8') as fh:
+        return sorted(t['data']['frame_index'] for t in json.load(fh))
+
+
+def check_compressed(card: str, session_path: str, dat_run: dict, model_dir: str,
+                     tmp: str) -> dict:
+    '''Phase 4h: ``convert-raw-to-avi`` on phase 4b's session and the
+    libavcodec fixture; ``extract`` on the ``.avi`` against phase 4c (a)'s
+    deterministic run on the ``.dat`` (``dat_run``); ``generate-dataset`` on
+    both. Returns the ``.avi`` extract's launches.'''
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import cli, dataset
+    from moseq2_detectron_extract_tpu_torch.io import ffv1, video
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.synthetic import codec_fixture_frames
+    os.makedirs(tmp, exist_ok=True)
+
+    # (a) the round trip, the encode and the verify decode timed apart
+    timers = {'write_frames': 0.0, 'read_frames': 0.0}
+    originals = {name: getattr(video, name) for name in timers}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return originals[name](*args, **kwargs)
+            finally:
+                timers[name] += time.perf_counter() - t
+        return run
+    for name in timers:
+        setattr(video, name, timed(name))
+    try:
+        t = time.perf_counter()
+        avi_path = os.path.join(os.path.dirname(session_path), 'depth.avi')
+        rc = cli.main(['convert-raw-to-avi', session_path, '-o', avi_path, '-t',
+                       str(CONVERT_THREADS)])
+        wall = time.perf_counter() - t
+    finally:
+        for name, fn in originals.items():
+            setattr(video, name, fn)
+    if rc != 0:
+        raise AssertionError(f'4h (a): convert-raw-to-avi returned {rc}')
+    reader = ffv1.Ffv1Reader(avi_path)
+    raw_bytes, avi_bytes = os.path.getsize(session_path), os.path.getsize(avi_path)
+    cfg = reader.config
+    phase(f'4h (a) convert-raw-to-avi on {SESSION_FRAMES} frames of 424x512: {wall:.2f} s wall '
+          f'(verify pass included); encode {SESSION_FRAMES / timers["write_frames"]:.1f} '
+          f'frames/s, verify decode {SESSION_FRAMES / timers["read_frames"]:.1f} frames/s '
+          f'({cfg["num_h"]}x{cfg["num_v"]} slices, version {cfg["version"]}, ec {cfg["ec"]}; '
+          f'{CONVERT_THREADS} threads each); AVI {avi_bytes / 1e6:.1f} MB against the raw '
+          f'{raw_bytes / 1e6:.1f} MB ({raw_bytes / avi_bytes:.2f}x smaller), keyframes '
+          f'{int(reader.index.keyframes.sum())} [{card}]')
+    fixture = os.path.join(REPO, 'tests', 'data', 'ffv1_libavcodec_130x106.avi')
+    expect = codec_fixture_frames()
+    t = time.perf_counter()
+    got = ffv1.Ffv1Reader(fixture).read()
+    fixture_s = time.perf_counter() - t
+    same = got.shape == expect.shape and bool(np.array_equal(got, expect))
+    phase(f'4h (a) the libavcodec fixture ({os.path.getsize(fixture)} bytes, '
+          f'{len(expect)} frames of 130x106): decoded in {fixture_s * 1e3:.1f} ms, bit for bit '
+          f'equal to codec_fixture_frames(): {same} [{card}]')
+    if not same:
+        raise AssertionError('the port decodes the libavcodec fixture wrong')
+
+    # (b) extract on the .avi against phase 4c (a)'s .dat run, deterministic cuDNN
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    try:
+        torch.backends.cudnn.deterministic = True
+        _, launches, wall_avi, _ = _run_cli(avi_path, model_dir, os.path.join(tmp, 'avi'), card,
+                                            '4h (b) .avi', SESSION_FRAMES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ours = _datasets(os.path.join(tmp, 'avi', 'results_00.h5'))
+    ref, wall_dat = dat_run['datasets'], dat_run['wall']
+    # the file names and the run's uuid differ by design; the first frame is
+    # stored as read, int16 from a .dat and uint16 from an .avi (as the JAX
+    # package stores it)
+    differ_by_design = {'/metadata/extraction/parameters/input_file',
+                        '/metadata/extraction/parameters/output_dir', '/metadata/uuid'}
+    as_read = {'/metadata/extraction/first_frame'}
+
+    def values_equal(a, b):
+        if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+            return a.shape == b.shape and bool(np.array_equal(
+                a, b, equal_nan=a.dtype.kind == 'f' and b.dtype.kind == 'f'))
+        return _same(a, b)
+    differ = sorted(k for k in set(ref) | set(ours) if k not in differ_by_design and (
+        k not in ref or k not in ours or not values_equal(ref[k][0], ours[k][0])
+        or (k not in as_read and not _same(ref[k][0], ours[k][0]))))
+    dtypes = {k: (str(ref[k][0].dtype), str(ours[k][0].dtype)) for k in sorted(as_read)}
+    phase(f'4h (b) extract on the .avi: {SESSION_FRAMES / wall_avi:.1f} frames/s, on the .dat '
+          f'(phase 4c (a)) {SESSION_FRAMES / wall_dat:.1f} frames/s (cli wall, '
+          f'cudnn.deterministic); '
+          f'{len(ref)} datasets, ' + (f'{len(differ)} differ: {differ[:8]}' if differ else
+                                     'all equal bit for bit but the names and the uuid')
+          + f' (dtypes as read, .dat and .avi: {dtypes}); launches {launches} [{card}]')
+    if differ:
+        raise AssertionError(f'4h (b): the .avi results differ from the .dat results: {differ}')
+    if roi_align_kernel.launch_count == 0 or clean_kernel.launch_count == 0:
+        raise AssertionError('4h (b): the .avi extract launched no kernel')
+
+    # (c) generate-dataset on both files
+    picks, seconds = {}, {}
+    for label, path in (('dat', session_path), ('avi', avi_path)):
+        out = os.path.join(tmp, f'gen-{label}')
+        t = time.perf_counter()
+        if cli.main(['generate-dataset', path, '--output-dir', out, '--sample-method', 'kmeans',
+                     '--num-samples', str(KMEANS_SAMPLES)]) != 0:
+            raise AssertionError(f'4h (c): generate-dataset on the .{label} failed')
+        torch.cuda.synchronize()
+        seconds[f'kmeans .{label}'] = time.perf_counter() - t
+        picks[label] = _tasks_frames(out)
+    for method, extra in (('uniform', []), ('list', ['--frame-indices', LIST_FRAMES])):
+        out = os.path.join(tmp, f'gen-{method}')
+        t = time.perf_counter()
+        if cli.main(['generate-dataset', avi_path, '--output-dir', out, '--sample-method', method,
+                     '--num-samples', str(KMEANS_SAMPLES), *extra]) != 0:
+            raise AssertionError(f'4h (c): generate-dataset {method} failed')
+        seconds[method] = time.perf_counter() - t
+        got = _tasks_frames(out)
+        want = sorted(int(i) for i in LIST_FRAMES.split(',')) if method == 'list' else \
+            list(range(0, SESSION_FRAMES, SESSION_FRAMES // KMEANS_SAMPLES))[:KMEANS_SAMPLES]
+        if got != want:
+            raise AssertionError(f'4h (c) {method}: frames {got[:8]}..., expected {want[:8]}...')
+    session = Session(session_path)
+    session.find_roi()     # computed afresh, as the command's first run found it
+    data, idxs = dataset.kmeans_features(session, 0, 100)
+    t = time.perf_counter()
+    card_picks = dataset.pick_frames_kmeans(data, idxs, KMEANS_SAMPLES)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    data_cpu = data.cpu()
+    t = time.perf_counter()
+    cpu_picks = dataset.pick_frames_kmeans(data_cpu, idxs, KMEANS_SAMPLES)
+    cpu_s = time.perf_counter() - t
+
+    def cost(frames):
+        chosen = data_cpu[torch.as_tensor(np.searchsorted(idxs, frames))].double()
+        return float(torch.cdist(data_cpu.double(), chosen).min(dim=1).values.pow(2).sum())
+    if cpu_picks == card_picks:
+        versus = 'equal to the CPU run\'s'
+    else:
+        ratio = cost(card_picks) / cost(cpu_picks)
+        versus = (f'{len(set(card_picks) ^ set(cpu_picks))} differ from the CPU run\'s by float '
+                  f'order; cost {ratio:.6f} of the CPU picks\'')
+        if abs(ratio - 1) >= 0.01:
+            raise AssertionError(f'4h (c): the card\'s k-means picks cost {ratio} of the CPU\'s')
+    phase(f'4h (c) generate-dataset kmeans ({KMEANS_SAMPLES} of {len(idxs)} frames, '
+          f'{data.shape[1]} features): picks on the .dat and the .avi '
+          + ('the same' if picks['dat'] == picks['avi'] else 'DIFFER')
+          + f'; the k-means alone on the card {card_s:.2f} s, on the CPU {cpu_s:.2f} s, the '
+          f'card\'s picks {versus}; seconds ' + ', '.join(f'{k} {v:.2f}' for k, v in
+                                                       seconds.items()) + f' [{card}]')
+    if picks['dat'] != picks['avi'] or picks['dat'] != card_picks:
+        raise AssertionError(f'4h (c): picks .dat {picks["dat"][:6]}..., .avi '
+                             f'{picks["avi"][:6]}..., kmeans_features {card_picks[:6]}...')
+    return launches
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -2555,8 +2748,9 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix='m2de-smoke-')
     try:
         phase('4b/5 session path: write_raw_session + prepare_session + extract_chunks')
-        session_launches, extract_launches, session_path, prepared, results_h5 = check_session(
-            predictor, card, args.seed, args.model_dir, os.path.join(work, 'session'))
+        session_launches, extract_launches, session_path, prepared, results_h5, dat_run = \
+            check_session(predictor, card, args.seed, args.model_dir,
+                          os.path.join(work, 'session'))
 
         phase('4d/5 training: the train command at full width, the step split, card vs CPU, '
               'the export')
@@ -2578,6 +2772,11 @@ def main() -> int:
         check_result_upkeep(card, os.path.join(os.path.dirname(results_h5), LONG_RESULTS),
                             session_path, export, args.model_dir,
                             os.path.join(work, 'upkeep'))
+
+        phase('4h/5 compressed depth and dataset generation: convert-raw-to-avi, extract on '
+              'depth.avi, generate-dataset')
+        avi_launches = check_compressed(card, session_path, dat_run, args.model_dir,
+                                        os.path.join(work, 'compressed'))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2589,6 +2788,7 @@ def main() -> int:
          'extract_launches': extract_launches['roi_align'],
          'train_export_launches': train_launches['roi_align'],
          'lifecycle_launches': lifecycle_launches,
+         'avi_extract_launches': avi_launches['roi_align'],
          'max_abs_err': roi['max_abs_err'], 'max_ulps': roi['max_ulps'],
          'one_ulp': roi['one_ulp'],
          'ms': roi['ms'], 'op_ms': roi['op_ms'], 'plain_ms': roi['plain_ms'],
@@ -2597,6 +2797,7 @@ def main() -> int:
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_clean.py:74',
          'launches': launches['clean'], 'session_launches': session_launches['clean'],
          'extract_launches': extract_launches['clean'],
+         'avi_extract_launches': avi_launches['clean'],
          'max_abs_err': clean['max_abs_err'],
          'ms': clean['ms'], 'plain_ms': clean['plain_ms'], 'bound_ms': clean['bound_ms'],
          'bound_by': clean['bound_by'], 'library_ms': None},

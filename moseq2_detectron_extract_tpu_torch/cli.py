@@ -12,6 +12,8 @@
         --model-dir DIR [--output DIR] [--batch-size 10]
     python -m moseq2_detectron_extract_tpu_torch.cli infer-dataset <tasks.json> --model-dir DIR
     python -m moseq2_detectron_extract_tpu_torch.cli find-roi <depth.dat> [--output-dir DIR]
+    python -m moseq2_detectron_extract_tpu_torch.cli convert-raw-to-avi <depth.dat> \
+        [-o depth.avi] [-b 3000] [--fps 30] [--delete] [-t 3]
     python -m moseq2_detectron_extract_tpu_torch.cli visualize-raw <depth.dat> [-o preview.avi]
     python -m moseq2_detectron_extract_tpu_torch.cli visualize-result <results_00.h5> \
         [-o results_00.preview.avi]
@@ -22,6 +24,9 @@
     python -m moseq2_detectron_extract_tpu_torch.cli manual-flip <results_00.h5> <flips.txt> \
         [--no-backup]
     python -m moseq2_detectron_extract_tpu_torch.cli verify-flips <flips.txt>... [--max-frames N]
+    python -m moseq2_detectron_extract_tpu_torch.cli generate-dataset <depth.dat>... \
+        --output-dir DIR [--num-samples 100] [--sample-method random|uniform|kmeans|list] \
+        [--frame-indices 1,2,3]
     python -m moseq2_detectron_extract_tpu_torch.cli dataset-info <export.json>...
     python -m moseq2_detectron_extract_tpu_torch.cli generate-extract-config \
         [-o extract-config.yaml]
@@ -44,6 +49,12 @@ does; ``--device-input prescaled`` is not ported yet and raises.
 ``evaluate``, ``compile-model``, ``infer-dataset`` and ``find-roi`` are
 ``cli.py:169-321``. ``compile-model`` writes a ``torch.export`` program,
 ``model.pt2``, in place of ``model.hlo`` (``models/deploy.py``).
+Every session command takes a raw ``depth.dat`` or an FFV1 ``depth.avi``
+(``io/video.py``); ``convert-raw-to-avi`` (``cli.py:323-360``) writes the
+latter with the port's own encoder (``io/ffv1.py``) and reads every chunk
+back, bit for bit, before ``--delete`` removes the raw file.
+``generate-dataset`` is ``cli.py:401-430`` (its k-means is
+``proc/kmeans.py``; ``--with-rgb`` writes depth images only).
 ``visualize-raw`` and ``visualize-result`` are ``cli.py:362-394``; they
 write Motion-JPEG AVIs (``preview.avi``, ``<results>.preview.avi``) where
 the reference writes ``.mp4`` (``viz.py``).
@@ -416,6 +427,89 @@ def find_roi(argv: Sequence[str]):
     return session
 
 
+def convert_raw_to_avi(argv: Sequence[str]) -> str:
+    '''Losslessly compress raw 16-bit depth into an FFV1 AVI (about 8x
+    smaller), read it back chunk by chunk and compare it with the raw frames
+    bit for bit, then delete the raw file if asked; returns the AVI's path.'''
+    p = argparse.ArgumentParser(prog='convert-raw-to-avi', allow_abbrev=False,
+                                description='Convert raw .dat to lossless ffv1 avi')
+    p.add_argument('input_file', metavar='INPUT_FILE', type=_existing_file)
+    p.add_argument('-o', '--output-file', default=None)
+    p.add_argument('-b', '--chunk-size', default=3000, type=int)
+    p.add_argument('--fps', default=30, type=int)
+    p.add_argument('--delete', action='store_true',
+                   help='Delete the input file after verification')
+    p.add_argument('-t', '--threads', default=3, type=int)
+    args = p.parse_args(list(argv))
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.io.video import (get_raw_info, open_ffv1_reader,
+                                                             read_frames, read_frames_raw,
+                                                             write_frames)
+    setup_logging()
+    output_file = args.output_file or os.path.splitext(args.input_file)[0] + '.avi'
+    nframes = get_raw_info(args.input_file)['nframes']
+    chunks = [list(range(s, min(s + args.chunk_size, nframes)))
+              for s in range(0, nframes, args.chunk_size)]
+    pipe = None
+    for idxs in chunks:
+        pipe = write_frames(output_file, read_frames_raw(args.input_file, idxs),
+                            threads=args.threads, fps=args.fps, close_pipe=False, pipe=pipe)
+    if pipe is not None:
+        pipe.stdin.close()
+        pipe.wait()
+
+    logging.info('Verifying conversion...')
+    reader = open_ffv1_reader(output_file)
+    try:
+        for idxs in chunks:
+            raw = read_frames_raw(args.input_file, idxs)
+            avi = read_frames(output_file, idxs, threads=args.threads, fps=args.fps,
+                              reader=reader)
+            if not np.array_equal(raw.astype('uint16'), avi):
+                raise RuntimeError(f'Conversion mismatch in frames {idxs[0]}-{idxs[-1]}')
+    finally:
+        reader.close()
+    logging.info('Conversion verified byte-exact')
+    if args.delete:
+        os.remove(args.input_file)
+    return output_file
+
+
+def generate_dataset(argv: Sequence[str]) -> str:
+    '''Sample session frames to PNGs and Label Studio tasks; returns the
+    tasks file's path.'''
+    p = argparse.ArgumentParser(prog='generate-dataset', allow_abbrev=False,
+                                description='Sample frames for annotation')
+    p.add_argument('input_files', metavar='INPUT_FILES', nargs='*', type=_existing_file)
+    p.add_argument('--output-dir', required=True)
+    p.add_argument('--num-samples', default=100, type=int)
+    p.add_argument('--sample-method', default='random',
+                   choices=['random', 'uniform', 'kmeans', 'list'])
+    p.add_argument('--frame-indices', default=None,
+                   help='Comma-separated indices for sample-method=list')
+    p.add_argument('--min-height', default=0, type=int)
+    p.add_argument('--max-height', default=100, type=int)
+    p.add_argument('--bg-roi-depth-range', default=(650, 750), nargs=2, type=float)
+    p.add_argument('--with-rgb', action='store_true',
+                   help='Also export RGB frames when available')
+    p.add_argument('--device', default='cuda',
+                   help='Device of the ROI search, the prep and the k-means (cuda, or cpu)')
+    args = p.parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.dataset import (generate_dataset_for_sessions,
+                                                            write_label_studio_tasks)
+    from moseq2_detectron_extract_tpu_torch.device import resolve_device
+    setup_logging()
+    indices = [int(i) for i in args.frame_indices.split(',')] if args.frame_indices else None
+    tasks = generate_dataset_for_sessions(
+        list(args.input_files), args.output_dir, num_samples=args.num_samples,
+        sample_method=args.sample_method, frame_indices=indices, min_height=args.min_height,
+        max_height=args.max_height, bg_roi_depth_range=tuple(args.bg_roi_depth_range),
+        with_rgb=args.with_rgb, device=resolve_device(args.device))
+    tasks_path = write_label_studio_tasks(tasks, args.output_dir)
+    logging.info('Wrote %d tasks to %s', len(tasks), tasks_path)
+    return tasks_path
+
+
 def _preview_parser(prog: str, description: str, input_name: str) -> argparse.ArgumentParser:
     '''The two preview commands' options (``cli.py:362-394``).'''
     p = argparse.ArgumentParser(prog=prog, description=description, allow_abbrev=False)
@@ -602,6 +696,7 @@ def system_info(argv: Sequence[str]) -> None:
 COMMANDS = {'extract': extract, 'train': train, 'convert-weights': convert_weights,
             'evaluate': evaluate, 'compile-model': compile_model,
             'infer-dataset': infer_dataset, 'find-roi': find_roi,
+            'convert-raw-to-avi': convert_raw_to_avi, 'generate-dataset': generate_dataset,
             'visualize-raw': visualize_raw, 'visualize-result': visualize_result,
             'dataset-info': dataset_info, 'find-outliers': find_outliers,
             'manual-flip': manual_flip, 'verify-flips': verify_flips,

@@ -8,11 +8,8 @@ core ``csrc/mjpeg_host.cpp`` (built with g++ by
 threads), stored in a RIFF AVI as ``00dc`` chunks.
 
 An AVI 1.0 RIFF stops at 1 GiB; a 54,000-frame session is 2-3 GB of JPEGs.
-So ``MjpegAviWriter`` writes OpenDML (AVI 2.0): the first ``RIFF AVI `` holds
-the headers, a ``movi`` list, its ``ix00`` standard index and the legacy
-``idx1``; past ``riff_limit`` bytes each further ``RIFF AVIX`` holds a
-``movi`` list with its own ``ix00``; the ``indx`` super index in the stream
-header points at every ``ix00``, and ``dmlh`` holds the total frame count.
+So ``MjpegAviWriter`` writes OpenDML (AVI 2.0) through
+``io/avi.py:AviWriter``.
 
 ``forward_coefficients`` is the plain numpy version of the encoder's
 colour conversion, subsampling, DCT and quantisation, which the tests hold
@@ -21,17 +18,14 @@ the C++ to exactly.
 import ctypes
 import os
 import struct
-from typing import List, Sequence
+from typing import List
 
 import numpy as np
 
 from moseq2_detectron_extract_tpu_torch import native
+from moseq2_detectron_extract_tpu_torch.io.avi import RIFF_LIMIT, AviWriter, read_avi
 
 DEFAULT_QUALITY = 90
-RIFF_LIMIT = 1 << 30             # an AVI 1.0 RIFF's size, then OpenDML's AVIX
-SUPER_INDEX_ENTRIES = 256        # room for 256 RIFFs in the indx super index
-_AVIF_HASINDEX = 0x10
-_AVIIF_KEYFRAME = 0x10
 
 ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40,
                    48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29,
@@ -160,13 +154,9 @@ class JpegBlockEncoder:
         return [view[int(e - s):int(e)] for s, e in zip(sizes, ends)]
 
 
-def _chunk(fourcc: bytes, payload: bytes) -> bytes:
-    pad = b'\0' if len(payload) % 2 else b''
-    return fourcc + struct.pack('<I', len(payload)) + payload + pad
-
-
-class MjpegAviWriter:
-    '''Writes JPEG frames of one size into an OpenDML AVI at ``fps``.
+class MjpegAviWriter(AviWriter):
+    '''Writes JPEG frames of one size into an OpenDML AVI at ``fps``
+    (``io/avi.py:AviWriter``).
 
     ``write(jpegs)`` appends encoded frames; ``write_frames(frames, order)``
     encodes (N, H, W, 3) uint8 blocks first. ``close()`` writes the indexes
@@ -175,101 +165,9 @@ class MjpegAviWriter:
 
     def __init__(self, filename: str, width: int, height: int, fps: float = 30,
                  riff_limit: int = RIFF_LIMIT):
-        self.filename = filename
-        self.width, self.height, self.fps = int(width), int(height), fps
-        self.riff_limit = int(riff_limit)
+        super().__init__(filename, width, height, fps=fps, fourcc=b'MJPG', bit_count=24,
+                         riff_limit=riff_limit)
         self.encoder = JpegBlockEncoder()
-        self.nframes = 0
-        self.max_chunk = 0
-        self._fh = open(filename, 'wb+')
-        self._riffs: List[dict] = []     # per RIFF: start, movi, chunks [(pos, size)]
-        self._super: List[tuple] = []    # (ix00 offset, ix00 size, frames)
-        self._write_headers()
-        self._open_riff(b'AVI ')
-
-    # -- layout ----------------------------------------------------------------
-    def _write_headers(self) -> None:
-        fh = self._fh
-        fh.write(b'RIFF\0\0\0\0AVI ')
-        self._hdrl = fh.tell()
-        fh.write(b'LIST\0\0\0\0hdrl')
-        self._avih = fh.tell()
-        fh.write(_chunk(b'avih', bytes(56)))
-        strl = fh.tell()
-        fh.write(b'LIST\0\0\0\0strl')
-        self._strh = fh.tell()
-        fh.write(_chunk(b'strh', bytes(56)))
-        bih = struct.pack('<IiiHH4sIiiII', 40, self.width, self.height, 1, 24, b'MJPG',
-                          self.width * self.height * 3, 0, 0, 0, 0)
-        fh.write(_chunk(b'strf', bih))
-        self._indx = fh.tell()
-        fh.write(_chunk(b'indx', bytes(24 + 16 * SUPER_INDEX_ENTRIES)))
-        self._patch_list(strl)
-        odml = fh.tell()
-        fh.write(b'LIST\0\0\0\0odml')
-        self._dmlh = fh.tell()
-        fh.write(_chunk(b'dmlh', bytes(248)))
-        self._patch_list(odml)
-        self._patch_list(self._hdrl)
-
-    def _patch_list(self, start: int) -> None:
-        '''Set the size of the LIST or RIFF at ``start`` to end here.'''
-        end = self._fh.tell()
-        self._fh.seek(start + 4)
-        self._fh.write(struct.pack('<I', end - start - 8))
-        self._fh.seek(end)
-
-    def _open_riff(self, kind: bytes) -> None:
-        fh = self._fh
-        start = 0 if kind == b'AVI ' else fh.tell()
-        if kind != b'AVI ':
-            fh.write(b'RIFF\0\0\0\0' + kind)
-        movi = fh.tell()
-        fh.write(b'LIST\0\0\0\0movi')
-        self._riffs.append({'start': start, 'movi': movi, 'chunks': []})
-
-    def _close_riff(self) -> None:
-        fh, riff = self._fh, self._riffs[-1]
-        chunks = riff['chunks']
-        base = riff['movi'] + 8      # the 'movi' fourcc
-        ix = fh.tell()
-        entries = b''.join(struct.pack('<II', pos + 8 - base, size) for pos, size in chunks)
-        fh.write(_chunk(b'ix00', struct.pack('<HBBI4sQI', 2, 0, 1, len(chunks), b'00dc', base, 0)
-                        + entries))
-        self._super.append((ix, fh.tell() - ix, len(chunks)))
-        if len(self._super) > SUPER_INDEX_ENTRIES:
-            raise RuntimeError(f'more than {SUPER_INDEX_ENTRIES} RIFFs in {self.filename}')
-        self._patch_list(riff['movi'])
-        if riff['start'] == 0:
-            fh.write(_chunk(b'idx1', b''.join(
-                struct.pack('<4sIII', b'00dc', _AVIIF_KEYFRAME, pos - base, size)
-                for pos, size in chunks)))
-        self._patch_list(riff['start'])
-
-    def _riff_room(self, nbytes: int) -> bool:
-        riff = self._riffs[-1]
-        n = len(riff['chunks']) + 1
-        index = 32 + 8 * n + (8 + 16 * n if riff['start'] == 0 else 0)
-        return self._fh.tell() + nbytes + 8 + index - riff['start'] <= self.riff_limit \
-            or not riff['chunks']
-
-    # -- frames ----------------------------------------------------------------
-    def write(self, jpegs: Sequence[bytes]) -> None:
-        '''Append encoded frames.'''
-        fh = self._fh
-        for jpeg in jpegs:
-            size = len(jpeg)
-            if not self._riff_room(size + (size & 1)):
-                self._close_riff()
-                self._open_riff(b'AVIX')
-            pos = fh.tell()
-            fh.write(b'00dc' + struct.pack('<I', size))
-            fh.write(jpeg)
-            if size & 1:
-                fh.write(b'\0')
-            self._riffs[-1]['chunks'].append((pos, size))
-            self.nframes += 1
-            self.max_chunk = max(self.max_chunk, size)
 
     def write_frames(self, frames: np.ndarray, order: str = 'rgb') -> None:
         '''Encode (N, H, W, 3) uint8 frames (``order`` 'rgb' or 'bgr') and
@@ -279,78 +177,28 @@ class MjpegAviWriter:
                              f'{(self.height, self.width)}')
         self.write(self.encoder.encode(frames, order))
 
-    def close(self) -> None:
-        '''Write the indexes and the counts, and close the file.'''
-        if self._fh is None:
-            return
-        fh = self._fh
-        self._close_riff()
-        end = fh.tell()
-        first = len(self._riffs[0]['chunks'])
-        usec = int(round(1e6 / self.fps))
-        fh.seek(self._avih + 8)
-        fh.write(struct.pack('<14I', usec, int(self.max_chunk * self.fps), 0, _AVIF_HASINDEX,
-                             first, 0, 1, self.max_chunk + 8, self.width, self.height,
-                             0, 0, 0, 0))
-        fh.seek(self._strh + 8)
-        fh.write(struct.pack('<4s4sIHHIIIIIIIIhhhh', b'vids', b'MJPG', 0, 0, 0, 0, 1,
-                             int(round(self.fps)), 0, self.nframes, self.max_chunk + 8,
-                             0xFFFFFFFF, 0, 0, 0, self.width, self.height))
-        fh.seek(self._indx + 8)
-        fh.write(struct.pack('<HBBI4s3I', 4, 0, 0, len(self._super), b'00dc', 0, 0, 0))
-        for offset, size, frames in self._super:
-            fh.write(struct.pack('<QII', offset, size, frames))
-        fh.seek(self._dmlh + 8)
-        fh.write(struct.pack('<I', self.nframes))
-        fh.seek(end)
-        fh.close()
-        self._fh = None
-
 
 def read_avi_index(filename: str) -> dict:
-    '''Walk an AVI's RIFFs: ``frames`` [(offset, size)] of every ``00dc``
-    chunk in file order, ``riffs`` (the RIFF kinds), ``idx1`` (its entry
-    count, or None), ``super`` (the ``indx`` entries' frame counts), the
-    headers' ``avih_frames``, ``strh_length``, ``dmlh_frames``, ``width``,
-    ``height`` and ``rate``, ``jpeg_ok`` (every frame starts with SOI and
-    ends with EOI) and ``sof_sizes`` (each frame's SOF0 (height, width)).'''
-    out = {'frames': [], 'riffs': [], 'idx1': None, 'super': []}
+    '''Walk an AVI's RIFFs (``io/avi.py:read_avi``): ``frames`` [(offset,
+    size)] of every ``00dc`` chunk in file order, ``riffs`` (the RIFF kinds),
+    ``idx1`` (its entry count, or None), ``super`` (the ``indx`` entries'
+    frame counts), the headers' ``avih_frames``, ``strh_length``,
+    ``dmlh_frames``, ``width``, ``height`` and ``rate``, ``jpeg_ok`` (every
+    frame starts with SOI and ends with EOI) and ``sof_sizes`` (each frame's
+    SOF0 (height, width)).'''
+    index = read_avi(filename, walk=True)
+    frames = list(zip(index.offsets.tolist(), index.sizes.tolist()))
+    jpeg_ok, sof_sizes = True, []
     with open(filename, 'rb') as fh:
-        data = fh.read()
-
-    def walk(start: int, end: int) -> None:
-        pos = start
-        while pos + 8 <= end:
-            fourcc = data[pos:pos + 4]
-            size = struct.unpack_from('<I', data, pos + 4)[0]
-            body = pos + 8
-            if fourcc in (b'RIFF', b'LIST'):
-                kind = data[body:body + 4]
-                if fourcc == b'RIFF':
-                    out['riffs'].append(kind.decode())
-                walk(body + 4, body + size)
-            elif fourcc == b'00dc':
-                out['frames'].append((body, size))
-            elif fourcc == b'idx1':
-                out['idx1'] = size // 16
-            elif fourcc == b'avih':
-                out['avih_frames'] = struct.unpack_from('<I', data, body + 16)[0]
-                out['width'], out['height'] = struct.unpack_from('<II', data, body + 32)
-            elif fourcc == b'strh':
-                out['rate'] = struct.unpack_from('<I', data, body + 24)[0]
-                out['strh_length'] = struct.unpack_from('<I', data, body + 32)[0]
-            elif fourcc == b'dmlh':
-                out['dmlh_frames'] = struct.unpack_from('<I', data, body)[0]
-            elif fourcc == b'indx':
-                n = struct.unpack_from('<I', data, body + 4)[0]
-                out['super'] = [struct.unpack_from('<QII', data, body + 24 + 16 * k)[2]
-                                for k in range(n)]
-            pos = body + size + (size & 1)
-    walk(0, len(data))
-    out['jpeg_ok'] = all(data[o:o + 2] == b'\xff\xd8' and data[o + s - 2:o + s] == b'\xff\xd9'
-                         for o, s in out['frames'])
-    out['sof_sizes'] = [_sof0_size(data, o, o + s) for o, s in out['frames']]
-    return out
+        for offset, size in frames:
+            fh.seek(offset)
+            data = fh.read(size)
+            jpeg_ok &= data[:2] == b'\xff\xd8' and data[-2:] == b'\xff\xd9'
+            sof_sizes.append(_sof0_size(data, 0, len(data)))
+    return {'frames': frames, 'riffs': index.riffs, 'idx1': index.idx1, 'super': index.super,
+            'avih_frames': index.avih_frames, 'strh_length': index.strh_length,
+            'dmlh_frames': index.dmlh_frames, 'width': index.width, 'height': index.height,
+            'rate': index.rate, 'jpeg_ok': jpeg_ok, 'sof_sizes': sof_sizes}
 
 
 def _sof0_size(data: bytes, start: int, end: int):

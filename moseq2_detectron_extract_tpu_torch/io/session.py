@@ -20,7 +20,8 @@ import numpy as np
 from moseq2_detectron_extract_tpu_torch.io.image import read_tiff_image, write_image
 from moseq2_detectron_extract_tpu_torch.io.util import (gen_batch_sequence, load_metadata,
                                                         load_timestamps)
-from moseq2_detectron_extract_tpu_torch.io.video import get_movie_info, load_movie_data
+from moseq2_detectron_extract_tpu_torch.io.video import (get_movie_info, load_movie_data,
+                                                         open_ffv1_reader)
 
 
 class Stream(str, Enum):
@@ -30,8 +31,9 @@ class Stream(str, Enum):
 
 
 class Session:
-    '''A (possibly tar-compressed) MoSeq session: depth.dat, metadata.json
-    and timestamps; ``frame_trim`` drops frames at the start and the end.'''
+    '''A (possibly tar-compressed) MoSeq session: depth.dat (or a directory's
+    FFV1 depth.avi), metadata.json and timestamps; ``frame_trim`` drops
+    frames at the start and the end.'''
 
     def __init__(self, path: str, frame_trim: Tuple[int, int] = (0, 0)):
         self.tar: Optional[tarfile.TarFile] = None
@@ -63,7 +65,8 @@ class Session:
 
         meta = self.load_metadata()
         self.depth_metadata = get_movie_info(
-            self.depth_file, frame_dims=tuple(meta.get('DepthResolution', (512, 424))))
+            self.depth_file, frame_dims=tuple(meta.get('DepthResolution', (512, 424))),
+            tar_object=self.tar)
         # rgb.mp4 is compressed, which the port cannot read: the session has
         # no rgb stream, as in the JAX package when it cannot probe the file
         self.rgb_file: Optional[str] = None
@@ -260,12 +263,16 @@ class SessionFramesIterator:
     '''Chunks of frames in order, each through the filters attached to its
     stream.
 
-    With ``block_frames`` a raw ``.dat`` depth chunk is read and filtered
+    With ``block_frames`` a depth chunk is read (or decoded) and filtered
     ``block_frames`` frames at a time into the chunk: a 32-frame block of
     Kinect frames (14 MB) stays in the last-level cache between the read
     and the filter, where a whole 1000-frame raw chunk (434 MB) would not.
     Only valid when every depth filter works frame by frame, as the host
     prep does.
+
+    An FFV1 session is read through the iterator's own decoder, which goes
+    on from one chunk or block to the next without going back to a keyframe
+    (``io/ffv1.py``), and is closed when the iterator is spent.
     '''
 
     def __init__(self, session: Session, chunk_size: int, chunk_overlap: int,
@@ -278,6 +285,7 @@ class SessionFramesIterator:
         self.batches = list(self.generate_samples())
         self.current = 0
         self.filters: List[_FilterItem] = []
+        self._reader = open_ffv1_reader(session.depth_file)
 
     @property
     def nframes(self) -> int:
@@ -314,6 +322,9 @@ class SessionFramesIterator:
 
     def __next__(self):
         if self.current >= len(self.batches):
+            if self._reader is not None:
+                self._reader.close()
+                self._reader = None
             raise StopIteration
         frame_idxs = list(self.batches[self.current])
         self.current += 1
@@ -321,12 +332,12 @@ class SessionFramesIterator:
         for stream in self.streams:
             if stream != Stream.DEPTH:
                 raise ValueError(f'the session has no readable {stream.value} stream')
-            if self.block_frames and _dat_name(self.session.depth_file):
+            if self.block_frames:
                 out.append(self._read_depth_blocked(frame_idxs))
                 continue
             data = load_movie_data(self.session.depth_file, frame_idxs,
                                    frame_dims=self.session.depth_metadata['dims'],
-                                   tar_object=self.session.tar)
+                                   tar_object=self.session.tar, reader=self._reader)
             out.append(self._apply_filters(data, stream))
         return tuple(out)
 
@@ -337,7 +348,7 @@ class SessionFramesIterator:
             sub = frame_idxs[s:s + bs]
             raw = load_movie_data(self.session.depth_file, sub,
                                   frame_dims=self.session.depth_metadata['dims'],
-                                  tar_object=self.session.tar)
+                                  tar_object=self.session.tar, reader=self._reader)
             filt = np.asarray(self._apply_filters(raw, Stream.DEPTH))
             if out is None:
                 out = np.empty((len(frame_idxs),) + filt.shape[1:], filt.dtype)
@@ -345,11 +356,6 @@ class SessionFramesIterator:
         if out is None:
             return np.empty((0,) + tuple(self.session.depth_metadata['dims'][::-1]), np.uint8)
         return out
-
-
-def _dat_name(depth_file) -> bool:
-    name = depth_file.name if isinstance(depth_file, tarfile.TarInfo) else depth_file
-    return str(name).lower().endswith('.dat')
 
 
 class SessionFramesSampler(SessionFramesIterator):

@@ -1,14 +1,21 @@
-'''Raw depth video: frame counts and reads of 16-bit ``.dat`` files; the
-jet colormap and the preview video's writer.
+'''Depth video: frame counts and reads of raw 16-bit ``.dat`` files and of
+lossless FFV1 ``.avi`` files; the FFV1 writer; the jet colormap and the
+preview video's writer.
 
 Port of ``moseq2_detectron_extract_tpu/io/video.py`` (``get_raw_info``,
-``read_frames_raw``, ``load_movie_data``, ``get_movie_info``;
-``_jet_lut``, ``apply_colormap_jet`` and ``PreviewVideoWriter``, lines
-440-635). Random
-access is coalesced into one seek and read per run of consecutive frames,
-and a run that lands on consecutive output rows is read straight into them.
-Compressed depth (``.avi``, ``.mp4``) needs an ffmpeg decoder, which the
-port does not have: it raises :class:`CompressedVideoError`.
+``read_frames_raw``, ``get_video_info``, ``write_frames``, ``read_frames``,
+``load_movie_data``, ``get_movie_info``; ``_jet_lut``,
+``apply_colormap_jet`` and ``PreviewVideoWriter``, lines 440-635). Random
+access to raw frames is coalesced into one seek and read per run of
+consecutive frames, and a run that lands on consecutive output rows is read
+straight into them.
+
+The JAX package reads and writes compressed depth through ffmpeg or cv2;
+the card's machine has neither, so the port decodes and encodes FFV1 in AVI
+itself (``io/ffv1.py``, ``io/avi.py``). It refuses, with
+:class:`CompressedVideoError` naming the codec or container, what it cannot
+decode: ``.mp4`` files, AVIs of another codec, and a tar member that is not
+``depth.dat``.
 
 The preview writer writes Motion-JPEG in an AVI (``io/mjpeg.py``) where the
 JAX package writes h264 or mp4v through ffmpeg or cv2, which the card's
@@ -23,6 +30,9 @@ from typing import Iterable, List, Optional, Tuple, TypedDict, Union
 
 import numpy as np
 
+from moseq2_detectron_extract_tpu_torch.io.avi import AviError
+from moseq2_detectron_extract_tpu_torch.io.ffv1 import (DEFAULT_SLICES, Ffv1Error, Ffv1Reader,
+                                                        Ffv1Writer)
 from moseq2_detectron_extract_tpu_torch.io.mjpeg import RIFF_LIMIT, MjpegAviWriter
 from moseq2_detectron_extract_tpu_torch.ops.draw import DrawList
 
@@ -30,7 +40,18 @@ VideoFile = Union[str, tarfile.TarInfo]
 
 
 class CompressedVideoError(RuntimeError):
-    '''A compressed (.avi, .mp4) stream: the port reads raw .dat depth only.'''
+    '''A compressed stream the port cannot decode: an ``.mp4``, an AVI of
+    another codec than FFV1, or a tar member that is not ``depth.dat``.'''
+
+
+class VideoInfo(TypedDict):
+    '''Codec, pixel format, size, rate and length of a compressed stream.'''
+    file: str
+    codec: str
+    pixel_format: str
+    dims: Tuple[int, int]
+    fps: float
+    nframes: int
 
 
 class RawVideoInfo(TypedDict):
@@ -54,15 +75,35 @@ def _name(filename: VideoFile) -> str:
     return (filename.name if isinstance(filename, tarfile.TarInfo) else str(filename)).lower()
 
 
-def _refuse_compressed(filename: VideoFile) -> None:
+def _kind(filename: VideoFile) -> str:
+    ''''dat' or 'avi'; raises for what the port cannot read.'''
     name = _name(filename)
-    if name.endswith(('.avi', '.mp4')):
+    if name.endswith('.dat'):
+        return 'dat'
+    if isinstance(filename, tarfile.TarInfo):
         raise CompressedVideoError(
-            f'{name}: compressed depth video needs an ffmpeg decoder, which the port '
-            'does not have (the JAX package reads it through ffmpeg or cv2); '
-            'convert the session to raw depth.dat')
-    if not name.endswith('.dat'):
-        raise RuntimeError(f'unknown movie format: {name}')
+            f'tar member {filename.name}: the port reads depth.dat from a tar archive, not '
+            'compressed video (the JAX package stages it for ffmpeg or cv2)')
+    if name.endswith('.mp4'):
+        raise CompressedVideoError(
+            f'{name}: an MP4 container (h264 through ffmpeg or cv2 in the JAX package); the '
+            'port decodes FFV1 in AVI only')
+    if name.endswith('.avi'):
+        return 'avi'
+    raise RuntimeError(f'unknown movie format: {name}')
+
+
+def open_ffv1_reader(filename: VideoFile) -> Optional[Ffv1Reader]:
+    '''An open reader of an FFV1 ``.avi``, or None for a raw ``.dat``. Its
+    owner passes it to :func:`read_frames` (``reader=``), so that a read
+    that follows the last one goes on without going back to its keyframe,
+    and closes it.'''
+    if _kind(filename) != 'avi':
+        return None
+    try:
+        return Ffv1Reader(str(filename))
+    except (AviError, Ffv1Error) as err:
+        raise CompressedVideoError(str(err)) from err
 
 
 def get_raw_info(filename: VideoFile, bit_depth: int = 16,
@@ -128,20 +169,116 @@ def read_frames_raw(filename: VideoFile, frames: Optional[Union[int, Iterable[in
     return out
 
 
-def load_movie_data(filename: VideoFile, frames=None, frame_dims: Tuple[int, int] = (512, 424),
-                    bit_depth: int = 16, **kwargs) -> np.ndarray:
-    '''Frames of a raw ``.dat`` stream; compressed streams raise.'''
-    _refuse_compressed(filename)
+def get_video_info(filename: VideoFile, tar_object: Optional[tarfile.TarFile] = None
+                   ) -> VideoInfo:
+    '''Codec, pixel format, dims (width, height), fps and frame count of an
+    FFV1 ``.avi``, from its headers and index, not from a decode.'''
+    reader = open_ffv1_reader(filename)   # refuses all but gray16
+    if reader is None:
+        raise CompressedVideoError(f'{_name(filename)}: not a compressed video')
+    try:
+        return {'file': str(filename), 'codec': 'ffv1', 'pixel_format': 'gray16le',
+                'dims': (reader.width, reader.height), 'fps': reader.index.fps,
+                'nframes': reader.nframes}
+    finally:
+        reader.close()
+
+
+class Ffv1Pipe:
+    '''The keep-open surface of the JAX package's ffmpeg pipe
+    (``pipe.stdin.close()``, then ``pipe.wait()``) over an
+    :class:`io.ffv1.Ffv1Writer`.'''
+
+    def __init__(self, writer: Ffv1Writer):
+        self.writer = writer
+        self.stdin = self
+
+    def close(self) -> None:
+        '''``stdin.close()``: the file is finished in ``wait()``.'''
+
+    def wait(self) -> int:
+        '''Write the AVI's indexes and close it; 0.'''
+        self.writer.close()
+        return 0
+
+
+def write_frames(filename: str, frames: np.ndarray, threads: int = 6, fps: int = 30,
+                 pixel_format: str = 'gray16le', codec: str = 'ffv1', close_pipe: bool = True,
+                 pipe: Optional[Ffv1Pipe] = None, slices: int = DEFAULT_SLICES,
+                 slicecrc: int = 1, frame_size: Optional[str] = None) -> Optional[Ffv1Pipe]:
+    '''Encode (N, H, W) frames as uint16 into a lossless FFV1 AVI
+    (``ffmpeg -vcodec ffv1 -slices 24 -slicecrc 1``). With
+    ``close_pipe=False`` the returned pipe takes the next chunk as ``pipe=``;
+    ``pipe.stdin.close()`` and ``pipe.wait()`` finish the file.'''
+    if codec != 'ffv1' or pixel_format != 'gray16le' or not slicecrc:
+        raise CompressedVideoError(
+            f'{codec}/{pixel_format} (slicecrc {slicecrc}): the port writes ffv1/gray16le with '
+            'slice CRCs only')
+    frames = np.asarray(frames)
+    if frame_size is not None and frame_size != f'{frames.shape[2]}x{frames.shape[1]}':
+        raise ValueError(f'frame_size {frame_size} for frames of {frames.shape[1:]}')
+    if pipe is None:
+        pipe = Ffv1Pipe(Ffv1Writer(filename, frames.shape[2], frames.shape[1], fps=fps,
+                                  slices=slices, threads=max(int(threads), 1)))
+    pipe.writer.write_frames(frames)
+    if close_pipe:
+        pipe.stdin.close()
+        pipe.wait()
+        return None
+    return pipe
+
+
+def read_frames(filename: VideoFile, frames=None, threads: int = 6, fps: int = 30,
+                pixel_format: str = 'gray16le', frame_size: Optional[Tuple[int, int]] = None,
+                slices: int = DEFAULT_SLICES, slicecrc: int = 1,
+                tar_object: Optional[tarfile.TarFile] = None,
+                reader: Optional[Ffv1Reader] = None, **_) -> np.ndarray:
+    '''(len(frames), height, width) uint16 frames of an FFV1 ``.avi``, in
+    the order asked (random and repeated indices allowed), decoded on
+    ``threads`` threads; every frame when ``frames`` is None or empty.
+    ``reader`` is the caller's open reader of the file
+    (:func:`open_ffv1_reader`); without it the file is opened for this call
+    alone.'''
+    if pixel_format != 'gray16le':
+        raise CompressedVideoError(f'{pixel_format}: the port decodes gray16le depth only')
     if isinstance(frames, (int, np.integer)):
         frames = [int(frames)]
+    own = reader is None
+    if own:
+        reader = open_ffv1_reader(filename)
+        if reader is None:
+            raise CompressedVideoError(f'{_name(filename)}: not a compressed video')
+    try:
+        if frame_size and tuple(frame_size) != (reader.width, reader.height):
+            raise ValueError(f'{filename} is {reader.width}x{reader.height}, not {frame_size}')
+        return reader.read(frames, threads=max(int(threads), 1))
+    except Ffv1Error as err:
+        raise RuntimeError(str(err)) from err
+    finally:
+        if own:
+            reader.close()
+
+
+def load_movie_data(filename: VideoFile, frames=None, frame_dims: Tuple[int, int] = (512, 424),
+                    bit_depth: int = 16, reader: Optional[Ffv1Reader] = None,
+                    **kwargs) -> np.ndarray:
+    '''Frames of a raw ``.dat`` stream ('<i2') or an FFV1 ``.avi``
+    (uint16, through ``reader`` when given); other streams raise.'''
+    if isinstance(frames, (int, np.integer)):
+        frames = [int(frames)]
+    if _kind(filename) == 'avi':
+        kwargs.pop('tar_object', None)
+        return read_frames(filename, frames, reader=reader, **kwargs)
     return read_frames_raw(filename, frames=frames, frame_dims=frame_dims,
                            bit_depth=bit_depth, **kwargs)
 
 
 def get_movie_info(filename: VideoFile, frame_dims: Tuple[int, int] = (512, 424),
-                   bit_depth: int = 16) -> RawVideoInfo:
-    '''Size and shape of a raw ``.dat`` stream; compressed streams raise.'''
-    _refuse_compressed(filename)
+                   bit_depth: int = 16, tar_object: Optional[tarfile.TarFile] = None):
+    '''Size and shape of a raw ``.dat`` stream, or :func:`get_video_info`
+    of an FFV1 ``.avi``; other streams raise.'''
+    if _kind(filename) == 'avi':
+        return get_video_info(filename, tar_object=tar_object)
     return get_raw_info(filename, frame_dims=frame_dims, bit_depth=bit_depth)
 
 

@@ -14,8 +14,9 @@ A failed build raises with nvcc's stderr; there is no fallback.
 
 The host's C++ cores, ``csrc/prep_host.cpp`` (the host prep),
 ``csrc/kalman_host.cpp`` (the Kalman filter and smoother),
-``csrc/draw_host.cpp`` (the preview's drawing) and ``csrc/mjpeg_host.cpp``
-(the preview's JPEG encoder, which runs threads: ``-pthread``), are built
+``csrc/draw_host.cpp`` (the preview's drawing), ``csrc/mjpeg_host.cpp``
+(the preview's JPEG encoder) and ``csrc/ffv1_host.cpp`` (the FFV1 codec of
+compressed depth; both run threads: ``-pthread``), are built
 the same way with ``g++`` (nvcc's host compiler), each into a library of
 its own beside them (``build_host_library``), with one loader each; a
 failed build raises with g++'s stderr.
@@ -58,6 +59,8 @@ DRAW_SOURCE = os.path.join(CSRC_DIR, 'draw_host.cpp')
 DRAW_LIB_NAME = 'libm2de_draw_host.so'
 MJPEG_SOURCE = os.path.join(CSRC_DIR, 'mjpeg_host.cpp')
 MJPEG_LIB_NAME = 'libm2de_mjpeg_host.so'
+FFV1_SOURCE = os.path.join(CSRC_DIR, 'ffv1_host.cpp')
+FFV1_LIB_NAME = 'libm2de_ffv1_host.so'
 HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-pthread')
 
 def find_nvcc() -> str:
@@ -291,4 +294,32 @@ def load_mjpeg_library() -> ctypes.CDLL:
     lib.m2de_jpeg_encode_block.restype = i
     lib.m2de_jpeg_forward.argtypes = [u8, i, i, i, i, i32]        # frame, H, W, quality, bgr, out
     lib.m2de_jpeg_forward.restype = i
+    return lib
+
+
+@_loaded_once
+def load_ffv1_library() -> ctypes.CDLL:
+    '''The FFV1 decoder and encoder of compressed depth, built on first use.'''
+    lib = ctypes.CDLL(build_host_library(FFV1_SOURCE, FFV1_LIB_NAME))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.m2de_ffv1_parse_config.argtypes = [p, i64, p, p]          # extradata, size, info, detail
+    lib.m2de_ffv1_parse_config.restype = i
+    lib.m2de_ffv1_inline_version.argtypes = [p, i64]              # packet, size
+    lib.m2de_ffv1_inline_version.restype = i
+    lib.m2de_ffv1_decoder_new.argtypes = [p, i64, i, i, p, p]     # extradata, W, H, err, detail
+    lib.m2de_ffv1_decoder_new.restype = p
+    lib.m2de_ffv1_decoder_free.argtypes = [p]
+    lib.m2de_ffv1_decoder_free.restype = None
+    lib.m2de_ffv1_decode.argtypes = [p, p, p, i, p, i, p, p]      # packets, sizes, n, outs,
+    lib.m2de_ffv1_decode.restype = i                              # threads, err frame, slice
+    lib.m2de_ffv1_encoder_new.argtypes = [i, i, i, i, i, i]       # W, H, num_h, num_v, gop, ec
+    lib.m2de_ffv1_encoder_new.restype = p
+    lib.m2de_ffv1_encoder_free.argtypes = [p]
+    lib.m2de_ffv1_encoder_free.restype = None
+    lib.m2de_ffv1_encoder_extradata.argtypes = [p, p, i64]
+    lib.m2de_ffv1_encoder_extradata.restype = i64
+    lib.m2de_ffv1_encode.argtypes = [p, p, i, i, p, p]            # frames, n, threads, sizes, keys
+    lib.m2de_ffv1_encode.restype = i64
+    lib.m2de_ffv1_encoder_fetch.argtypes = [p, p]
+    lib.m2de_ffv1_encoder_fetch.restype = None
     return lib

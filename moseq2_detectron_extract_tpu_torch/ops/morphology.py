@@ -131,15 +131,15 @@ def median_blur_3x3(frames: torch.Tensor) -> torch.Tensor:
 def median_blur(frames: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     '''k x k median (odd k) over (N, H, W) frames with replicated edges.
 
-    The frames are padded in f32, exact for integers up to 2**24 (depth
-    and uint8 frames).
+    Integer frames are padded and sorted in f32, exact for integers up to
+    2**24 (depth and uint8 frames; CUDA's sort takes no uint16).
     '''
     if ksize <= 1:
         return frames
     r = ksize // 2
     h, w = frames.shape[1], frames.shape[2]
     x = frames[:, None].float() if not frames.dtype.is_floating_point else frames[:, None]
-    padded = F.pad(x, (r, r, r, r), mode='replicate')[:, 0].to(frames.dtype)
+    padded = F.pad(x, (r, r, r, r), mode='replicate')[:, 0]
     windows = torch.stack([padded[:, dy:dy + h, dx:dx + w]
                            for dy in range(ksize) for dx in range(ksize)])
-    return torch.sort(windows, dim=0).values[(ksize * ksize) // 2]
+    return torch.sort(windows, dim=0).values[(ksize * ksize) // 2].to(frames.dtype)

@@ -4,8 +4,9 @@ chunk; on the device, decode, dropout fill and scale.
 Port of ``moseq2_detectron_extract_tpu/ops/preprocess.py``
 (``prep_raw_frames_host`` and its C++ core, lines 140-237;
 ``fill_invalid_pixels`` and ``decode_prepped_frames``, lines 26-79 and
-240-246; ``bbox_from_roi`` and ``apply_roi``, lines 326-350;
-``scale_raw_frames``, lines 353-366; ``compute_test_scale``).
+240-246; ``prep_raw_frames``, lines 108-137; ``bbox_from_roi`` and
+``apply_roi``, lines 326-350; ``scale_raw_frames``, lines 353-366;
+``compute_test_scale``).
 '''
 import ctypes
 from typing import Optional
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from moseq2_detectron_extract_tpu_torch import native
+from moseq2_detectron_extract_tpu_torch.device import resolve_device
 
 
 def bbox_from_roi(roi: np.ndarray):
@@ -183,6 +185,39 @@ def decode_prepped_frames(frames: torch.Tensor, fill_iterations: int = 16) -> to
     invalid = frames == sentinel
     cleared = torch.where(invalid, torch.zeros_like(frames), frames)
     return fill_invalid_pixels(cleared, invalid, iterations=fill_iterations)
+
+
+def prep_raw_frames(frames: np.ndarray, bground_im=None, roi=None, vmin=None, vmax=None,
+                    dtype='uint8', fill_iterations: int = 16, device='cuda') -> torch.Tensor:
+    '''Raw (N, H, W) depth to ``dtype`` heights on ``device``, dropouts
+    filled: the JAX package's device prep. Frames, background and ROI are
+    cropped to the ROI's bbox on the host; on the device, in f32, the
+    height is ``bground_im - raw``, masked by the ROI, zero below ``vmin``
+    and clipped at ``vmax`` and at ``dtype``'s range; after the cast the
+    pixels that were raw 0 are filled (:func:`fill_invalid_pixels`). Unlike
+    the host prep, no height is taken for a dropout sentinel.'''
+    device = resolve_device(device)
+    frames, bground_im, roi_crop = _crop_to_roi(np.asarray(frames), bground_im, roi)
+    if frames.dtype == np.uint16:
+        raw = torch.from_numpy(np.ascontiguousarray(frames).view(np.int16)).to(device)
+        raw = raw.to(torch.int32) & 0xFFFF
+    else:
+        raw = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+    out_dtype = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+    invalid = raw == 0
+    x = raw.float()
+    if bground_im is not None:
+        x = torch.from_numpy(np.asarray(bground_im, np.float32)).to(device)[None] - x
+    if roi_crop is not None:
+        x = x * torch.from_numpy(np.asarray(roi_crop, np.float32)).to(device)[None]
+    if vmin is not None:
+        x = torch.where(x < float(vmin), torch.zeros_like(x), x)
+    if vmax is not None:
+        x = torch.clamp(x, max=float(vmax))
+    if not out_dtype.is_floating_point:
+        info = torch.iinfo(out_dtype)
+        x = torch.clamp(x, info.min, info.max)
+    return fill_invalid_pixels(x.to(out_dtype), invalid, iterations=fill_iterations)
 
 
 def scale_raw_frames(frames: torch.Tensor, vmin: float, vmax: float,

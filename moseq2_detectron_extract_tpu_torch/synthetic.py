@@ -11,6 +11,11 @@ walls at ``WALL_DEPTH``, so that the host prep of its frames gives chunks
 like these, and the plane RANSAC of its background weighs hypotheses that
 really differ.
 
+``codec_fixture_frames`` makes the frames of the committed libavcodec FFV1
+fixture (``tests/data/ffv1_libavcodec_130x106.avi``): session-like depth
+with dropouts, a saturated patch and a patch of full-range noise, so that
+16-bit samples above 32767 are coded too.
+
 ``write_annotated_views`` writes a Label Studio export of the same mouse:
 ``_depth.png`` views (as ``dataset.py`` writes sampled frames) with an
 outline polygon and eight keypoints along the body axis per view.
@@ -139,6 +144,26 @@ def write_raw_session(dirname: str, nframes: int, height: int = 424, width: int 
     np.savetxt(os.path.join(dirname, 'depth_ts.txt'), np.arange(nframes) * (1000.0 / 30.0),
                fmt='%.3f')
     return path
+
+
+CODEC_FIXTURE_SEED = 14
+
+
+def codec_fixture_frames(nframes: int = 26, height: int = 106, width: int = 130,
+                         seed: int = CODEC_FIXTURE_SEED) -> np.ndarray:
+    '''(nframes, height, width) uint16 frames: the arena and the walking
+    mouse of ``write_raw_session`` with 1% dropouts, an 8x8 patch at 65535
+    and a 6x10 patch of uniform 16-bit noise, all from ``seed``.'''
+    rng = np.random.default_rng(seed)
+    ground = arena_ground(height, width, rng)
+    out = np.empty((nframes, height, width), np.uint16)
+    for i, mouse in enumerate(_mouse_heights(nframes, height, width, rng, None, np.pi)):
+        frame = np.round(ground - mouse).astype(np.uint16)
+        frame[rng.random(frame.shape) < 0.01] = 0
+        frame[4:12, 4:12] = 65535
+        frame[-10:-4, -14:-4] = rng.integers(0, 65536, (6, 10))
+        out[i] = frame
+    return out
 
 
 KEYPOINT_NAMES = ('Nose', 'Left Ear', 'Right Ear', 'Neck', 'Left Hip', 'Right Hip',

@@ -33,8 +33,7 @@ from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
 from moseq2_detectron_extract_tpu_torch.io.video import PreviewVideoWriter, apply_colormap_jet
 from moseq2_detectron_extract_tpu_torch.ops import draw
 from moseq2_detectron_extract_tpu_torch.ops.draw import DrawList
-from moseq2_detectron_extract_tpu_torch.ops.preprocess import (decode_prepped_frames,
-                                                               prep_raw_frames_host)
+from moseq2_detectron_extract_tpu_torch.ops.preprocess import prep_raw_frames
 from moseq2_detectron_extract_tpu_torch.ops.warp import reverse_crop_and_rotate_frames
 from moseq2_detectron_extract_tpu_torch.proc.keypoints import (default_keypoint_colors,
                                                                default_keypoint_connection_rules,
@@ -348,10 +347,8 @@ def generate_raw_preview(input_file: str, output_file: Optional[str] = None,
     writer = PreviewVideoWriter(output_file, fps=fps, vmin=min_height, vmax=max_height)
 
     def prep(frames):
-        # the host prep marks the dropouts, which the device fills
-        chunk = prep_raw_frames_host(frames, bground_im=session.bground_im, roi=session.roi,
-                                     vmin=min_height, vmax=max_height, dtype='uint8')
-        return decode_prepped_frames(torch.as_tensor(chunk, device=device)).cpu().numpy()
+        return prep_raw_frames(frames, bground_im=session.bground_im, roi=session.roi,
+                               vmin=min_height, vmax=max_height, device=device).cpu().numpy()
 
     iterator = session.iterate(chunk_size=chunk_size)
     iterator.attach_filter(Stream.DEPTH, prep)

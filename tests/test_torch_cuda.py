@@ -632,3 +632,19 @@ def test_cuda_export_tiny_model(cuda_device, tmp_path):
     for key in got:
         assert torch.equal(torch.nan_to_num(got[key], nan=-7.0),
                            torch.nan_to_num(ref[key], nan=-7.0)), key
+
+
+def test_cuda_find_roi_on_ffv1_session_equals_dat(cuda_device, tmp_path):
+    '''An FFV1 session's frames come back as uint16 (a raw .dat's as int16):
+    the card's median takes both, and the ROI search gives the same result.'''
+    from moseq2_detectron_extract_tpu_torch.io.video import read_frames_raw, write_frames
+    dat = write_raw_session(str(tmp_path / 'raw'), 40, 96, 128, seed=2)
+    avi_dir = tmp_path / 'avi'
+    avi_dir.mkdir()
+    for name in ('metadata.json', 'depth_ts.txt'):
+        (avi_dir / name).write_bytes((tmp_path / 'raw' / name).read_bytes())
+    write_frames(str(avi_dir / 'depth.avi'), read_frames_raw(dat, frame_dims=(128, 96)))
+    ours = Session(str(avi_dir / 'depth.avi')).find_roi(device='cuda')
+    ref = Session(dat).find_roi(device='cuda')
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

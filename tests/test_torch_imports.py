@@ -10,8 +10,10 @@ synthetic Label Studio export of PNG views, two steps, a checkpoint, then
 ``compile-model``, ``infer-dataset``, ``find-roi``), the result upkeep
 (``extract --report-outliers``, ``find-outliers``, ``verify-flips``,
 ``manual-flip``, ``trim-result``, ``generate-extract-config``,
-``dataset-info``, ``system-info``), the C++ Kalman core and the stage-2
-experiment's check on the CPU with all of them blocked.'''
+``dataset-info``, ``system-info``), compressed depth and dataset generation
+(``convert-raw-to-avi``, an FFV1 read, ``generate-dataset`` with its
+k-means, without sklearn), the C++ Kalman core and the stage-2 experiment's
+check on the CPU with all of them blocked.'''
 import ast
 import os
 import subprocess
@@ -22,7 +24,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, 'moseq2_detectron_extract_tpu_torch')
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'cv2', 'h5py', 'yaml',
-           'click', 'PIL', 'tqdm', 'moseq2_detectron_extract_tpu')
+           'click', 'PIL', 'tqdm', 'sklearn', 'moseq2_detectron_extract_tpu')
 
 _SCRIPT = r'''
 import importlib, importlib.machinery, pkgutil, sys
@@ -184,7 +186,22 @@ with tempfile.TemporaryDirectory() as tmp:
     assert cli.main(['generate-extract-config', '-o', os.path.join(tmp, 'cfg.yaml')]) == 0
     assert cli.main(['dataset-info', export]) == 0
     assert cli.main(['system-info']) == 0
-import numpy as np
+    # compressed depth: convert-raw-to-avi (Kinect frames) with its verify
+    # pass, a read of the AVI; generate-dataset with the k-means
+    import numpy as np
+    from moseq2_detectron_extract_tpu_torch.io.video import load_movie_data
+    kinect = os.path.join(tmp, 'kinect', 'depth.dat')
+    os.makedirs(os.path.dirname(kinect))
+    np.random.default_rng(0).integers(600, 720, (3, 424, 512), dtype='<u2').tofile(kinect)
+    assert cli.main(['convert-raw-to-avi', kinect, '-b', '2', '--delete']) == 0
+    assert not os.path.exists(kinect)
+    frames = load_movie_data(os.path.join(tmp, 'kinect', 'depth.avi'), [2, 0])
+    assert frames.shape == (2, 424, 512) and frames.dtype == np.uint16
+    gen = os.path.join(tmp, 'dataset')
+    assert cli.main(['generate-dataset', os.path.join(tmp, 'depth.dat'), '--output-dir', gen,
+                     '--sample-method', 'kmeans', '--num-samples', '4', '--device', 'cpu']) == 0
+    with open(os.path.join(gen, 'tasks.json'), encoding='utf-8') as fh:
+        assert len(json.load(fh)) == 4
 from moseq2_detectron_extract_tpu_torch.proc import kalman
 params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),
                              np.eye(3))

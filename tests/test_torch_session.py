@@ -145,8 +145,11 @@ def test_timestamp_mapper_matches_jax():
 
 @pytest.mark.parametrize('name', ['depth.avi', 'depth.mp4'])
 def test_compressed_depth_raises(tmp_path, name):
+    # the port decodes FFV1 in AVI: what is neither an AVI nor FFV1 raises,
+    # naming the container
     (tmp_path / name).write_bytes(b'\0' * 64)
-    with pytest.raises(CompressedVideoError, match='ffmpeg'):
+    match = {'depth.avi': 'not a RIFF file', 'depth.mp4': 'MP4 container'}[name]
+    with pytest.raises(CompressedVideoError, match=match):
         Session(str(tmp_path / name))
 
 
