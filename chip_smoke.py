@@ -284,6 +284,7 @@ PLANE_TOL = (1e-5, 1e-3)           # card vs CPU RANSAC plane: unit normal, d in
 ROUGH_SEEDS = (0, 1, 2)            # rough_arena backgrounds held card against CPU
 FIND_ROI_TOP = 8                   # functions printed from find_roi's host profile
 TOP_KERNELS = 12                   # kernel names printed from the profiled chunk
+RATES = {}                         # rates a later phase prints beside its own
 
 
 def phase(msg: str) -> None:
@@ -1255,10 +1256,11 @@ def check_avi(avi_path: str, nframes: int, card: str, label: str) -> dict:
     return index
 
 
-def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str, nframes: int):
+def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str, nframes: int,
+             extra=()):
     '''``cli.main(['extract', path, '--model', model_dir, '--output-dir',
-    out_dir])`` with the launch counts set to 0 just before and read just
-    after; fails unless the status says ``complete: true`` and the preview
+    out_dir, *extra])`` with the launch counts set to 0 just before and read
+    just after; fails unless the status says ``complete: true`` and the preview
     holds the session's ``nframes`` frames (``check_avi``). Returns the
     status, the launches, the wall seconds, the peak device memory and the
     overall frames/s line that extract_session logged.'''
@@ -1271,7 +1273,7 @@ def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str, nfr
     roi_align_kernel.launch_count = 0
     clean_kernel.launch_count = 0
     t = time.perf_counter()
-    rc = cli.main(['extract', path, '--model', model_dir, '--output-dir', out_dir])
+    rc = cli.main(['extract', path, '--model', model_dir, '--output-dir', out_dir, *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {'roi_align': roi_align_kernel.launch_count, 'clean': clean_kernel.launch_count}
@@ -1727,6 +1729,7 @@ def check_training(card: str, seed: int, model_dir: str, tmp: str):
         raise AssertionError(f'checkpoints {ckpts}, last_checkpoint {pointer!r}')
     rates = [r['iters_per_sec'] for r in rows[5:]]
     it_s = statistics.median(rates)
+    RATES['train_it_s'] = it_s
     phase(f'4d (a) cli train: {TRAIN_STEPS} steps in {train_s:.2f} s wall (annotation '
           f'loading, the validations and checkpoints included); {it_s:.2f} iterations/s, '
           f'{it_s * cfg.ims_per_batch:.1f} images/s (median after step 5); peak device '
@@ -2590,6 +2593,306 @@ def check_compressed(card: str, session_path: str, dat_run: dict, model_dir: str
     return launches
 
 
+DP_STEPS = 5                       # phase 4i (a): data-parallel steps at world 1
+DP_BATCH = 8                       # their batch
+BATCH_TRIM = (0, 800)              # phase 4i (c): --frame-trim, 300 of 1,100 frames a session
+OFFPATH_FRAMES = 16                # phase 4i (d): frames of the off-path ops, card vs CPU
+
+
+def check_dp_world1(card: str, seed: int, export: str, cfg_path: str, tmp: str) -> None:
+    """4i (a): ``make_dp_train_step`` at world 1 over NCCL (a ``FileStore``
+    in ``tmp``) against the Trainer's step, DP_STEPS steps each of fast160
+    at batch DP_BATCH on phase 4d's views, the same loader batches and a
+    generator seeded alike, with deterministic algorithms: the parameters
+    and the losses must be equal bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from moseq2_detectron_extract_tpu_torch.io.annot import read_annotations
+    from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
+    from moseq2_detectron_extract_tpu_torch.models.data import TrainLoader
+    from moseq2_detectron_extract_tpu_torch.models.train import (create_train_state,
+                                                                 make_train_step)
+    from moseq2_detectron_extract_tpu_torch.models.trainer import (augment_and_draw,
+                                                                   batch_to_device)
+    from moseq2_detectron_extract_tpu_torch.parallel import (make_dp_train_step, make_mesh,
+                                                            replicate_state, shard_batch)
+    from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+
+    cfg = ModelConfig.from_yaml(cfg_path)
+    loader = TrainLoader(read_annotations(export, default_keypoint_names), cfg,
+                         batch_size=DP_BATCH, seed=seed)
+    try:
+        host = [next(loader) for _ in range(DP_STEPS)]
+    finally:
+        loader.close()
+    # NCCL's bootstrap on the loopback device: world 1 on one machine
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    os.environ.setdefault('NCCL_IB_DISABLE', '1')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t = time.perf_counter()
+        mesh = make_mesh(0, 1, 'cuda', store_path=os.path.join(tmp, 'dp-store'))
+        init_s = time.perf_counter() - t
+
+        def run(step, state, batch_of):
+            seconds, metrics = [], None
+            gen = torch.Generator('cuda').manual_seed(seed + 1)
+            for hb in host:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(state, batch_of(hb), gen)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t)
+            return state, metrics, seconds
+
+        train_step = make_train_step(cfg)
+
+        def trainer_step(state, batch, gen):
+            images, gt, draws = augment_and_draw(batch, cfg, gen)
+            return train_step(state, {'images': images, 'gt': gt}, draws)
+
+        ref, ref_metrics, ref_s = run(trainer_step, create_train_state(cfg, seed=seed),
+                                      lambda hb: batch_to_device(hb, mesh.device))
+        state, metrics, dp_s = run(make_dp_train_step(cfg, mesh),
+                                   replicate_state(mesh, create_train_state(cfg, seed=seed)),
+                                   lambda hb: batch_to_device(shard_batch(mesh, hb),
+                                                              mesh.device))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ref_params = {k: p.detach() for k, p in ref.model.named_parameters()}
+    params = {k: p.detach() for k, p in state.model.named_parameters()}
+    differ = [k for k, p in params.items() if not torch.equal(p, ref_params[k])]
+    gap = max(float((p - ref_params[k]).abs().max()) for k, p in params.items())
+    loss_differ = [k for k in ref_metrics if k != 'lr' and
+                   not torch.equal(torch.as_tensor(metrics[k]), torch.as_tensor(ref_metrics[k]))]
+    dp_it_s = 1.0 / statistics.median(dp_s[1:])
+    ref_it_s = 1.0 / statistics.median(ref_s[1:])
+    phase(f'4i (a) DP world 1 (NCCL, FileStore; init {init_s:.2f} s): {DP_STEPS} steps of '
+          f'batch {DP_BATCH}, {dp_it_s:.2f} it/s against the Trainer step\'s {ref_it_s:.2f} '
+          f'(median after step 1, deterministic algorithms) and 4d (a)\'s cli train '
+          f'{RATES.get("train_it_s", float("nan")):.2f}; parameters '
+          + (f'{len(differ)} of {len(ref_params)} differ (max {gap:.3e})' if differ else
+             f'all {len(ref_params)} equal bit for bit')
+          + f', losses ' + (f'{loss_differ} differ' if loss_differ else 'equal')
+          + f'; total_loss {float(metrics["total_loss"]):.4f} [{card}]')
+    if differ or loss_differ or state.step != DP_STEPS or ref.step != DP_STEPS:
+        raise AssertionError(f'4i (a): the DP step differs from the Trainer step: {differ[:5]}, '
+                             f'{loss_differ}')
+    if not np.isfinite(float(metrics['total_loss'])):
+        raise AssertionError('4i (a): non-finite loss')
+
+
+def _h5_differ(a: dict, b: dict, by_design=('/metadata/uuid',)) -> list:
+    """Datasets of two ``_datasets`` that differ, but for the parameters
+    (the output dir, the config file, the device) and ``by_design``."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in by_design and not k.startswith('/metadata/extraction/parameters')
+                  and (k not in a or k not in b or not _same(a[k][0], b[k][0])))
+
+
+def check_parallel(card: str, seed: int, export: str, cfg_path: str, session_path: str,
+                   model_dir: str, dat_run: dict, tmp: str) -> dict:
+    """Phase 4i: (a) data parallel at world 1 (``check_dp_world1``); (b)
+    ``extract --device-input prescaled`` on phase 4b's session, with one
+    chunk held card against CPU (``reference_check``) and the bytes each
+    frame sends to the card; (c) ``extract-batch``: printed commands over a
+    ``.dat`` and an ``.avi`` session dir, then two sessions in process at
+    once on the card, each of which must equal that session run alone; (d)
+    the off-path ops card against CPU. Returns the kernels' launches of (b)
+    and (c)."""
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import cli, extract
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.io.util import write_yaml
+    from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.pipeline.steps import produce_chunks
+
+    t_phase = time.perf_counter()
+    os.makedirs(tmp, exist_ok=True)
+    check_dp_world1(card, seed, export, cfg_path, tmp)
+
+    # (b) the prescaled input through the CLI, and the bytes a frame uploads
+    defaults = cli.extract_parser().parse_args([session_path])
+    _, launches_b, wall_b, peak_b = _run_cli(
+        session_path, model_dir, os.path.join(tmp, 'prescaled'), card, '4i (b) prescaled',
+        SESSION_FRAMES, extra=('--device-input', 'prescaled'))
+    expect = _expected_launches(SESSION_FRAMES, defaults.chunk_size, defaults.batch_size)
+    if launches_b != expect:
+        raise AssertionError(f'4i (b) launches {launches_b}, expected {expect}')
+    session = Session(session_path)
+    prepared = extract.prepare_session(session, {'chunk_size': defaults.chunk_size},
+                                       device='cuda')
+    chunk = next(produce_chunks(session, prepared))['chunk'][:FRAMES]
+    predictor = Predictor.from_model_dir(model_dir, batch_size=BATCH)
+    config = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
+              'expected_instances': 1, 'device_input': 'prescaled'}
+    out = extract.process_chunk(chunk, predictor, config)
+    per_frame = out['h2d_bytes'] / len(chunk)
+    full_per_frame = chunk.shape[1] * chunk.shape[2] * chunk.dtype.itemsize
+    box_err, score_err, n_same = reference_check(model_dir, chunk[:4], config)
+    phase(f'4i (b) extract --device-input prescaled: {SESSION_FRAMES / wall_b:.1f} frames/s '
+          f'(cli wall), full input (phase 4c (a), deterministic) '
+          f'{SESSION_FRAMES / dat_run["wall"]:.1f}; bytes to the card per frame '
+          f'{per_frame:.0f} (canvas {predictor.cfg.image_size}^2 + a 160^2 window) against '
+          f'{full_per_frame} for the full input ({chunk.shape[1]}x{chunk.shape[2]}); '
+          f'launches {launches_b}; peak {peak_b:.2f} GiB; reference check (4 frames, f32, card '
+          f'vs CPU): boxes {box_err:.4f} px, scores {score_err:.2e}, cleaned windows equal at '
+          f'{n_same} of 4 shared origins [{card}]')
+
+    # (c) extract-batch: the printed commands, then two sessions at once
+    root = os.path.join(tmp, 'batch')
+    raw = np.fromfile(session_path, dtype='<u2').reshape(SESSION_FRAMES, 424, 512)
+    sessions = {}
+    for name, frames in (('forward', None), ('backward', raw[::-1])):
+        for where in ('batch', 'alone'):
+            d = os.path.join(tmp, where, name)
+            os.makedirs(d)
+            for extra_file in ('metadata.json', 'depth_ts.txt'):
+                shutil.copy(os.path.join(os.path.dirname(session_path), extra_file), d)
+            dat = os.path.join(d, 'depth.dat')
+            if frames is None:
+                os.symlink(session_path, dat)
+            elif where == 'batch':
+                np.ascontiguousarray(frames).tofile(dat)
+            else:
+                os.symlink(sessions[name]['batch'], dat)
+            sessions.setdefault(name, {})[where] = dat
+    del raw
+    avi_dir = os.path.join(tmp, 'avi-tree', 'sess')
+    os.makedirs(avi_dir)
+    open(os.path.join(avi_dir, 'depth.avi'), 'wb').close()
+    printed = {}
+    for ext, where in (('.dat', root), ('.avi', os.path.dirname(avi_dir))):
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(['extract-batch', where, '--model', model_dir, '--extension', ext])
+        printed[ext] = buf.getvalue().strip().splitlines()
+        if rc != 0 or not all(line.startswith(f'python -m {PKG}.cli extract --model ')
+                              for line in printed[ext]):
+            raise AssertionError(f'4i (c) extract-batch {ext}: rc {rc}, {printed[ext]}')
+    if sorted(line.split()[-1] for line in printed['.dat']) != \
+            sorted(v['batch'] for v in sessions.values()) or \
+            [line.split()[-1] for line in printed['.avi']] != \
+            [os.path.join(avi_dir, 'depth.avi')]:
+        raise AssertionError(f'4i (c) printed sessions: {printed}')
+    cfg_file = os.path.join(tmp, 'batch-config.yaml')
+    write_yaml(cfg_file, {'frame_trim': list(BATCH_TRIM), 'chunk_size':
+                          SESSION_FRAMES - sum(BATCH_TRIM)})
+    nframes = SESSION_FRAMES - sum(BATCH_TRIM)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone_s = {}
+        for name, paths in sessions.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = cli.main(['extract', paths['alone'], '--model', model_dir, '--config-file',
+                           cfg_file])
+            torch.cuda.synchronize()
+            alone_s[name] = time.perf_counter() - t
+            if rc != 0:
+                raise AssertionError(f'4i (c) extract of {name} alone: rc {rc}')
+        torch.cuda.synchronize()
+        roi_align_kernel.launch_count = 0
+        clean_kernel.launch_count = 0
+        t = time.perf_counter()
+        rc = cli.main(['extract-batch', root, '--model', model_dir, '--config-file', cfg_file,
+                       '--in-process', '--max-concurrent', '2'])
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t
+        launches_c = {'roi_align': roi_align_kernel.launch_count,
+                      'clean': clean_kernel.launch_count}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if rc != 0:
+        raise AssertionError(f'4i (c) extract-batch --in-process: rc {rc}')
+    one = _expected_launches(nframes, nframes, defaults.batch_size)
+    if launches_c != {k: 2 * v for k, v in one.items()}:
+        raise AssertionError(f'4i (c) launches {launches_c}, expected twice {one}')
+    differ = {}
+    for name, paths in sessions.items():
+        h5 = [os.path.join(os.path.dirname(paths[w]), 'proc', 'results_00.h5')
+              for w in ('batch', 'alone')]
+        together, solo = (_datasets(p) for p in h5)
+        if together['/frames'][0].shape[0] != nframes:
+            raise AssertionError(f'4i (c) {name}: {together["/frames"][0].shape[0]} frames')
+        differ[name] = _h5_differ(together, solo)
+    same_data = _same(_datasets(os.path.join(os.path.dirname(sessions['forward']['batch']),
+                                             'proc', 'results_00.h5'))['/frames'][0],
+                      _datasets(os.path.join(os.path.dirname(sessions['backward']['batch']),
+                                             'proc', 'results_00.h5'))['/frames'][0])
+    phase(f'4i (c) extract-batch printed {len(printed[".dat"])} .dat and '
+          f'{len(printed[".avi"])} .avi commands; --in-process --max-concurrent 2, two '
+          f'sessions of {nframes} frames on one card at once: {batch_s:.2f} s wall, alone '
+          + ', '.join(f'{k} {v:.2f} s' for k, v in alone_s.items())
+          + ' (cli wall, cudnn.deterministic); each session against itself alone: '
+          + ', '.join(f'{k} ' + (f'{len(v)} differ: {v[:6]}' if v else 'all equal bit for bit')
+                      for k, v in differ.items())
+          + f' but the names and the uuid; the two sessions\' frames differ: {not same_data}; '
+          f'launches {launches_c} [{card}]')
+    if any(differ.values()) or same_data:
+        raise AssertionError(f'4i (c): concurrent sessions differ from alone: {differ}')
+
+    check_offpath(card, seed)
+    phase(f'4i: {time.perf_counter() - t_phase:.1f} s [{card}]')
+    return {'prescaled': launches_b, 'batch': launches_c}
+
+
+def check_offpath(card: str, seed: int) -> None:
+    """4i (d): ``largest_cc``, ``temporal_median`` and ``get_frame_features``
+    (``use_cc=True``, ``mask_threshold=5``) on OFFPATH_FRAMES prepped frames
+    of 424 x 512 on the card against the CPU: the component masks, the
+    medians and the feature masks bit for bit; the moments (f32 sums in
+    another order) to 1e-5 relative, and whether they are equal too."""
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch.ops.cc import largest_cc
+    from moseq2_detectron_extract_tpu_torch.ops.morphology import temporal_median
+    from moseq2_detectron_extract_tpu_torch.proc.features import get_frame_features
+    from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk
+
+    frames = torch.from_numpy(make_sentinel_chunk(OFFPATH_FRAMES, 424, 512, seed=seed + 11))
+    gpu = frames.cuda()
+    out, seconds = {}, {}
+    for label, fn in (('largest_cc', lambda x: largest_cc(x > 20)),
+                      ('temporal_median', lambda x: temporal_median(x, 5)),
+                      ('get_frame_features', lambda x: get_frame_features(
+                          x, frame_threshold=10, mask_threshold=5, use_cc=True))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card_out = fn(gpu)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t
+        out[label] = (card_out, fn(frames))
+    equal = {}
+    for label in ('largest_cc', 'temporal_median'):
+        a, b = out[label]
+        equal[label] = bool(torch.equal(a.cpu(), b))
+    (feats_g, mask_g), (feats_c, mask_c) = out['get_frame_features']
+    equal['feature_masks'] = bool(torch.equal(mask_g.cpu(), mask_c))
+    gaps = {k: float(np.nanmax(np.abs(feats_g[k] - feats_c[k]) /
+                               np.maximum(np.abs(feats_c[k]), 1.0)))
+            for k in ('centroid', 'orientation', 'axis_length')}
+    moments_equal = all(np.array_equal(feats_g[k], feats_c[k], equal_nan=True) for k in gaps)
+    blob = int(out['largest_cc'][1].sum(dim=(1, 2)).min())
+    phase(f'4i (d) off-path ops on {OFFPATH_FRAMES} frames of 424x512, card vs CPU: equal '
+          f'{equal}; moments relative gap {gaps} (equal bit for bit: {moments_equal}); card '
+          + ', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in seconds.items())
+          + f' (first call); smallest largest component {blob} px [{card}]')
+    if not all(equal.values()) or max(gaps.values()) > 1e-5 or blob == 0:
+        raise AssertionError(f'4i (d): card and CPU differ: {equal}, {gaps}')
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -2777,6 +3080,11 @@ def main() -> int:
               'depth.avi, generate-dataset')
         avi_launches = check_compressed(card, session_path, dat_run, args.model_dir,
                                         os.path.join(work, 'compressed'))
+
+        phase('4i/5 the last slice: data parallel at world 1, extract --device-input '
+              'prescaled, extract-batch (two sessions at once), the off-path ops')
+        last_launches = check_parallel(card, args.seed, export, cfg_path, session_path,
+                                       args.model_dir, dat_run, os.path.join(work, 'parallel'))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2789,6 +3097,8 @@ def main() -> int:
          'train_export_launches': train_launches['roi_align'],
          'lifecycle_launches': lifecycle_launches,
          'avi_extract_launches': avi_launches['roi_align'],
+         'prescaled_extract_launches': last_launches['prescaled']['roi_align'],
+         'batch_extract_launches': last_launches['batch']['roi_align'],
          'max_abs_err': roi['max_abs_err'], 'max_ulps': roi['max_ulps'],
          'one_ulp': roi['one_ulp'],
          'ms': roi['ms'], 'op_ms': roi['op_ms'], 'plain_ms': roi['plain_ms'],
@@ -2798,6 +3108,8 @@ def main() -> int:
          'launches': launches['clean'], 'session_launches': session_launches['clean'],
          'extract_launches': extract_launches['clean'],
          'avi_extract_launches': avi_launches['clean'],
+         'prescaled_extract_launches': last_launches['prescaled']['clean'],
+         'batch_extract_launches': last_launches['batch']['clean'],
          'max_abs_err': clean['max_abs_err'],
          'ms': clean['ms'], 'plain_ms': clean['plain_ms'], 'bound_ms': clean['bound_ms'],
          'bound_by': clean['bound_by'], 'library_ms': None},

@@ -30,6 +30,9 @@
     python -m moseq2_detectron_extract_tpu_torch.cli dataset-info <export.json>...
     python -m moseq2_detectron_extract_tpu_torch.cli generate-extract-config \
         [-o extract-config.yaml]
+    python -m moseq2_detectron_extract_tpu_torch.cli extract-batch <dir> --model M \
+        [--config-file C] [--extension .dat] [--cluster-type local|slurm] \
+        [--in-process [--max-concurrent N] [--device cpu]]
     python -m moseq2_detectron_extract_tpu_torch.cli system-info
 
 Port of ``moseq2_detectron_extract_tpu/cli.py`` on ``argparse`` (the card's
@@ -42,7 +45,9 @@ runs a model or the ROI search.
 rule, and the config keys ``use_tracking_model``, ``flip_classifier``,
 ``dataset_name`` and ``param_annotations``. ``--report-outliers`` searches
 the finished results for outlier frames (``quality.py``), as ``find-outliers``
-does; ``--device-input prescaled`` is not ported yet and raises.
+does; ``--device-input prescaled`` resizes each chunk to the model's canvas
+on the host and uploads that and the detections' windows
+(``pipeline/steps.py:run_inference_prescaled``).
 
 ``train`` is ``cli.py:131-166`` (``--log-period``, the metrics' period,
 20 as in the JAX trainer, is the port's own); ``convert-weights``,
@@ -66,8 +71,19 @@ the port's ``device``). ``manual-flip`` and ``trim-result`` copy the file to
 ``<result>.bak`` first unless ``--no-backup``, then write the edited file
 anew beside it and rename it onto the old one (``io/hdf5.py:rewrite``).
 ``system-info`` (``cli.py:606-632``) prints torch, CUDA and cuDNN in place
-of jax and flax, and the CUDA devices, or says there is none. ``main``
-returns the command's exit code.
+of jax and flax, and the CUDA devices, or says there is none.
+``extract-batch`` (``cli.py:533-603``) prints a ``python -m
+moseq2_detectron_extract_tpu_torch.cli extract ...`` command per unextracted
+session where the reference prints ``moseq2-detectron-extract-tpu extract
+...``; with ``--in-process`` it extracts them on this machine's CUDA
+devices (``parallel/sessions.py``) and exits 1 when a session failed.
+
+``main`` returns the command's exit code. With ``MOSEQ_DETECTRON_PROFILE``
+set, it profiles the process (``utils/profiling.py``; the files are written
+at exit), as the reference's group does. The reference's group also turns
+on JAX's compilation cache (``utils/compile_cache.py``); the port has no
+counterpart, since PyTorch compiles nothing there, and its CUDA kernels are
+built once per source into ``_build/`` (``native.py``).
 '''
 import argparse
 import logging
@@ -88,6 +104,12 @@ def _pair(convert):
 def _existing(path: str) -> str:
     if not os.path.exists(path):
         raise argparse.ArgumentTypeError(f'path {path!r} does not exist')
+    return path
+
+
+def _existing_dir(path: str) -> str:
+    if not os.path.isdir(_existing(path)):
+        raise argparse.ArgumentTypeError(f'{path!r} is not a directory')
     return path
 
 
@@ -179,9 +201,6 @@ def extract(argv: Sequence[str]) -> str:
                 'frame_trim'):
         if isinstance(getattr(args, key), list):
             setattr(args, key, tuple(getattr(args, key)))
-    if args.device_input != 'full':
-        raise NotImplementedError("--device-input prescaled is not ported yet (it resizes on "
-                                  "the host with cv2)")
 
     from moseq2_detectron_extract_tpu_torch.extract import extract_session
     from moseq2_detectron_extract_tpu_torch.io.session import Session
@@ -669,6 +688,106 @@ def generate_extract_config(argv: Sequence[str]) -> str:
     return args.output_file
 
 
+def extract_batch_parser() -> argparse.ArgumentParser:
+    '''The ``extract-batch`` command's options.'''
+    p = argparse.ArgumentParser(prog='extract-batch', allow_abbrev=False,
+                                description='Generate extract commands for many sessions')
+    p.add_argument('input_dir', metavar='INPUT_DIR', type=_existing_dir)
+    p.add_argument('--model', required=True, type=_existing)
+    p.add_argument('--config-file', default=None, type=_existing)
+    p.add_argument('--cluster-type', default='local', choices=['local', 'slurm'])
+    p.add_argument('--slurm-partition', default='main')
+    p.add_argument('--slurm-ncpus', default=4, type=int)
+    p.add_argument('--slurm-memory', default='16GB')
+    p.add_argument('--slurm-wall-time', default='3:00:00')
+    p.add_argument('--prefix', default=None, help='Command prefix (e.g. environment activation)')
+    p.add_argument('--extension', default='.dat')
+    p.add_argument('--bg-roi-index', default=0, type=int)
+    p.add_argument('--in-process', action='store_true',
+                   help='Run the extractions now, one session per local CUDA device at a '
+                        'time, instead of printing commands')
+    p.add_argument('--max-concurrent', default=None, type=optional(int),
+                   help='With --in-process: sessions running at once (default: one per '
+                        'device)')
+    p.add_argument('--device', default='cuda',
+                   help='With --in-process: cuda (every CUDA device), cuda:N, or cpu')
+    return p
+
+
+def extract_batch(argv: Sequence[str]) -> None:
+    '''Print one ``extract`` command per unextracted session under
+    ``INPUT_DIR`` (files ending in ``--extension``, and ``.tar.gz``/``.tgz``
+    archives), to run here one after another or, with ``--cluster-type
+    slurm``, each as an ``sbatch`` job; or with ``--in-process`` extract them
+    now on the local CUDA devices (``parallel.sessions``) and print each
+    session's status file; exit code 1 when a session failed (it raised, or
+    its status does not say ``complete: true``).'''
+    args = extract_batch_parser().parse_args(list(argv))
+    from moseq2_detectron_extract_tpu_torch.io.util import (read_yaml,
+                                                            scan_unextracted_sessions,
+                                                            wrap_command_with_local,
+                                                            wrap_command_with_slurm)
+    setup_logging()
+    sessions = scan_unextracted_sessions(args.input_dir, extension=args.extension,
+                                         bg_roi_index=args.bg_roi_index)
+    if args.in_process:
+        _extract_batch_in_process(args, sessions, read_yaml)
+        return
+    commands = []
+    for session_path in sessions:
+        cmd = f'python -m moseq2_detectron_extract_tpu_torch.cli extract --model {args.model}'
+        if args.config_file:
+            cmd += f' --config-file {args.config_file}'
+        commands.append(f'{cmd} {session_path}')
+    if args.cluster_type == 'slurm':
+        commands = wrap_command_with_slurm(commands, prefix=args.prefix,
+                                           partition=args.slurm_partition,
+                                           ncpus=args.slurm_ncpus, memory=args.slurm_memory,
+                                           wall_time=args.slurm_wall_time)
+    else:
+        commands = wrap_command_with_local(commands, args.input_dir)
+    for cmd in commands:
+        print(cmd)
+
+
+def _extract_batch_in_process(args, sessions, read_yaml) -> None:
+    '''``extract-batch --in-process``: the extract defaults, then the config
+    file's keys, then the model and the reference's fixed keys, each
+    session extracted by ``extract_sessions_sharded``.'''
+    from moseq2_detectron_extract_tpu_torch.parallel.sessions import extract_sessions_sharded
+    from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
+    if not sessions:
+        print('No unextracted sessions found.')
+        return
+    parser = extract_parser()
+    defaults = {a.dest: a.default for a in parser._actions
+                if a.option_strings and a.dest != 'help'}
+    config = dict(defaults)
+    if args.config_file:
+        for key, value in (read_yaml(args.config_file) or {}).items():
+            key = key.replace('-', '_')
+            if isinstance(defaults.get(key), tuple) and value is not None:
+                value = tuple(value)
+            config[key] = value
+    config.update({'model': args.model, 'bg_roi_index': args.bg_roi_index,
+                   'output_dir': None, 'use_tracking_model': False,
+                   'flip_classifier': args.model, 'dataset_name': 'moseq',
+                   'param_annotations': click_param_annot(parser)})
+    if config.get('allowed_detections') is None:
+        config['allowed_detections'] = (config['expected_instances'] + 1) * 2
+    devices = None if args.device == 'cuda' else [args.device]
+    results = extract_sessions_sharded(sessions, config, devices=devices,
+                                       max_concurrent=args.max_concurrent)
+    failed = [s for s in sessions
+              if s not in results or not check_completion_status(results[s])]
+    for path, status in results.items():
+        print(f'{path}: {status}')
+    for path in failed:
+        print(f'{path}: FAILED (see log)')
+    if failed:
+        raise SystemExit(1)
+
+
 def system_info(argv: Sequence[str]) -> None:
     '''Print the versions (the port, Python, torch, CUDA, cuDNN, numpy) and
     each CUDA device with its used and total memory.'''
@@ -701,7 +820,7 @@ COMMANDS = {'extract': extract, 'train': train, 'convert-weights': convert_weigh
             'dataset-info': dataset_info, 'find-outliers': find_outliers,
             'manual-flip': manual_flip, 'verify-flips': verify_flips,
             'trim-result': trim_result, 'generate-extract-config': generate_extract_config,
-            'system-info': system_info}
+            'extract-batch': extract_batch, 'system-info': system_info}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -711,6 +830,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f'usage: python -m moseq2_detectron_extract_tpu_torch.cli '
               f'{{{",".join(COMMANDS)}}} ...', file=sys.stderr)
         return 2
+    if os.environ.get('MOSEQ_DETECTRON_PROFILE'):
+        from moseq2_detectron_extract_tpu_torch.utils.profiling import enable_profiling
+        enable_profiling()
     try:
         COMMANDS[argv[0]](argv[1:])
     except SystemExit as exc:   # a command's own exit code, or argparse's

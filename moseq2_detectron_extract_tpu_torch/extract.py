@@ -42,7 +42,9 @@ from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers, 
                                                                make_feature_trackers,
                                                                make_tracker,
                                                                process_features, produce_chunks,
-                                                               run_inference, select_instances)
+                                                               run_inference,
+                                                               run_inference_prescaled,
+                                                               select_instances)
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
 from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
 from moseq2_detectron_extract_tpu_torch.utils.hostmem import tune_host_allocator
@@ -66,8 +68,11 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
     detection, instance selection and the window feature stage.
 
     ``chunk_u8`` is a numpy array or tensor of host-prepped frames whose
-    dropout pixels hold 255; it is moved to ``predictor.device``. Pass the
-    same ``tracker`` for consecutive chunks of a session. Returns the
+    dropout pixels hold 255; it is moved to ``predictor.device``, or with
+    ``config['device_input'] == 'prescaled'`` resized on the host first
+    (``pipeline.steps.run_inference_prescaled``; the returned ``chunk``, a
+    copy, then has its sentinels zeroed). Pass the same ``tracker`` for
+    consecutive chunks of a session. Returns the
     selection's fields (see ``pipeline.steps.select_instances``),
     ``feat_dispatch`` with ``cleaned_frames``, ``feat_masks`` and
     ``feats_dev`` (centroid in frame coordinates, orientation, axis_length)
@@ -80,7 +85,13 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
         raise ValueError('chunk_u8 must be an (N, H, W) uint8 array')
     if tracker is None:
         tracker = make_tracker()
-    data = run_inference(chunk, predictor, config)
+    if config.get('device_input', 'full') == 'prescaled':
+        # a copy: the selection zeroes the host chunk's sentinels in place
+        host = np.array(chunk.cpu().numpy())
+        data = run_inference_prescaled(host, predictor, config)
+        data['chunk'] = host
+    else:
+        data = run_inference(chunk, predictor, config)
     data = select_instances(data, config, tracker)
     return dispatch_window_features(data, config)
 

@@ -8,14 +8,18 @@ port's HDF5 writer; ``load_timestamps``, 111-132; ``load_metadata``,
 135-140; ``ensure_dir``, 143-146; ``find_unused_file_path``, 149-157;
 ``backup_existing_file``, 160-166;
 ``setup_logging`` and ``attach_file_logger``, 168-231, with a plain stream
-handler where the reference's writes through tqdm).
+handler where the reference's writes through tqdm, and a log file per
+session when several run on threads of one process;
+``scan_unextracted_sessions``, ``wrap_command_with_local`` and
+``wrap_command_with_slurm``, 233-279).
 '''
 import json
 import logging
 import logging.handlers
 import os
+import threading
 import uuid
-from typing import IO, Any, Dict, List, Optional, Union
+from typing import IO, Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -194,18 +198,58 @@ def setup_logging(level: int = logging.INFO, add_defered_file_handler: bool = Fa
         root.addHandler(_MEMORY_HANDLER)
 
 
+def set_log_owner(owner: Optional[str]) -> None:
+    '''Mark the calling thread as working for ``owner`` (a session), so
+    that a log file attached in it takes only that owner's records (see
+    :func:`attach_file_logger`). Threads started with
+    :func:`inherit_log_owner` work for the same owner.'''
+    threading.current_thread().log_owner = owner
+
+
+def log_owner() -> Optional[str]:
+    '''The calling thread's owner (:func:`set_log_owner`), or None.'''
+    return getattr(threading.current_thread(), 'log_owner', None)
+
+
+def inherit_log_owner(thread: threading.Thread) -> threading.Thread:
+    '''Give a thread that is not started yet the calling thread's owner.'''
+    thread.log_owner = log_owner()
+    return thread
+
+
+class _OwnerFilter(logging.Filter):
+    '''Passes the records logged by threads working for one owner.'''
+
+    def __init__(self, owner: str):
+        super().__init__()
+        self.owner = owner
+
+    def filter(self, record):
+        return log_owner() == self.owner
+
+
 def attach_file_logger(log_path: str) -> None:
-    '''Log to ``log_path`` (appending), after the records kept in memory;
-    a file handler attached before is closed first, so that consecutive
-    sessions in one process do not log into each other's files.'''
+    '''Log to ``log_path`` (appending), after the records kept in memory.
+
+    In a thread without an owner (:func:`set_log_owner`), the file takes
+    every record, and a file handler attached before is closed first, so
+    that consecutive sessions in one process do not log into each other's
+    files. In a thread with an owner, such as each session of
+    ``parallel.sessions``, the file takes only the records of that owner's
+    threads, and only that owner's earlier file is closed.'''
     global _MEMORY_HANDLER
     root = logging.getLogger()
+    owner = log_owner()
     for handler in list(root.handlers):
-        if isinstance(handler, logging.FileHandler):
+        if isinstance(handler, logging.FileHandler) and \
+                getattr(handler, 'log_owner', None) == owner:
             root.removeHandler(handler)
             handler.close()
     file_handler = logging.FileHandler(log_path, mode='a', encoding='utf-8')
     file_handler.setFormatter(logging.Formatter(_LOG_FORMAT))
+    file_handler.log_owner = owner
+    if owner is not None:
+        file_handler.addFilter(_OwnerFilter(owner))
     if _MEMORY_HANDLER is not None:
         _MEMORY_HANDLER.setTarget(file_handler)
         _MEMORY_HANDLER.flush()
@@ -213,3 +257,72 @@ def attach_file_logger(log_path: str) -> None:
         _MEMORY_HANDLER.close()
         _MEMORY_HANDLER = None
     root.addHandler(file_handler)
+
+
+def detach_file_logger() -> None:
+    '''Close the log file that the calling thread's owner attached.'''
+    root = logging.getLogger()
+    owner = log_owner()
+    for handler in list(root.handlers):
+        if isinstance(handler, logging.FileHandler) and \
+                getattr(handler, 'log_owner', None) == owner:
+            root.removeHandler(handler)
+            handler.close()
+
+
+_SESSION_ARCHIVES = ('.tar.gz', '.tgz')
+
+
+def _is_port_output(fname: str) -> bool:
+    '''An AVI the port writes beside the results: the extract preview
+    ``results_NN.avi`` and the previews ``preview.avi`` and
+    ``<results>.preview.avi``.'''
+    return (fname.startswith('results_') and fname.endswith('.avi')) or \
+        fname.endswith('preview.avi')
+
+
+def scan_unextracted_sessions(input_dir: str, extension: str = '.dat',
+                              bg_roi_index: int = 0) -> List[str]:
+    '''Session files under ``input_dir`` (sorted) without a completed status:
+    a file ending in ``extension`` is extracted when
+    ``proc/results_NN.yaml`` beside it says ``complete: true``, a
+    ``.tar.gz``/``.tgz`` session when ``<stem>/proc/results_NN.yaml`` does
+    (NN: ``bg_roi_index``). With ``extension='.avi'`` the port's own preview
+    AVIs are not taken for sessions.'''
+    from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
+
+    found: List[str] = []
+    for root, _dirs, files in os.walk(input_dir):
+        for fname in files:
+            own = fname.endswith(extension) and not _is_port_output(fname)
+            if not (own or fname.endswith(_SESSION_ARCHIVES)):
+                continue
+            if own:
+                status = os.path.join(root, 'proc', f'results_{bg_roi_index:02d}.yaml')
+            else:
+                stem = fname.replace('.tar.gz', '').replace('.tgz', '')
+                status = os.path.join(root, stem, 'proc', f'results_{bg_roi_index:02d}.yaml')
+            if not check_completion_status(status):
+                found.append(os.path.join(root, fname))
+    return sorted(found)
+
+
+def wrap_command_with_local(commands: Sequence[str], output_path: str) -> List[str]:
+    '''The commands as they are, to run one after another on this machine
+    (``output_path`` is unused, as in the reference).'''
+    del output_path
+    return list(commands)
+
+
+def wrap_command_with_slurm(commands: Sequence[str], prefix: Optional[str] = None,
+                            partition: str = 'main', ncpus: int = 4, memory: str = '16GB',
+                            wall_time: str = '3:00:00') -> List[str]:
+    '''Each command as one ``sbatch --wrap`` job, after ``prefix;`` when
+    given.'''
+    out = []
+    for cmd in commands:
+        if prefix:
+            cmd = f'{prefix}; {cmd}'
+        out.append(f'sbatch --partition {partition} --cpus-per-task {ncpus} '
+                   f'--mem {memory} --time {wall_time} --wrap "{cmd}"')
+    return out

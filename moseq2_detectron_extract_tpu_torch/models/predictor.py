@@ -1,11 +1,14 @@
 '''Inference wrapper: resize, normalize, detect, detector postprocess.
 
-Port of ``moseq2_detectron_extract_tpu/models/predictor.py`` (``_step_impl``
-and ``_detect_impl``, lines 80-148, and the chunk batching of ``__call__``)
-with the fused selection of ``ops/instances.py:nms_and_centers``. uint8
-depth frames go in, full-resolution masks and keypoints come out, all on
-the predictor's device.
+Port of ``moseq2_detectron_extract_tpu/models/predictor.py`` (``to_device``,
+lines 44-59; ``_step_impl``, ``_prescaled_impl`` and ``_detect_impl``,
+lines 80-148; ``predict_prescaled``, 178-200; and the chunk batching of
+``__call__``) with the fused selection of
+``ops/instances.py:nms_and_centers``. uint8 depth frames go in,
+full-resolution masks and keypoints come out, all on the predictor's
+device.
 '''
+import copy
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -113,17 +116,37 @@ class Predictor:
         new_h, new_w = int(h * scale + 0.5), int(w * scale + 0.5)
         return scale, min(new_h, cfg.image_size), min(new_w, cfg.image_size)
 
+    def to_device(self, device) -> 'Predictor':
+        '''A Predictor like this one whose model lives on ``device``; this
+        one stays where it is. The weights are copied once; an exported
+        program is not carried over (it holds the device it was exported
+        on).'''
+        clone = Predictor.__new__(Predictor)
+        clone.device = resolve_device(device)
+        clone.cfg = self.cfg
+        clone.model = copy.deepcopy(self.model).to(clone.device)
+        clone.batch_size = self.batch_size
+        clone._exported_forward = None
+        return clone
+
     @torch.no_grad()
     def step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         '''One batch: frames (B, H, W) uint8 -> detections at frame resolution,
         with the extraction's selection fused in (``keep``, ``centers``,
         ``mask_iou``).'''
-        cfg = self.cfg
-        canvas = cfg.image_size
+        canvas = self.cfg.image_size
         h, w = frames.shape[1], frames.shape[2]
-        scale, new_h, new_w = self.test_geometry((h, w))
+        _, new_h, new_w = self.test_geometry((h, w))
         x = _resize_bilinear(frames.float(), (new_h, new_w))
         x = F.pad(x, (0, canvas - new_w, 0, canvas - new_h))
+        return self._detect(x, (h, w))
+
+    def _detect(self, x: torch.Tensor, frame_shape: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+        '''The shared tail: x (B, canvas, canvas) f32 with the resized frame
+        in the top-left corner -> detections at ``frame_shape``.'''
+        cfg = self.cfg
+        h, w = frame_shape
+        scale, new_h, new_w = self.test_geometry((h, w))
         x = x[:, None].expand(-1, 3, -1, -1)
         mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=x.device)
         std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=x.device)
@@ -149,6 +172,30 @@ class Predictor:
                 'masks': masks, 'keypoints': keypoints,
                 'mask_probs': out['mask_probs'],
                 'keep': keep, 'centers': centers, 'mask_iou': iou}
+
+    @torch.no_grad()
+    def predict_prescaled(self, canvas_frames, frame_shape: Tuple[int, int],
+                          select: bool = True) -> Dict[str, torch.Tensor]:
+        '''Detect on host-prescaled frames: ``canvas_frames`` (N, canvas,
+        canvas) uint8 hold each frame already resized to its
+        ResizeShortestEdge size in the top-left corner
+        (``ops.preprocess.prescale_frames_host``), so neither the
+        full-resolution frames nor the resize reach the device.
+        ``frame_shape`` is the frames' own (H, W), at which the outputs come
+        out, as :meth:`__call__`'s do. Batches as :meth:`__call__`; without
+        ``select``, the selection's keys are left out.'''
+        frames = torch.as_tensor(canvas_frames).to(self.device)
+        n = frames.shape[0]
+        pad = (-n) % self.batch_size
+        if pad:
+            frames = torch.cat([frames, frames.new_zeros((pad,) + tuple(frames.shape[1:]))])
+        outs = [self._detect(frames[i:i + self.batch_size].float(), tuple(frame_shape))
+                for i in range(0, frames.shape[0], self.batch_size)]
+        out = {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
+        if not select:
+            for key in ('keep', 'centers', 'mask_iou'):
+                out.pop(key)
+        return out
 
     @torch.no_grad()
     def __call__(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:

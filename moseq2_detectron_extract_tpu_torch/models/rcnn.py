@@ -14,7 +14,7 @@ makes them): the uniform priorities of the RPN's anchor sampling and of
 the ROI sampling, per image.
 '''
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -42,6 +42,9 @@ from moseq2_detectron_extract_tpu_torch.ops.roi_align import (batched_multilevel
 from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import roi_align
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
+
+# sums a count over the ranks of data-parallel training (see MaskKeypointRCNN.losses)
+CountReducer = Callable[[torch.Tensor], torch.Tensor]
 
 
 class MaskKeypointRCNN(nn.Module):
@@ -191,8 +194,11 @@ class MaskKeypointRCNN(nn.Module):
         levels = [f.float().permute(0, 2, 3, 1) for f in fpn_feats[:4]]
         return batched_multilevel_roi_align(levels, boxes, resolution, chunk=128)
 
-    def rpn_part(self, rpn_out, gt: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
-        '''The RPN's two losses from ``proposals``' RPN outputs.'''
+    def rpn_part(self, rpn_out, gt: Dict[str, torch.Tensor], draws,
+                 global_count: Optional[CountReducer] = None) -> Dict[str, torch.Tensor]:
+        '''The RPN's two losses from ``proposals``' RPN outputs, each over
+        ``rpn_batch_size_per_image`` anchors an image of the whole batch
+        (``global_count`` sums the image count over the ranks).'''
         cfg = self.cfg
         logits, deltas, anchors = rpn_out
         b = logits[0].shape[0]
@@ -202,6 +208,8 @@ class MaskKeypointRCNN(nn.Module):
                               cfg.rpn_positive_fraction, cfg.rpn_fg_iou_thresh,
                               cfg.rpn_bg_iou_thresh, cfg.rpn_box_reg_weights,
                               cfg.rpn_smooth_l1_beta)
+        if global_count is not None:
+            b = int(global_count(torch.tensor(b, device=logits[0].device)))
         normalizer = cfg.rpn_batch_size_per_image * b
         return {'loss_rpn_cls': torch.sum(obj) / normalizer,
                 'loss_rpn_loc': torch.sum(reg) / normalizer}
@@ -224,11 +232,15 @@ class MaskKeypointRCNN(nn.Module):
         return boxes, valid, is_pos, torch.gather(matched_idx, 1, idx)
 
     def roi_head_part(self, fpn_feats, proposals, prop_valid, gt: Dict[str, torch.Tensor],
-                      draws) -> Dict[str, torch.Tensor]:
+                      draws, global_count: Optional[CountReducer] = None
+                      ) -> Dict[str, torch.Tensor]:
         '''The box, mask and keypoint losses on ``proposals`` (B, P, 4),
         which carry no gradient. The heads run on all R sampled ROIs of each
-        image; each loss is masked to the ROIs it counts.'''
+        image; each loss is masked to the ROIs it counts and divided by
+        their count (sampled, positive, visible keypoints), which
+        ``global_count`` sums over the ranks.'''
         cfg = self.cfg
+        count = (lambda c: c) if global_count is None else global_count
         s_boxes, s_valid, s_pos, s_gt_idx = self.sample_rois(proposals, prop_valid, gt,
                                                              draws)
         b, r = s_boxes.shape[:2]
@@ -246,11 +258,11 @@ class MaskKeypointRCNN(nn.Module):
         target = encode_boxes(s_boxes, s_gt_boxes, cfg.box_reg_weights)
         reg = _smooth_l1(box_deltas - target, cfg.box_smooth_l1_beta)
         reg_loss = torch.sum(torch.where(s_pos[..., None], reg, torch.zeros_like(reg)))
-        num_sampled = torch.clamp(torch.sum(s_valid), min=1)
+        num_sampled = torch.clamp(count(torch.sum(s_valid)), min=1)
         losses['loss_cls'] = cls_loss / num_sampled
         losses['loss_box_reg'] = reg_loss / num_sampled
 
-        num_pos = torch.clamp(torch.sum(s_pos), min=1)
+        num_pos = torch.clamp(count(torch.sum(s_pos)), min=1)
         if cfg.mask_on:
             m = cfg.mask_resolution
             pooled = self.train_pool(fpn_feats, s_boxes, cfg.mask_pooler_resolution)
@@ -274,27 +286,34 @@ class MaskKeypointRCNN(nn.Module):
             tgt_valid = tgt_valid & s_pos[..., None]
             logp = torch.log_softmax(kp_logits, dim=-1)
             kp_ce = -torch.gather(logp, -1, tgt_idx[..., None])[..., 0]
-            num_visible = torch.clamp(torch.sum(tgt_valid), min=1)
+            num_visible = torch.clamp(count(torch.sum(tgt_valid)), min=1)
             losses['loss_keypoint'] = torch.sum(
                 torch.where(tgt_valid, kp_ce, torch.zeros_like(kp_ce))) / num_visible
         return losses
 
     def losses(self, images: torch.Tensor, gt: Dict[str, torch.Tensor], draws,
-               image_sizes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               image_sizes: Optional[torch.Tensor] = None,
+               global_count: Optional[CountReducer] = None) -> Dict[str, torch.Tensor]:
         '''Training losses. images (B, 3, S, S) normalized f32; gt holds
         boxes (B, G, 4), valid (B, G), masks (B, G, S, S) bool and keypoints
-        (B, G, K, 3 [x, y, vis]); ``draws`` from :func:`draw_loss_uniforms`.'''
+        (B, G, K, 3 [x, y, vis]); ``draws`` from :func:`draw_loss_uniforms`.
+
+        Each loss divides a sum over the batch by a count over the batch.
+        With ``global_count`` (data-parallel training: a sum over the ranks,
+        ``parallel.data_parallel``) the counts are the global batch's, so
+        each rank's loss is its share of the global batch's loss; without
+        it the batch is the whole batch, and nothing else changes.'''
         b = images.shape[0]
         if image_sizes is None:
             image_sizes = torch.tensor([images.shape[2:]], dtype=torch.float32,
                                        device=images.device).repeat(b, 1)
         fpn_feats = self.features(images)
         proposals, prop_valid, rpn_out = self.proposals(fpn_feats, image_sizes, train=True)
-        losses = self.rpn_part(rpn_out, gt, draws['rpn'])
+        losses = self.rpn_part(rpn_out, gt, draws['rpn'], global_count)
         # no gradient through the proposals (Detectron2 decodes them under
         # no_grad; the JAX package's stop_gradient)
         losses.update(self.roi_head_part(fpn_feats, proposals.detach(), prop_valid, gt,
-                                         draws['roi']))
+                                         draws['roi'], global_count))
         losses['total_loss'] = sum(losses.values())
         return losses
 

@@ -9,6 +9,7 @@ embedded in a zero halo, uint8 in and out. On a CUDA tensor
 runs :func:`clean_frames_plain`, which is bit-exact with the kernel.
 '''
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -28,6 +29,15 @@ _OFFSETS = strel_offsets(ELLIPSE_9X9)
 
 # launches of the CUDA kernel since the count was last set to 0
 launch_count = 0
+_count_lock = threading.Lock()
+
+
+def _add_launch() -> None:
+    '''Add one to ``launch_count`` under a lock: sessions on threads of one process
+    count into it at once, and ``+=`` on a module global is not atomic.'''
+    global launch_count
+    with _count_lock:
+        launch_count += 1
 
 
 class TilePlan(NamedTuple):
@@ -122,7 +132,6 @@ def clean_frames_plain(frames: torch.Tensor) -> torch.Tensor:
 
 def clean_frames_cuda(frames: torch.Tensor) -> torch.Tensor:
     '''Launch the kernel on (N, H, W) contiguous uint8 CUDA frames.'''
-    global launch_count
     if frames.device.type != 'cuda' or frames.dtype != torch.uint8 \
             or frames.dim() != 3 or not frames.is_contiguous():
         raise ValueError('frames must be a contiguous (N, H, W) uint8 CUDA tensor')
@@ -137,7 +146,7 @@ def clean_frames_cuda(frames: torch.Tensor) -> torch.Tensor:
         rc = lib.m2de_clean_u8(frames.data_ptr(), out.data_ptr(), n, h, w,
                                plan.tile_h, plan.tile_w, stream)
     native.check(rc, 'clean kernel launch')
-    launch_count += 1
+    _add_launch()
     return out
 
 

@@ -3,8 +3,10 @@ gather of the chosen instance's window.
 
 Port of ``moseq2_detectron_extract_tpu/ops/instances.py``
 (``nms_and_centers``, lines 16-51; ``packbits_device`` and
-``unpackbits_host``, lines 55-75; ``window_origins``, ``gather_selected``
-and ``gather_selected_windows``, lines 117-193).
+``unpackbits_host``, lines 55-75; ``pack_masks_cropped`` and
+``unpack_masks_cropped``, lines 78-116; ``window_origins``,
+``gather_selected``, ``gather_selected_windows`` and
+``gather_selected_mask_windows``, lines 117-193).
 '''
 import numpy as np
 import torch
@@ -119,3 +121,40 @@ def gather_selected_windows(masks, keypoints, chosen_idx, has_instance,
     sel_masks, sel_kpts = gather_selected(masks, keypoints, chosen_idx, has_instance)
     return (crop_windows(sel_masks, origins, crop), sel_kpts,
             crop_windows(chunk, origins, crop))
+
+
+def gather_selected_mask_windows(masks, keypoints, chosen_idx, has_instance, origins,
+                                 crop: int = 160):
+    ''':func:`gather_selected_windows` without the depth windows: (mask_wins
+    (N, crop, crop) uint8, sel_keypoints (N, K, 3)). The prescaled input
+    keeps no full-resolution depth on the device; its depth windows are cut
+    on the host.'''
+    sel_masks, sel_kpts = gather_selected(masks, keypoints, chosen_idx, has_instance)
+    return crop_windows(sel_masks, origins, crop), sel_kpts
+
+
+def pack_masks_cropped(masks: torch.Tensor, centers: torch.Tensor, crop: int = 128):
+    '''Bit-pack a ``crop`` x ``crop`` window of each (N, H, W) mask around its
+    centre (N, 2 [x, y], NaN for an empty frame, taken as 0), the window's
+    origin clamped into the frame (the frame must be at least ``crop`` on
+    each side). Returns (packed (N, crop, crop / 8) uint8, origins (N, 2
+    [y0, x0]) int32).'''
+    n, h, w = masks.shape
+    cx = torch.nan_to_num(centers[:, 0]).to(torch.int32)
+    cy = torch.nan_to_num(centers[:, 1]).to(torch.int32)
+    x0 = torch.clamp(cx - crop // 2, 0, max(w - crop, 0))
+    y0 = torch.clamp(cy - crop // 2, 0, max(h - crop, 0))
+    origins = torch.stack([y0, x0], dim=-1)
+    crops = crop_windows(masks.to(torch.uint8), origins, crop)
+    return packbits_device(crops > 0), origins
+
+
+def unpack_masks_cropped(packed, origins, frame_shape, crop: int = 128) -> np.ndarray:
+    '''Inverse of :func:`pack_masks_cropped` on the host: (N, H, W) uint8.'''
+    crops = unpackbits_host(packed, crop)
+    origins = origins.cpu().numpy() if torch.is_tensor(origins) else np.asarray(origins)
+    h, w = frame_shape
+    out = np.zeros((crops.shape[0], h, w), np.uint8)
+    for i, (y0, x0) in enumerate(origins):
+        out[i, y0:y0 + crop, x0:x0 + crop] = crops[i]
+    return out

@@ -1,7 +1,8 @@
 '''Median and morphology on (N, H, W) frames in plain PyTorch.
 
 Port of ``moseq2_detectron_extract_tpu/ops/morphology.py``: cv2 border
-semantics (the border never wins a min/max; the median replicates edges).
+semantics (the border never wins a min/max; the median replicates edges),
+and ``temporal_median`` (lines 132-138), the median along time.
 
 The elliptical structuring elements of the clean (9x9, 57 taps) and of the
 ROI dilation (10x10, 83 taps) are cv2's ``getStructuringElement(
@@ -143,3 +144,16 @@ def median_blur(frames: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     windows = torch.stack([padded[:, dy:dy + h, dx:dx + w]
                            for dy in range(ksize) for dx in range(ksize)])
     return torch.sort(windows, dim=0).values[(ksize * ksize) // 2].to(frames.dtype)
+
+
+def temporal_median(frames: torch.Tensor, window: int = 3) -> torch.Tensor:
+    '''Median over ``window`` consecutive frames of (N, H, W) frames, the
+    window zero-padded at the ends (``scipy.signal.medfilt`` with a
+    ``[window, 1, 1]`` kernel). Integer frames are sorted in f32 as in
+    :func:`median_blur`.'''
+    r = window // 2
+    n = frames.shape[0]
+    x = frames.float() if not frames.dtype.is_floating_point else frames
+    padded = F.pad(x, (0, 0, 0, 0, r, r))
+    windows = torch.stack([padded[i:i + n] for i in range(window)])
+    return torch.sort(windows, dim=0).values[window // 2].to(frames.dtype)

@@ -12,6 +12,8 @@ runs exactly ``MAX_ITERS`` rounds with no test: once nothing is undecided a
 round changes nothing, so the answer is the early-exit loop's, also where
 the loop is cut at the cap.
 '''
+import threading
+
 import torch
 
 from moseq2_detectron_extract_tpu_torch.ops.boxes import pairwise_iou
@@ -21,6 +23,15 @@ MAX_ITERS = 32
 # host syncs of the fixpoint loop (one per round's convergence test) since
 # the count was last set to 0
 sync_count = 0
+_count_lock = threading.Lock()
+
+
+def _add_sync() -> None:
+    '''Add one to ``sync_count`` under a lock: sessions on threads of one process
+    count into it at once, and ``+=`` on a module global is not atomic.'''
+    global sync_count
+    with _count_lock:
+        sync_count += 1
 
 
 def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None):
@@ -38,13 +49,12 @@ def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None):
     rank_before = (s_j > s_i) | ((s_j == s_i) & (idx[None, :] < idx[:, None]))
     dominates = (iou > iou_threshold) & rank_before & valid[..., None, :]
 
-    global sync_count
     exporting = torch.compiler.is_exporting()
     keep = torch.zeros_like(valid)
     supp = torch.zeros_like(valid)
     for _ in range(MAX_ITERS):
         if not exporting:
-            sync_count += 1
+            _add_sync()
             if not bool(torch.any(valid & ~keep & ~supp)):
                 break
         keep = keep | (valid & ~supp & ~torch.any(dominates & ~supp[..., None, :], dim=-1))

@@ -6,7 +6,10 @@ Port of ``moseq2_detectron_extract_tpu/ops/preprocess.py``
 ``fill_invalid_pixels`` and ``decode_prepped_frames``, lines 26-79 and
 240-246; ``prep_raw_frames``, lines 108-137; ``bbox_from_roi`` and
 ``apply_roi``, lines 326-350; ``scale_raw_frames``, lines 353-366;
-``compute_test_scale``).
+``compute_test_scale``; and the prescaled input's host side,
+``fill_sentinels_host`` and ``prescale_frames_host``, lines 249-320, with
+cv2's INTER_LINEAR resize of uint8 written out, since the card's machine
+has no cv2).
 '''
 import ctypes
 from typing import Optional
@@ -245,3 +248,104 @@ def compute_test_scale(height: int, width: int, min_size: int, max_size: int) ->
     if max(height, width) * scale > max_size:
         scale = max_size / max(height, width)
     return scale
+
+
+def fill_sentinels_host(frames: np.ndarray, sentinel: int) -> np.ndarray:
+    '''Fill the sentinel (dropout) pixels of C-contiguous (N, H, W) frames
+    in place: each takes the last valid value before it on its row, a
+    leading run the first valid value of the row, a row with none 0. The
+    host stand-in for the device fill, used only before the host resize of
+    the prescaled input. Each run of sentinels along a row takes one source
+    pixel, so the work is in the sentinels, not in the frame.'''
+    if not frames.flags.c_contiguous:
+        raise ValueError('fill_sentinels_host fills C-contiguous frames in place')
+    w = frames.shape[-1]
+    flat = frames.reshape(-1)
+    pos = np.flatnonzero(flat == sentinel)
+    if not len(pos):
+        return frames
+    col = pos % w
+    start = np.ones(len(pos), bool)          # a run starts where the pixel before is valid
+    start[1:] = (pos[1:] != pos[:-1] + 1) | (col[1:] == 0)
+    first = np.flatnonzero(start)
+    starts = pos[first]
+    ends = pos[np.append(first[1:] - 1, len(pos) - 1)]
+    src = np.where(starts % w > 0, starts - 1, np.where(ends % w < w - 1, ends + 1, -1))
+    values = np.where(src >= 0, flat[np.maximum(src, 0)], 0).astype(frames.dtype)
+    flat[pos] = values[np.cumsum(start) - 1]
+    return frames
+
+
+_COEF_BITS = 11                      # cv2's INTER_RESIZE_COEF_BITS
+_COEF_SCALE = 1 << _COEF_BITS
+_RESIZE_BLOCK = 16                   # frames resized at once (int32 working set ~10 MB)
+
+
+def _linear_taps(src: int, dst: int, clamp: bool):
+    '''cv2's bilinear taps along one axis: the first source index and the
+    two 11-bit weights of each output index. The position is
+    ``(d + 0.5) * scale - 0.5`` in f64 with ``scale = 1 / (dst / src)``, cast
+    to f32; its floor is the index and the rest the fraction, both weights
+    rounded half to even. Along x an index outside ``[0, src - 1)`` is
+    clamped with fraction 0; along y the index stays, and each row read is
+    clamped instead.'''
+    scale = 1.0 / (dst / src)
+    pos = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    first = np.floor(pos).astype(np.int64)
+    frac = (pos - first.astype(np.float32)).astype(np.float32)
+    if clamp:
+        low = first < 0
+        frac[low], first[low] = 0, 0
+        high = first >= src - 1
+        frac[high], first[high] = 0, src - 1
+    w0 = np.rint((np.float32(1) - frac) * np.float32(_COEF_SCALE)).astype(np.int64)
+    w1 = np.rint(frac * np.float32(_COEF_SCALE)).astype(np.int64)
+    return first, w0, w1
+
+
+def resize_linear_u8(images: np.ndarray, width: int, height: int) -> np.ndarray:
+    '''``cv2.resize(image, (width, height), interpolation=INTER_LINEAR)`` of
+    each uint8 image of (..., H, W) ``images``, as OpenCV 5.0 computes it: the
+    horizontal pass in exact integers, then the vertical pass as its vector
+    code rounds, each 22-bit fixed-point sum taken as ``((s0 >> 4) * b0 >>
+    16) + ((s1 >> 4) * b1 >> 16)``, then ``+ 2 >> 2`` and saturated to
+    uint8. Every step fits int32.'''
+    h, w = images.shape[-2:]
+    sx, a0, a1 = _linear_taps(w, width, clamp=True)
+    sy, b0, b1 = _linear_taps(h, height, clamp=False)
+    x = images.astype(np.int32)
+    rows = x[..., sx] * a0.astype(np.int32) + \
+        x[..., np.minimum(sx + 1, w - 1)] * a1.astype(np.int32)
+    s0 = rows[..., np.clip(sy, 0, h - 1), :]
+    s1 = rows[..., np.clip(sy + 1, 0, h - 1), :]
+    out = (((s0 >> 4) * b0.astype(np.int32)[:, None]) >> 16) + \
+        (((s1 >> 4) * b1.astype(np.int32)[:, None]) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+def prescale_frames_host(frames: np.ndarray, cfg, vmin: float, vmax: float,
+                         fill_sentinel=None) -> np.ndarray:
+    '''The model's input on the host: (N, H, W) sentinel-encoded frames to
+    (N, canvas, canvas) uint8 with the resized frame in the top-left corner
+    (``Predictor.predict_prescaled``'s input). The sentinels are filled along
+    the rows (:func:`fill_sentinels_host`), ``[vmin, vmax]`` is scaled onto
+    0-255 in f32 and cast by numpy's ``astype('uint8')`` (out-of-range
+    heights come out as numpy casts them, not saturated), then each frame is
+    resized as cv2's INTER_LINEAR resizes it (:func:`resize_linear_u8`) to
+    the ResizeShortestEdge size. ``frames`` is not modified.'''
+    n, h, w = frames.shape
+    canvas = cfg.image_size
+    scale = compute_test_scale(h, w, cfg.min_size_test, cfg.max_size_test)
+    new_h = min(int(h * scale + 0.5), canvas)
+    new_w = min(int(w * scale + 0.5), canvas)
+    out = np.zeros((n, canvas, canvas), np.uint8)
+    # a block of frames at a time, each step's working set in the cache
+    for i in range(0, n, _RESIZE_BLOCK):
+        work = frames[i:i + _RESIZE_BLOCK].copy()
+        if fill_sentinel is not None:
+            work = fill_sentinels_host(work, int(fill_sentinel))
+        scaled = ((work.astype('float32') - float(vmin))
+                  * (255.0 / (float(vmax) - float(vmin)))).astype('uint8')
+        out[i:i + _RESIZE_BLOCK, :new_h, :new_w] = scaled if (new_h, new_w) == (h, w) \
+            else resize_linear_u8(scaled, new_w, new_h)
+    return out

@@ -14,6 +14,7 @@ records the op in the graph (``models/deploy.py``) instead of tracing the
 ``ctypes`` call, which needs real device pointers.
 '''
 import ctypes
+import threading
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -27,6 +28,15 @@ WARPS_PER_SM = 8          # warps the plan aims to put on each SM
 
 # launches of the CUDA kernel since the count was last set to 0
 launch_count = 0
+_count_lock = threading.Lock()
+
+
+def _add_launch() -> None:
+    '''Add one to ``launch_count`` under a lock: sessions on threads of one process
+    count into it at once, and ``+=`` on a module global is not atomic.'''
+    global launch_count
+    with _count_lock:
+        launch_count += 1
 
 
 class RoiPlan(NamedTuple):
@@ -63,7 +73,6 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     '''Launch the kernel: NHWC bf16 levels (B, H_l, W_l, C), any batch, row
     and column strides with channel stride 1; boxes (B, K, 4) f32 ->
     (B, K, out, out, C) bf16, on the current stream.'''
-    global launch_count
     if not 1 <= len(features) <= 4:
         raise ValueError(f'1 to 4 pyramid levels supported, got {len(features)}')
     if not 1 <= output_size <= MAX_OUTPUT_SIZE:
@@ -96,7 +105,7 @@ def roi_align_cuda(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                                      boxes.data_ptr(), out.data_ptr(), b, k, c,
                                      output_size, plan.vec, plan.segs, stream)
     native.check(rc, 'roi_align kernel launch')
-    launch_count += 1
+    _add_launch()
     return out
 
 

@@ -5,7 +5,9 @@ Port of ``moseq2_detectron_extract_tpu/pipeline/pipeline.py`` (lines
 16-106): ``add_step``, ``link`` (a step has one input), timed callbacks,
 ``start``, ``is_running`` and ``shutdown``, whose join waits at most
 ``timeout`` seconds a step and raises ``WorkerError`` with each failed
-step's traceback.
+step's traceback. The step threads log for the log owner of the thread
+that starts them, so that sessions on threads of one process keep their
+own log files.
 '''
 import logging
 import queue
@@ -13,6 +15,9 @@ import threading
 import time
 from typing import Callable, List, NamedTuple, Type
 
+import torch
+
+from moseq2_detectron_extract_tpu_torch.io.util import inherit_log_owner
 from moseq2_detectron_extract_tpu_torch.pipeline.pipeline_step import PipelineStep
 from moseq2_detectron_extract_tpu_torch.pipeline.progress import ProcessProgress
 
@@ -82,10 +87,15 @@ class Pipeline:
         self._callbacks.append(_TimedCallback(interval, callback, self))
 
     def start(self) -> None:
+        '''Start the steps and the callbacks, each working for the calling
+        thread's log owner (``io.util.inherit_log_owner``); the steps run
+        with the calling thread's current CUDA device.'''
+        cuda_device = torch.cuda.current_device() if torch.cuda.is_initialized() else None
         for step in self.steps:
-            step.start()
+            step.cuda_device = cuda_device
+            inherit_log_owner(step).start()
         for cb in self._callbacks:
-            cb.start()
+            inherit_log_owner(cb).start()
 
     def is_running(self) -> bool:
         '''True while a step is still working and none has failed.'''

@@ -14,6 +14,8 @@ import time
 import traceback
 from typing import List, Optional
 
+import torch
+
 
 class PipelineStep(threading.Thread):
     '''One stage of the pipeline, run on its own thread.'''
@@ -36,6 +38,10 @@ class PipelineStep(threading.Thread):
         self.busy_seconds = 0.0
         self.cpu_seconds = 0.0
         self.items_processed = 0
+        # the CUDA device the thread makes current (Pipeline.start gives the
+        # starting thread's), so that launches without a tensor's device
+        # follow the session's card
+        self.cuda_device: Optional[int] = None
 
     # -- hooks ---------------------------------------------------------------
     def initialize(self):
@@ -76,6 +82,13 @@ class PipelineStep(threading.Thread):
                     continue
 
     def run(self):
+        if self.cuda_device is None:
+            self._run()
+        else:
+            with torch.cuda.device(self.cuda_device):
+                self._run()
+
+    def _run(self):
         try:
             self.initialize()
             if self.input_queue is None:

@@ -4,10 +4,11 @@ results writer; as functions of one chunk, and as the pipeline's steps.
 
 Port of ``moseq2_detectron_extract_tpu/pipeline/steps.py``:
 ``ProduceFramesStep`` (lines 40-86) as the generator ``produce_chunks``;
-``InferenceStep.process`` (lines 112-155, the ``device_input='full'``
-branch) as ``run_inference``, ``SelectInstancesStep._select_instances``
-(lines 200-310, the branch with the depth chunk on the device, with the
-instance log) and its height-stats dispatch (181-190),
+``InferenceStep.process`` (lines 112-155) as ``run_inference`` and, for
+``device_input='prescaled'``, ``run_inference_prescaled``;
+``SelectInstancesStep._select_instances`` (lines 200-310, with the instance
+log; with the prescaled input, the depth windows cut on the host and
+filled on the device, 288-302) and its height-stats dispatch (181-190),
 ``ProcessFeaturesStep`` (311-401) and ``FetchResultsStep`` (403-445), as
 functions of one chunk; then the step classes around them,
 ``ResultWriterStep`` (447-494), and the preview's ``PreviewVideoWriterStep``
@@ -34,11 +35,13 @@ from moseq2_detectron_extract_tpu_torch.io.result import (create_extract_h5,
                                                           write_extracted_chunk_to_h5)
 from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
 from moseq2_detectron_extract_tpu_torch.models.instance_logger import InstanceLogger
-from moseq2_detectron_extract_tpu_torch.ops.instances import (gather_selected_windows,
+from moseq2_detectron_extract_tpu_torch.ops.instances import (gather_selected_mask_windows,
+                                                              gather_selected_windows,
                                                               packbits_device, unpackbits_host,
                                                               window_origins)
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import (decode_prepped_frames,
                                                                prep_raw_frames_host,
+                                                               prescale_frames_host,
                                                                scale_raw_frames)
 from moseq2_detectron_extract_tpu_torch.ops.warp import crop_and_rotate_frames
 from moseq2_detectron_extract_tpu_torch.proc.features import (dispatch_instance_features,
@@ -95,6 +98,23 @@ def run_inference(chunk: torch.Tensor, predictor, config: Dict) -> Dict:
     return {'chunk_dev': chunk_dev, 'inference': predictor(frames)}
 
 
+def run_inference_prescaled(chunk: np.ndarray, predictor, config: Dict) -> Dict:
+    '''The prescaled input: fill the sentinel-encoded uint8 chunk's dropouts
+    along the rows, scale and resize it to the model's canvas on the host
+    (``prescale_frames_host``), and upload only that for the predictor
+    (``predict_prescaled``, with the fused selection). The host chunk keeps
+    its sentinels: ``select_instances`` cuts the depth windows from it.
+
+    Returns ``inference`` and ``h2d_bytes``, the bytes of the upload.
+    '''
+    chunk = np.asarray(chunk)
+    canvas = prescale_frames_host(chunk, predictor.cfg, vmin=config['min_height'],
+                                  vmax=config['max_height'],
+                                  fill_sentinel=np.iinfo(chunk.dtype).max)
+    return {'inference': predictor.predict_prescaled(canvas, chunk.shape[1:], select=True),
+            'h2d_bytes': canvas.nbytes}
+
+
 def make_tracker() -> CentroidTracker:
     '''The selection loop's tracker, with the extract settings.'''
     return CentroidTracker(distance_threshold=50, hit_counter_max=3)
@@ -109,7 +129,10 @@ def select_instances(data: Dict, config: Dict, tracker: CentroidTracker,
 
     Adds ``chosen_idx``, ``num_instances``, ``kept_boxes``, ``win_origins``
     (N, 2 [y0, x0]), ``sel_masks`` (N, c, c) uint8, ``sel_keypoints``
-    (N, K, 3) and ``raw_windows`` (N, c, c).
+    (N, K, 3) and ``raw_windows`` (N, c, c). Without ``chunk_dev`` (the
+    prescaled input) the depth windows are cut from the host ``chunk``,
+    uploaded (their bytes added to ``h2d_bytes``) and filled on the device,
+    and ``chunk`` then has its sentinels zeroed.
     '''
     inference = data['inference']
     expected = config.get('expected_instances', 1)
@@ -152,16 +175,29 @@ def select_instances(data: Dict, config: Dict, tracker: CentroidTracker,
     sel_centers = np.stack([(chosen_boxes[:, 0] + chosen_boxes[:, 2]) / 2,
                             (chosen_boxes[:, 1] + chosen_boxes[:, 3]) / 2], axis=1)
     sel_centers[num_instances <= 0] = np.nan
-    chunk_dev = data['chunk_dev']
-    h, w = chunk_dev.shape[1], chunk_dev.shape[2]
+    chunk_dev = data.get('chunk_dev')
+    h, w = data['chunk'].shape[1:] if chunk_dev is None else chunk_dev.shape[1:]
     crop = min(int(config.get('feature_window', 160)), h, w)
     origins = window_origins(sel_centers, (h, w), crop)
-    dev = chunk_dev.device
-    mask_wins, sel_kpts, raw_wins = gather_selected_windows(
-        inference['masks'], inference['keypoints'],
-        torch.as_tensor(chosen_idx, dtype=torch.long, device=dev),
-        torch.as_tensor(num_instances > 0, device=dev),
-        torch.as_tensor(origins, device=dev), chunk_dev, crop=crop)
+    dev = inference['masks'].device
+    gather_args = (inference['masks'], inference['keypoints'],
+                   torch.as_tensor(chosen_idx, dtype=torch.long, device=dev),
+                   torch.as_tensor(num_instances > 0, device=dev),
+                   torch.as_tensor(origins, device=dev))
+    if chunk_dev is not None:
+        mask_wins, sel_kpts, raw_wins = gather_selected_windows(*gather_args, chunk_dev,
+                                                                crop=crop)
+    else:
+        # the prescaled input: cut the sentinel-encoded windows from the host
+        # chunk, upload and fill them, then zero the host chunk's sentinels
+        mask_wins, sel_kpts = gather_selected_mask_windows(*gather_args, crop=crop)
+        chunk = np.asarray(data['chunk'])
+        wins = np.empty((n, crop, crop), chunk.dtype)
+        for i, (y0, x0) in enumerate(origins):
+            wins[i] = chunk[i, y0:y0 + crop, x0:x0 + crop]
+        raw_wins = decode_prepped_frames(torch.from_numpy(wins).to(dev))
+        data['h2d_bytes'] = data.get('h2d_bytes', 0) + wins.nbytes
+        data['chunk'] = zero_host_sentinels(chunk)
     data.update(kept_boxes=boxes, chosen_idx=chosen_idx,
                 num_instances=num_instances, win_origins=origins,
                 sel_masks=mask_wins, sel_keypoints=sel_kpts,
@@ -234,7 +270,12 @@ def process_features(data: Dict, config: Dict, trackers: FeatureTrackers,
     mask_wins = features['masks'].to(torch.uint8)
     local_centroids = np.asarray(centroids, dtype='float64') - \
         np.asarray(data['win_origins'])[:, ::-1]
-    cropped = crop_and_rotate_frames(data['chunk_dev'], centroids, angles, crop)
+    if data.get('chunk_dev') is not None:
+        cropped = crop_and_rotate_frames(data['chunk_dev'], centroids, angles, crop)
+    else:
+        # the prescaled input: crop the depth from the filled windows; taps
+        # beyond a window are arena floor (0 in prepped depth)
+        cropped = crop_and_rotate_frames(data['raw_windows'], local_centroids, angles, crop)
     cropped_masks = crop_and_rotate_frames(mask_wins, local_centroids, angles, crop)
     data['dev_cropped'] = torch.clamp(torch.round(cropped), 0, 255).to(
         getattr(torch, config['frame_dtype']))
@@ -308,14 +349,16 @@ class ProduceFramesStep(PipelineStep):
 
 
 class InferenceStep(PipelineStep):
-    '''Device decode, scaling and detection of each chunk
-    (``run_inference``). The Predictor is ``config['predictor']`` when given,
-    else loaded from ``config['model']`` onto ``config['device']``.'''
+    '''Device decode, scaling and detection of each chunk (``run_inference``),
+    or with ``device_input='prescaled'`` the host prescale and detection
+    (``run_inference_prescaled``). The Predictor is ``config['predictor']``
+    when given, else loaded from ``config['model']`` onto
+    ``config['device']``.'''
 
     def initialize(self):
-        if self.config.get('device_input', 'full') != 'full':
-            raise NotImplementedError("device_input='prescaled' is not ported yet (it resizes "
-                                      "on the host with cv2); use 'full'")
+        self.device_input = self.config.get('device_input', 'full')
+        if self.device_input not in ('full', 'prescaled'):
+            raise ValueError(f'device_input must be full or prescaled, not {self.device_input!r}')
         predictor = self.config.get('predictor')
         if predictor is None:
             from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
@@ -327,10 +370,22 @@ class InferenceStep(PipelineStep):
         self.predictor = predictor
 
     def process(self, data):
-        data.update(run_inference(torch.as_tensor(data['chunk']), self.predictor, self.config))
-        # the upload has completed (run_inference): zero the sentinels for
-        # the host's readers, as the reference does
-        data['chunk'] = zero_host_sentinels(data['chunk'])
+        if self.device_input == 'prescaled' and np.asarray(data['chunk']).dtype != np.uint8:
+            # the host prescale maps heights onto 0-255; the reference also
+            # goes back to the full-resolution input for uint16 frames
+            logging.warning("device_input='prescaled' requires uint8 frames; "
+                            'falling back to full-resolution device input')
+            self.device_input = 'full'
+        if self.device_input == 'prescaled':
+            # the host chunk keeps its sentinels: the selection cuts its depth
+            # windows from it, then zeroes them
+            data.update(run_inference_prescaled(data['chunk'], self.predictor, self.config))
+        else:
+            data.update(run_inference(torch.as_tensor(data['chunk']), self.predictor,
+                                      self.config))
+            # the upload has completed (run_inference): zero the sentinels for
+            # the host's readers, as the reference does
+            data['chunk'] = zero_host_sentinels(data['chunk'])
         self.update_progress(len(data['frame_idxs']))
         return data
 

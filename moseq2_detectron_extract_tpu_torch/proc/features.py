@@ -2,13 +2,15 @@
 and the host brain that follows it.
 
 Port of ``moseq2_detectron_extract_tpu/proc/features.py`` (``clean_frames``,
-lines 46-80; ``_frame_features_nocc``; the flip votes and keypoint helpers,
+lines 46-80; ``_frame_features_impl``, ``_frame_features_nocc`` and
+``get_frame_features``, 84-140; the flip votes and keypoint helpers,
 143-221; ``dispatch_instance_features``, 224-257;
-``finish_instance_features``, 260-403, with ``_dump_debug_rows``, 443).
-``clean_frames`` takes the extract defaults (median 3, 9x9-ellipse open x3,
-uint8) only, which is the fused clean: the CUDA kernel on the card, its
-bit-exact plain version on the CPU. Both follow the TPU kernel's zero halo,
-which equals the cv2-border ops path on zero-bordered frames.
+``finish_instance_features``, 260-403; ``instances_to_features``, 406-440;
+``_dump_debug_rows``, 443). ``clean_frames`` with extract's parameters
+(median 3, 9x9-ellipse open x3, uint8) is the fused clean: the CUDA kernel
+on the card, its bit-exact plain version on the CPU. Both follow the TPU
+kernel's zero halo, which equals the cv2-border ops path on zero-bordered
+frames; other parameters take that ops path.
 
 The brain is host work in f64: the Kalman trackers of ``proc.kalman``, the
 keypoint flip votes and the angle filter (``kalman.angle_intervention_filter``,
@@ -25,8 +27,13 @@ import numpy as np
 import torch
 
 from moseq2_detectron_extract_tpu_torch.io.util import find_unused_file_path
+from moseq2_detectron_extract_tpu_torch.device import resolve_device
+from moseq2_detectron_extract_tpu_torch.ops.cc import largest_cc
 from moseq2_detectron_extract_tpu_torch.ops.clean_kernel import fused_clean_frames
 from moseq2_detectron_extract_tpu_torch.ops.moments import mask_moment_features
+from moseq2_detectron_extract_tpu_torch.ops.morphology import (ELLIPSE_9X9, erode,
+                                                               make_rect_strel, median_blur,
+                                                               morph_open, temporal_median)
 from moseq2_detectron_extract_tpu_torch.proc.angles import (angle_difference, clamp_angles_deg,
                                                             iterative_filter_angles)
 from moseq2_detectron_extract_tpu_torch.proc.kalman import (KalmanTracker,
@@ -34,11 +41,45 @@ from moseq2_detectron_extract_tpu_torch.proc.kalman import (KalmanTracker,
 from moseq2_detectron_extract_tpu_torch.proc.keypoints import rotate_points_batch
 
 
-def clean_frames(frames: torch.Tensor) -> torch.Tensor:
-    '''3x3 median + three openings with the 9x9 ellipse of (N, H, W) frames,
-    as uint8: the extract defaults (``prefilter_space=(3,)``,
-    ``iters_tail=3``), the only parameters ported.'''
-    return fused_clean_frames(frames.to(torch.uint8))
+def clean_frames(frames: torch.Tensor, prefilter_space=(3,), prefilter_time=None,
+                 strel_tail=None, iters_tail: Optional[int] = 3, frame_dtype='uint8',
+                 strel_min=None, iters_min: Optional[int] = None) -> torch.Tensor:
+    '''Median filter and morphological opening of (N, H, W) frames.
+
+    Extract's parameters (the defaults here: ``prefilter_space=(3,)``,
+    ``iters_tail=3``, uint8; the reference's signature defaults
+    ``iters_tail`` to None and extract passes 3) are the fused clean: the
+    CUDA kernel on the card, its bit-exact plain version on the CPU, with
+    the TPU kernel's zero halo. Any other parameters run the reference's
+    ops path with cv2's borders, in its order: ``iters_min`` erosions by
+    ``strel_min`` (5x5 rectangle), a median of each ``prefilter_space``
+    size (all must be > 0), ``iters_tail`` openings by ``strel_tail`` (the
+    9x9 ellipse), then a temporal median of each ``prefilter_time`` size
+    when all are in ``(0, N]``.
+    '''
+    dtype = torch.from_numpy(np.empty(0, np.dtype(frame_dtype))).dtype
+    default_params = (tuple(prefilter_space or ()) == (3,) and prefilter_time is None
+                      and strel_tail is None and iters_tail == 3 and strel_min is None
+                      and not iters_min and dtype == torch.uint8)
+    x = frames.to(dtype)
+    if default_params:
+        return fused_clean_frames(x)
+    if dtype == torch.uint16:
+        x = x.float()         # torch has no uint16 min/max; f32 holds every value exactly
+    strel_tail = ELLIPSE_9X9 if strel_tail is None else np.asarray(strel_tail)
+    strel_min = make_rect_strel((5, 5)) if strel_min is None else np.asarray(strel_min)
+    if iters_min is not None and iters_min > 0:
+        x = erode(x, strel_min, iters_min)
+    if prefilter_space is not None and np.all(np.array(prefilter_space) > 0):
+        for size in prefilter_space:
+            x = median_blur(x, int(size))
+    if iters_tail is not None and iters_tail > 0:
+        x = morph_open(x, strel_tail, iters_tail)
+    if (prefilter_time is not None and np.all(np.array(prefilter_time) > 0)
+            and np.all(np.array(prefilter_time) <= x.shape[0])):
+        for size in prefilter_time:
+            x = temporal_median(x, int(size))
+    return x.to(dtype)
 
 
 def frame_features_nocc(cleaned: torch.Tensor, model_masks: torch.Tensor,
@@ -47,6 +88,50 @@ def frame_features_nocc(cleaned: torch.Tensor, model_masks: torch.Tensor,
     all-true for uint8 frames and a negative CC threshold, is skipped).'''
     frame_mask = (cleaned > frame_threshold) & (model_masks > 0)
     return mask_moment_features(frame_mask), frame_mask
+
+
+def frame_features_cc(cleaned: torch.Tensor, model_masks: torch.Tensor,
+                      frame_threshold: float, mask_threshold: float):
+    '''threshold AND the largest component of ``cleaned > mask_threshold``
+    AND model mask -> moments.'''
+    frame_mask = (cleaned > frame_threshold) & largest_cc(cleaned > mask_threshold) & \
+        (model_masks > 0)
+    return mask_moment_features(frame_mask), frame_mask
+
+
+def get_frame_features(frames, frame_threshold: float = 10, mask=None,
+                       mask_threshold: float = -30, use_cc: bool = False, device=None):
+    '''Image-moment features of each frame's blob: the pixels above
+    ``frame_threshold`` inside ``mask`` (N, H, W; none or empty: every
+    pixel), with ``use_cc`` also inside the largest 4-connected component of
+    ``frames > mask_threshold``. For unsigned frames and a negative
+    ``mask_threshold`` that component is the whole frame, and it is not
+    computed (the reference skips it too).
+
+    ``frames`` is a tensor, or an array put on ``device`` (default: CUDA).
+    Returns (features, masks): ``centroid`` (N, 2), ``orientation`` (N,) and
+    ``axis_length`` (N, 2) as f64 numpy, and the (N, H, W) bool mask on the
+    frames' device.
+    '''
+    if not torch.is_tensor(frames):
+        frames = torch.as_tensor(np.asarray(frames), device=resolve_device(
+            'cuda' if device is None else device))
+    if mask is None or (isinstance(mask, np.ndarray) and mask.size == 0):
+        model_masks = torch.ones(frames.shape, dtype=torch.uint8, device=frames.device)
+    else:
+        model_masks = torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask) else mask,
+                                      device=frames.device).to(torch.uint8)
+    unsigned = frames.dtype in (torch.uint8, torch.uint16, torch.uint32, torch.uint64,
+                                torch.bool)
+    cc_trivially_true = use_cc and mask_threshold < 0 and unsigned
+    if use_cc and not cc_trivially_true:
+        feats, frame_mask = frame_features_cc(frames, model_masks, float(frame_threshold),
+                                              float(mask_threshold))
+    else:
+        feats, frame_mask = frame_features_nocc(frames, model_masks, float(frame_threshold))
+    features = {key: feats[key].cpu().numpy().astype(float)
+                for key in ('centroid', 'orientation', 'axis_length')}
+    return features, frame_mask
 
 
 def dispatch_instance_features(masks: torch.Tensor, raw_frames: torch.Tensor,
@@ -289,6 +374,27 @@ def finish_instance_features(dispatched: Dict, keypoints, num_instances: np.ndar
         'keypoints': keypoints,
         'num_instances': np.asarray(num_instances),
     }
+
+
+def instances_to_features(masks, keypoints, num_instances: np.ndarray, raw_frames,
+                          point_tracker: Optional[KalmanTracker],
+                          angle_tracker: Optional[KalmanTracker], debug: bool = False,
+                          debug_dir: str = '.', timers: Optional[Dict[str, float]] = None,
+                          window_origins=None) -> Dict:
+    '''The feature stage and the brain in one call:
+    :func:`dispatch_instance_features`, then :func:`finish_instance_features`.
+
+    ``masks`` (N, H, W) the selected instance's model mask and
+    ``raw_frames`` (N, H, W) the prepped depth, both tensors on one device,
+    or with ``window_origins`` (N, 2 [y0, x0]) their windows around each
+    detection (centroids then come back in frame coordinates);
+    ``keypoints`` (N, K, 3 [x, y, score]). Returns what
+    :func:`finish_instance_features` returns.
+    '''
+    dispatched = dispatch_instance_features(masks, raw_frames, window_origins=window_origins)
+    return finish_instance_features(dispatched, keypoints, num_instances, point_tracker,
+                                    angle_tracker, debug=debug, debug_dir=debug_dir,
+                                    timers=timers)
 
 
 def _dump_debug_rows(rows, path):

@@ -11,16 +11,24 @@ costs only the resident high-water mark.
 import ctypes
 import ctypes.util
 import logging
+import threading
 
 _M_TRIM_THRESHOLD = -1
 _M_MMAP_THRESHOLD = -3
 
 _done = False
+_lock = threading.Lock()
 
 
 def tune_host_allocator(threshold_bytes: int = 1 << 30) -> bool:
     '''Keep freed blocks up to ``threshold_bytes`` in the heap for reuse.
-    Idempotent; True when ``mallopt`` took both thresholds.'''
+    Idempotent, and safe to call from several sessions' threads at once;
+    True when ``mallopt`` took both thresholds.'''
+    with _lock:
+        return _tune(threshold_bytes)
+
+
+def _tune(threshold_bytes: int) -> bool:
     global _done
     if _done:
         return True

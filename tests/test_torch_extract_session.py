@@ -113,10 +113,12 @@ def session_paths(tmp_path_factory):
                                           nframes=NFRAMES, seed=seed) for seed in SEEDS}
 
 
-def jax_chunks(path, predictor, config, tmp_dir):
+def jax_chunks(path, predictor, config, tmp_dir, read_only=True):
     '''The reference: find_roi, then the pipeline's steps in turn. Each
     chunk's selection output (which the back end reads but does not change)
-    carries the back end's output as ``fetched``.'''
+    carries the back end's output as ``fetched``. ``read_only=False`` leaves
+    the chunks writable, as the prescaled input needs (its selection zeroes
+    the host chunk's sentinels in place, after the decode has read copies).'''
     session = JaxSession(path)
     session._bground_im = make_background()       # as the JAX integration tests do
     session.find_roi()
@@ -136,7 +138,7 @@ def jax_chunks(path, predictor, config, tmp_dir):
         # alias that buffer, so the decode could read the zeroed chunk. A
         # read-only chunk makes the step zero a copy instead.
         chunk = item['chunk']
-        chunk.flags.writeable = False
+        chunk.flags.writeable = not read_only
         data = select.process(inference.process(dict(item)))
         fetched = fetch.process(features.process(dict(data)))
         out.append(dict(data, chunk=chunk, fetched=fetched))
@@ -703,18 +705,33 @@ def test_cli_config_file_precedence(tmp_path):
 
 
 @pytest.mark.parametrize('flag', [['--device-input', 'prescaled']])
-def test_cli_options_not_ported_raise(flag, session_paths, tmp_path):
-    from moseq2_detectron_extract_tpu_torch import cli
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        cli.main(['extract', session_paths[9], '--device', 'cpu',
-                  '--output-dir', str(tmp_path)] + flag)
+def test_cli_options_not_ported_raise(flag, session_paths, tmp_path, monkeypatch):
+    '''``--device-input prescaled`` raised while it was not ported; it now
+    reaches the session's config (``test_torch_prescaled.py`` runs it).'''
+    from moseq2_detectron_extract_tpu_torch import cli, extract
+    seen = {}
+
+    def fake_extract_session(session, config):
+        seen.update(config)
+        return os.path.join(str(tmp_path), 'results_00.yaml')
+
+    monkeypatch.setattr(extract, 'extract_session', fake_extract_session)
+    assert cli.main(['extract', session_paths[9], '--device', 'cpu',
+                     '--output-dir', str(tmp_path)] + flag) == 0
+    assert seen['device_input'] == flag[1]
     assert not os.path.exists(os.path.join(str(tmp_path), 'results_00.yaml'))
 
 
 def test_inference_step_refuses_prescaled_input():
+    '''The step takes ``prescaled`` now (it refused it while it was not
+    ported), and refuses an input mode that does not exist.'''
     from moseq2_detectron_extract_tpu_torch.pipeline.steps import InferenceStep
-    step = InferenceStep(step_name='inference', config={'device_input': 'prescaled'})
-    with pytest.raises(NotImplementedError, match='prescaled'):
+    step = InferenceStep(step_name='inference',
+                         config={'device_input': 'prescaled', 'predictor': object()})
+    step.initialize()
+    assert step.device_input == 'prescaled'
+    step = InferenceStep(step_name='inference', config={'device_input': 'halfway'})
+    with pytest.raises(ValueError, match='halfway'):
         step.initialize()
 
 

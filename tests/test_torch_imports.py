@@ -12,8 +12,11 @@ synthetic Label Studio export of PNG views, two steps, a checkpoint, then
 ``manual-flip``, ``trim-result``, ``generate-extract-config``,
 ``dataset-info``, ``system-info``), compressed depth and dataset generation
 (``convert-raw-to-avi``, an FFV1 read, ``generate-dataset`` with its
-k-means, without sklearn), the C++ Kalman core and the stage-2 experiment's
-check on the CPU with all of them blocked.'''
+k-means, without sklearn), the last slice (``extract --device-input
+prescaled``, ``extract-batch`` printing and in process, the largest
+component, the temporal median, the CC features, one data-parallel step),
+the C++ Kalman core and the stage-2 experiment's check on the CPU with all
+of them blocked.'''
 import ast
 import os
 import subprocess
@@ -202,6 +205,55 @@ with tempfile.TemporaryDirectory() as tmp:
                      '--sample-method', 'kmeans', '--num-samples', '4', '--device', 'cpu']) == 0
     with open(os.path.join(gen, 'tasks.json'), encoding='utf-8') as fh:
         assert len(json.load(fh)) == 4
+    # the last slice: extract with the prescaled input (the host resize
+    # without cv2), extract-batch (emit, then in process on the CPU), the
+    # off-path ops, and one data-parallel step at world 1 over gloo
+    pout = os.path.join(tmp, 'prescaled')
+    assert cli.main(['extract', os.path.join(tmp, 'depth.dat'), '--model', mdir,
+                     '--device', 'cpu', '--chunk-size', '8', '--output-dir', pout,
+                     '--device-input', 'prescaled']) == 0
+    assert read_yaml(os.path.join(pout, 'results_00.yaml'))['complete'] is True
+    batch_dir = os.path.join(tmp, 'batch')
+    os.makedirs(batch_dir)
+    shutil.copy(os.path.join(tmp, 'depth.dat'), os.path.join(batch_dir, 'depth.dat'))
+    for name in ('metadata.json', 'depth_ts.txt'):
+        if os.path.exists(os.path.join(tmp, name)):
+            shutil.copy(os.path.join(tmp, name), os.path.join(batch_dir, name))
+    assert cli.main(['extract-batch', batch_dir, '--model', mdir]) == 0
+    bcfg = os.path.join(tmp, 'batch.yaml')
+    with open(bcfg, 'w', encoding='utf-8') as fh:
+        fh.write('chunk_size: 8\nshow_progress: false\n')
+    assert cli.main(['extract-batch', batch_dir, '--model', mdir, '--config-file', bcfg,
+                     '--in-process', '--device', 'cpu']) == 0
+    assert read_yaml(os.path.join(batch_dir, 'proc', 'results_00.yaml'))['complete'] is True
+    from moseq2_detectron_extract_tpu_torch.ops.cc import largest_cc
+    from moseq2_detectron_extract_tpu_torch.ops.morphology import temporal_median
+    from moseq2_detectron_extract_tpu_torch.proc.features import get_frame_features
+    blobs = torch.zeros((2, 20, 20), dtype=torch.uint8)
+    blobs[:, 2:6, 2:6] = 40
+    blobs[:, 10:18, 9:19] = 50
+    assert int(largest_cc(blobs > 0).sum()) == 160
+    assert temporal_median(blobs, 3).shape == blobs.shape
+    feats, _ = get_frame_features(blobs, mask_threshold=5, use_cc=True)
+    assert abs(feats['centroid'][0, 0] - 13.5) < 1e-4, feats['centroid']
+    from moseq2_detectron_extract_tpu_torch.models.train import create_train_state
+    from moseq2_detectron_extract_tpu_torch.parallel import (make_dp_train_step, make_mesh,
+                                                            replicate_state, shard_batch)
+    import torch.distributed as dist
+    mesh = make_mesh(0, 1, 'cpu', store_path=os.path.join(tmp, 'store'))
+    dstate = replicate_state(mesh, create_train_state(tcfg, device='cpu'))
+    rng = np.random.default_rng(0)
+    hb = {'image': rng.uniform(0, 60, (2, 64, 64)).astype('float32'),
+          'masks': np.zeros((2, 1, 64, 64), bool), 'keypoints': np.zeros((2, 1, 8, 3), 'float32'),
+          'valid': np.ones((2, 1), bool)}
+    hb['masks'][:, 0, 20:40, 16:48] = True
+    hb['keypoints'][:, 0, :, :2] = 30.0
+    hb['keypoints'][:, 0, :, 2] = 2.0
+    dstate, dmetrics = make_dp_train_step(tcfg, mesh)(
+        dstate, {k: torch.from_numpy(v) for k, v in shard_batch(mesh, hb).items()},
+        torch.Generator().manual_seed(1))
+    assert dstate.step == 1 and torch.isfinite(dmetrics['total_loss'])
+    dist.destroy_process_group()
 from moseq2_detectron_extract_tpu_torch.proc import kalman
 params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.zeros(3),
                              np.eye(3))
