@@ -210,6 +210,27 @@ Phases, each printed with its elapsed seconds as it starts:
    k-means run once more on the CPU on the card's data
    (``dataset.kmeans_features``), whose picks must equal the card's or cost
    within 1% of them (the line says which); ``uniform`` and ``list`` timed;
+4i. the last slice: (a) the data-parallel step at world 1 over NCCL against
+   the Trainer's step; (b) ``extract --device-input prescaled``; (c)
+   ``extract-batch``, printed and two sessions at once; (d) the off-path
+   ops card against CPU;
+4j. the functions ported last, each on CUDA tensors against the CPU on the
+   same inputs, one line each with its seconds: ``find_invalid_pixels`` on
+   16 raw 424x512 frames (equal); ``topk_after_nms`` on fast160's 16
+   post-NMS candidates with k 1 and on 1,000 tied candidates with k 100
+   (equal); ``roi_align_level`` on fast160's P2 level (40 x 40 x 256 f32,
+   stride 4) with 16 boxes (to 1e-5 absolute: the same f32 gather on both
+   devices, summed in another order on the card); ``augment_sample`` on
+   one CUDA draw of ``draw_augment`` at 160 x 160 against the CPU on that
+   draw (image to 1e-4 of its largest value, at most 2 pixels beyond, as
+   the JAX comparison of ``tests/test_torch_augment.py`` holds it; masks,
+   boxes, validity and keypoint visibility equal; keypoints to 1e-4); and
+   ``visualize_inference`` on the first frame of phase 4's chunk where the
+   mouse was found, with the card's prediction of the phase's model. The
+   drawing is host code (the function pulls every tensor to the host before
+   it draws), so this checks only the hand-off of a card prediction (its
+   CUDA tensors give the drawing of the same prediction as numpy arrays)
+   and that something was drawn over the frame;
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
@@ -2893,6 +2914,117 @@ def check_offpath(card: str, seed: int) -> None:
         raise AssertionError(f'4i (d): card and CPU differ: {equal}, {gaps}')
 
 
+OFFPATH_TOPK = ((16, 1), (1000, 100))  # phase 4j: (candidates, k) of topk_after_nms
+P2_BOXES = 16                      # phase 4j: boxes of roi_align_level (fast160's post-NMS 16)
+
+
+def _timed(fn):
+    """(result, seconds) of one synchronised call on the card."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def check_ported_last(card: str, seed: int, predictor, frame) -> None:
+    """Phase 4j: the functions ported last on CUDA tensors against the CPU on
+    the same inputs (see the module's docstring for each tolerance)."""
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import viz
+    from moseq2_detectron_extract_tpu_torch.models import augment
+    from moseq2_detectron_extract_tpu_torch.ops import find_invalid_pixels, nms, roi_align
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 40)
+    raw = torch.from_numpy(rng.integers(0, 1000, (16, 424, 512)).astype(np.int16))
+    raw[rng.random(raw.shape) < 0.01] = 0
+    card_out, sec = _timed(lambda: find_invalid_pixels(raw.cuda()))
+    equal = bool(torch.equal(card_out.cpu(), find_invalid_pixels(raw)))
+    phase(f'4j find_invalid_pixels on {tuple(raw.shape)} raw frames: card equal to CPU {equal}, '
+          f'{int(card_out.sum())} invalid; {sec:.4f} s [{card}]')
+    if not equal:
+        raise AssertionError('4j: find_invalid_pixels differs card vs CPU')
+
+    for n, k in OFFPATH_TOPK:
+        xy = rng.uniform(0, 400, (n, 2))
+        boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(5, 80, (n, 2))], 1)
+                                 .astype(np.float32))
+        scores = torch.from_numpy(np.round(rng.uniform(0, 1, n), 2).astype(np.float32))
+        keep = torch.from_numpy(rng.random(n) < 0.7)
+        card_out, sec = _timed(lambda: nms.topk_after_nms(boxes.cuda(), scores.cuda(),
+                                                          keep.cuda(), k))
+        equal = all(torch.equal(a.cpu(), b) for a, b in
+                    zip(card_out, nms.topk_after_nms(boxes, scores, keep, k)))
+        phase(f'4j topk_after_nms on {n} candidates ({int(keep.sum())} kept), k {k}: card '
+              f'equal to CPU {equal}; {sec:.4f} s [{card}]')
+        if not equal:
+            raise AssertionError(f'4j: topk_after_nms ({n}, {k}) differs card vs CPU')
+
+    side = predictor.cfg.image_size // 4
+    feat = torch.from_numpy(rng.normal(0, 1, (side, side, predictor.cfg.fpn_channels))
+                            .astype(np.float32))
+    xy = rng.uniform(0, 4 * side - 40, (P2_BOXES, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(8, 40, (P2_BOXES, 2))], 1)
+                             .astype(np.float32))
+    card_out, sec = _timed(lambda: roi_align.roi_align_level(feat.cuda(), boxes.cuda(), 7, 4))
+    err = float((card_out.cpu() - roi_align.roi_align_level(feat, boxes, 7, 4)).abs().max())
+    phase(f'4j roi_align_level on P2 {tuple(feat.shape)} f32, {P2_BOXES} boxes, out 7: card vs '
+          f'CPU max abs err {err:.2e} (to 1e-5); {sec:.4f} s [{card}]')
+    if not err <= 1e-5:
+        raise AssertionError(f'4j: roi_align_level card vs CPU {err}')
+
+    s = predictor.cfg.image_size
+    image = torch.from_numpy(rng.uniform(0, 60, (s, s)).astype(np.float32))
+    masks = torch.zeros((2, s, s), dtype=torch.bool)
+    masks[0, s // 3:2 * s // 3, s // 4:3 * s // 4] = True
+    kpts = torch.zeros((2, 8, 3))
+    kpts[0, :, 0] = torch.linspace(s / 4 + 5, 3 * s / 4 - 5, 8)
+    kpts[0, :, 1] = s / 2
+    kpts[0, :, 2] = 2.0
+    valid = torch.tensor([True, False])
+    def to_cpu(d):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in d.items()}
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    draw = augment.take_draw(augment.draw_augment(gen, 1, s, 'cuda'), 0)
+    cpu_draw = to_cpu(draw)
+    card_out, sec = _timed(lambda: augment.augment_sample(
+        draw, image.cuda(), masks.cuda(), kpts.cuda(), valid.cuda(), predictor.cfg))
+    ref = augment.augment_sample(cpu_draw, image, masks, kpts, valid, predictor.cfg)
+    img_err = (card_out['image'].cpu() - ref['image']).abs()
+    beyond = int((img_err > 1e-4 * float(ref['image'].abs().max())).sum())
+    same = {key: bool(torch.equal(card_out[key].cpu(), ref[key]))
+            for key in ('masks', 'boxes', 'valid')}
+    same['visibility'] = bool(torch.equal(card_out['keypoints'][..., 2].cpu(),
+                                          ref['keypoints'][..., 2]))
+    kp_err = float((card_out['keypoints'][..., :2].cpu() - ref['keypoints'][..., :2])
+                   .abs().max())
+    phase(f'4j augment_sample at {s}x{s} on one CUDA draw: image max abs err '
+          f'{float(img_err.max()):.2e} ({beyond} pixels beyond 1e-4 of the largest value), '
+          f'equal {same}, keypoints max abs err {kp_err:.2e}; {sec:.4f} s [{card}]')
+    if beyond > 2 or not all(same.values()) or kp_err > 1e-4:
+        raise AssertionError(f'4j: augment_sample card vs CPU: {beyond}, {same}, {kp_err}')
+
+    pred = {k: v[0] for k, v in predictor(torch.from_numpy(frame[None])).items()}
+    card_img, sec = _timed(lambda: viz.visualize_inference(frame, pred, 0.0, 100.0))
+    host_img = viz.visualize_inference(
+        frame, {k: v.cpu().numpy() for k, v in pred.items()}, 0.0, 100.0)
+    plain = viz.visualize_inference(frame, {k: v[:0].cpu().numpy() for k, v in pred.items()},
+                                    0.0, 100.0)
+    equal = bool(np.array_equal(card_img, host_img))
+    drawn = int((card_img != plain).any(axis=-1).sum())
+    phase(f'4j visualize_inference (host drawing) on a {frame.shape} frame, '
+          f'{int(pred["valid"].sum())} valid instance(s) of the card\'s prediction (score '
+          f'{float(pred["scores"][0]):.2f}) handed over as CUDA tensors: {card_img.shape} image '
+          f'equal to the drawing of the same prediction as numpy arrays {equal}, {drawn} pixels '
+          f'drawn over the frame; {sec:.4f} s [{card}]')
+    if not equal or drawn == 0:
+        raise AssertionError(f'4j: visualize_inference equal {equal}, drawn {drawn}')
+    phase(f'4j: {time.perf_counter() - t_phase:.1f} s [{card}]')
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -3085,6 +3217,12 @@ def main() -> int:
               'prescaled, extract-batch (two sessions at once), the off-path ops')
         last_launches = check_parallel(card, args.seed, export, cfg_path, session_path,
                                        args.model_dir, dat_run, os.path.join(work, 'parallel'))
+
+        phase('4j/5 the functions ported last: find_invalid_pixels, topk_after_nms, '
+              'roi_align_level, augment_sample card vs CPU; visualize_inference of a card '
+              'prediction (host drawing)')
+        check_ported_last(card, args.seed, predictor,
+                          chunk[int(np.argmax(out['num_instances'] > 0))])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -51,9 +51,11 @@ TIMING_SHAPE = (64, 256, 256, 256)    # the experiment's box-stage shape
 BLOCK_KS = (8, 16)
 
 
-def make_inputs(b=64, k=256, c=256, canvas=256, seed=0, device='cpu'):
-    '''NHWC bf16 levels P2..P5 and (B, K, 4) f32 boxes, from the same numpy
-    draws as the JAX script's ``make_inputs``: a seed gives its inputs.'''
+def make_inputs(b=64, k=256, c=256, canvas=256, seed=0, device='cuda'):
+    '''NHWC bf16 levels P2..P5 and (B, K, 4) f32 boxes on ``device``, from the
+    same numpy draws as the JAX script's ``make_inputs``: a seed gives its
+    inputs.'''
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     feats = []
     for lvl in range(2, 6):

@@ -2,7 +2,8 @@
 
 Port of the part of ``moseq2_detectron_extract_tpu/io/annot.py`` that
 ``load_annotations_helper`` (lines 304-333) reaches: the Label Studio
-parsing (lines 137-300), the registry and ``split_test_train``,
+parsing (lines 137-300), its types (``MaskFormat``, ``SegmAnnotation``,
+``KptSegmAnnotation`` and ``DataItem``, 25-48), the registry and ``split_test_train``,
 ``validate_annotations``, the path replacement and the dataset statistics.
 
 cv2 is replaced where the reference calls it:
@@ -34,7 +35,8 @@ import os
 import pathlib
 import random
 import re
-from typing import Callable, Dict, List, MutableSequence, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Literal, MutableSequence, Optional, Sequence, Tuple,
+                    TypedDict, Union)
 
 import numpy as np
 
@@ -43,7 +45,31 @@ from moseq2_detectron_extract_tpu_torch.proc.keypoints import (default_keypoint_
                                                                default_keypoint_connection_rules,
                                                                default_keypoint_names)
 
-DataItem = dict           # file_name, width, height, image_id, rescale_intensity, annotations
+MaskFormat = Literal['polygon', 'bitmask']
+
+
+class SegmAnnotation(TypedDict):
+    '''Segmentation annotation for one instance.'''
+    bbox: Sequence[float]
+    bbox_mode: str
+    category_id: int
+    segmentation: Union[Sequence[Sequence[float]], np.ndarray]
+
+
+class KptSegmAnnotation(SegmAnnotation):
+    '''Segmentation + keypoints annotation.'''
+    keypoints: Sequence[float]
+
+
+class DataItem(TypedDict):
+    '''One training sample.'''
+    file_name: str
+    width: int
+    height: int
+    image_id: str
+    rescale_intensity: float
+    annotations: Sequence[KptSegmAnnotation]
+
 
 # -- the dataset registry ------------------------------------------------------------
 

@@ -9,7 +9,8 @@ background field noise), then boxes recomputed from the augmented masks.
 Drawing is separate from computing: :func:`draw_augment` draws every random
 value of a batch from a ``torch.Generator`` into a dict, and
 :func:`augment_batch` computes from that dict alone, so the tests can hand
-it the JAX package's own draws. Two details follow ``jax.image.resize`` and
+it the JAX package's own draws. :func:`augment_sample` augments one sample
+from one sample's draws (:func:`take_draw`). Two details follow ``jax.image.resize`` and
 ``jnp.round`` exactly:
 
 * the elastic grid is upsampled with Keys' cubic (a = -0.5), the weights
@@ -300,6 +301,28 @@ def augment_images(draws: Dict, images, masks, keypoints, gt_valid) -> Dict[str,
                         torch.zeros(4, device=images.device))
     return {'image': image, 'masks': masks, 'keypoints': keypoints, 'boxes': boxes,
             'valid': gt_valid & any_mask}
+
+
+def _map_draws(fn, draws: Dict) -> Dict:
+    return {k: _map_draws(fn, v) if isinstance(v, dict) else fn(v) for k, v in draws.items()}
+
+
+def take_draw(draws: Dict, index: int) -> Dict:
+    '''Sample ``index``'s draws from a batch's (:func:`draw_augment`).'''
+    return _map_draws(lambda v: v[index], draws)
+
+
+def augment_sample(draw: Dict, image, masks, keypoints, gt_valid,
+                   cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    '''The whole augmentation of one sample from its draws (a batch's
+    :func:`take_draw`): image (S, S) f32, masks (G, S, S) bool, keypoints
+    (G, K, 3 [x, y, v]), gt_valid (G,) -> augmented image, masks and
+    keypoints, and the boxes and validity recomputed from the masks
+    (:func:`augment_images` on a batch of one).'''
+    del cfg
+    out = augment_images(_map_draws(lambda v: v[None], draw), image[None], masks[None],
+                         keypoints[None], gt_valid[None])
+    return {k: v[0] for k, v in out.items()}
 
 
 def augment_batch(draws: Dict, images, masks, keypoints, gt_valid, cfg: ModelConfig):

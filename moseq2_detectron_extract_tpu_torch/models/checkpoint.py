@@ -9,7 +9,8 @@ Deviation: a checkpoint here is one ``torch.save`` file,
 ``checkpoints/model_<step:07d>.pt`` holding ``{step, model, optimizer}``
 (the model's ``state_dict`` and the SGD momentum buffers), not an orbax
 directory: the card's machine has no orbax. The npz
-(``models.weights.save_params_npz``) is the format both packages read.
+(``models.weights.save_params_npz``, importable from here as from the JAX
+package's module) is the format both packages read.
 '''
 import os
 import re
@@ -19,8 +20,8 @@ import torch
 
 from moseq2_detectron_extract_tpu_torch.io.util import ensure_dir
 from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
-from moseq2_detectron_extract_tpu_torch.models.weights import (load_params_npz,
-                                                               params_from_jax)
+from moseq2_detectron_extract_tpu_torch.models.weights import (  # noqa: F401
+    load_params_npz, params_from_jax, save_params_npz)
 
 _CKPT_RE = re.compile(r'^model_(\d+)\.pt$')
 NPZ_NAME = 'params_f16.npz'

@@ -2,6 +2,7 @@
 
 Port of ``moseq2_detectron_extract_tpu/models/resnet.py``. The stride sits
 on the first 1x1 conv of a block (Detectron2's ``stride_in_1x1``).
+``FrozenBatchNorm`` is the JAX package's name for ``layers.FrozenBatchNorm2d``.
 '''
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -12,6 +13,8 @@ from torch import nn
 from moseq2_detectron_extract_tpu_torch.models.layers import (Conv2d,
                                                               FrozenBatchNorm2d,
                                                               GroupNorm)
+
+FrozenBatchNorm = FrozenBatchNorm2d
 
 
 def _norm(norm: str, channels: int, dtype):

@@ -96,14 +96,21 @@ def create_train_state(cfg: ModelConfig, seed: int = 0, device='cuda') -> TrainS
     return TrainState(step=0, model=model, optimizer=make_optimizer(cfg, model))
 
 
-def clean_and_clip_gradients(params, max_norm: float) -> torch.Tensor:
-    '''Set non-finite gradient values to 0, then scale all gradients by
-    ``max_norm / norm`` when their global norm is not below ``max_norm``
-    (``zero_nonfinite`` and ``optax.clip_by_global_norm``). Returns the
-    norm after the cleaning.'''
-    grads = [p.grad for p in params if p.grad is not None]
+def zero_nonfinite(grads) -> None:
+    '''Set every NaN and +/-inf value of the gradient tensors ``grads`` to 0,
+    in place. A single inf (a bf16 overflow) would otherwise make the global
+    norm inf, the clip's scale 0 and inf * 0 NaN in every parameter.'''
     for g in grads:
         torch.nan_to_num_(g, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def clean_and_clip_gradients(params, max_norm: float) -> torch.Tensor:
+    '''Set non-finite gradient values to 0 (:func:`zero_nonfinite`), then
+    scale all gradients by ``max_norm / norm`` when their global norm is not
+    below ``max_norm`` (``optax.clip_by_global_norm``). Returns the norm
+    after the cleaning.'''
+    grads = [p.grad for p in params if p.grad is not None]
+    zero_nonfinite(grads)
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
     if max_norm:
         for g in grads:

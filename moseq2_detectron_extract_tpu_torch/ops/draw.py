@@ -5,7 +5,8 @@ number and box index text, the linear resize and the mask blend.
 The JAX package draws its preview with cv2 (``viz.py``, ``io/video.py``);
 the card's machine has no cv2. Each primitive here has two versions: the
 plain one, in Python and numpy (``line_aa``, ``circle_aa``, ``rectangle``,
-``draw_contours_aa``, ``put_number``, ``resize_linear``, ``blend_mask``),
+``draw_contours_aa``, ``put_text``, ``put_number``, ``resize_linear``,
+``blend_mask``),
 and the C++ core ``csrc/draw_host.cpp``, built with g++ by
 ``native.build_host_library`` at its first call, which draws a whole block
 of frames from a list of records in one call (``DrawList``,
@@ -19,13 +20,17 @@ plain versions exactly, and both to cv2 5.0.
 * ``circle_aa``: ``cv2.circle(..., r, -1, LINE_AA)`` for r < 3 is
   ``FillConvexPoly`` with anti-aliased edges of the 4-point diamond that
   ``ellipse2Poly`` gives at its 90-degree step.
-* ``put_number``: OpenCV 5.0 draws ``FONT_HERSHEY_SIMPLEX`` through its
-  TrueType renderer, not as Hershey strokes, so the digits are kept as the
-  coverage (0-255) of each glyph as cv2 5.0 draws it at the two sizes the
-  preview uses (``GLYPHS``: scale 1 thickness 2, the frame number; scale
-  0.4 thickness 1, the box index). A glyph is placed at whole pixels, each
-  ``advance`` after the last, and blended as ``(v * (255 - a) + c * a +
-  127) // 255``.
+* ``put_text`` and ``put_number``: OpenCV 5.0 draws ``FONT_HERSHEY_SIMPLEX``
+  through its TrueType renderer, not as Hershey strokes, so the glyphs are
+  kept as the coverage (0-255) of each one as cv2 5.0 draws it at the
+  three sizes the port uses (``GLYPH_SIZES``: scale 1 thickness 2, the
+  frame number; scale 0.4 thickness 1, the box index; scale 0.35
+  thickness 1, the score of ``viz.draw_instances``, with the decimal
+  point). A glyph is placed at whole pixels, each ``advance`` after the
+  last (the point's own is narrower), and blended as ``(v * (255 - a) + c
+  * a + 127) // 255``, so overlapping glyphs blend one after the other.
+  The score's size is drawn in ``LINE_8``, where the others are
+  ``LINE_AA``: cv2 5.0's renderer gives the same coverage for both.
 * ``resize_linear`` is ``cv2.resize(INTER_LINEAR)`` on uint8: 11-bit
   weights, the x taps clamped at the borders and the y rows only, the
   vertical sum rounded as OpenCV's vector code rounds it.
@@ -49,10 +54,11 @@ FILTER = (168, 177, 185, 194, 202, 210, 218, 224, 231, 236, 241, 246, 249, 252, 
           158, 149, 140, 131, 122, 114, 105, 97, 89, 82, 75, 68, 62, 56, 50, 45,
           40, 36, 32, 28, 25, 22, 19, 16, 14, 12, 11, 9, 8, 7, 5, 5)
 
-# digit glyphs of cv2 5.0's putText(FONT_HERSHEY_SIMPLEX, LINE_AA): per size,
-# (10, gh, gw) uint8 coverage, zlib then base64; ``top``/``left`` place the
-# cell against the text origin (its baseline's left end), ``advance`` is the
-# step to the next digit
+# glyphs of cv2 5.0's putText(FONT_HERSHEY_SIMPLEX): per size, one
+# (gh, gw) uint8 coverage cell for each of ``chars`` (the digits where a
+# size names none), zlib then base64; ``top``/``left`` place the cell
+# against the text origin (its baseline's left end), ``advance`` is the step
+# to the next glyph (``advances`` overrides it for a character)
 _STAMP = (
     'eNrNl3lQ1VUUx+97IJuCAqIJsoi4DxCEQKlDY+q4IFI6YOFSablM4iSaFhhmbrhUY8uMGmJmgBlRmtYoLaYyuAxu'
     'uWJgIuoguaEC8t77db/3/pbzA7X+7Pxzz/v87u/+zj3nnnPPYwziEv7ivDHdrUwXv4IHCqQ+q41KkmoVTcp7CRJ0'
@@ -90,16 +96,28 @@ _INDEX = (
     'iLAEhQsf+6kzZ8789QeZY/6RD0QtnQQiJX+ogaiGrSCS7bkHiIq5Abb9QAYDElD2NQQGUvvzZZf3cfL/lGNgueTD'
     '/tWKQeyxA0PJ75tftzPIvinRDn4WlHAcqLh1sfVHHQaBU+UMxW/vv57FAQpdcHpR9gMFQee7HS9WMRn/UGIQfhIR'
     'dQUosqFJ/YcZg/IbX4aUD7d/7Qfaz5LxTg4oIfosDBwCcxAuAQDjj84V')
+_SCORE = (
+    'eNpjiNx3IoxB95HJhv8KudOYZy2Oq6n28+/ILemYxTwtzfVzHectc8aLP55OZGBgYGcDEsy1FQwM3DsPr2BgYHH0BJ'
+    'IMDOikxNWHH695MUCA977t7gySD5X1P3BJuTEwPZRkYGDsWwokpm5mAxLb2BkYAv/fvXbNGqJccc+ePbv5mMTFZ8wC'
+    '8vI2sjAw8N85U8ME5HCccIkoZGA44i6098StOawMDFysIB3Ms1OAZNWFXgYG033xvQzcZxRjehn6d+YuPODqkpIyb5'
+    'ctUDq6C+ochjl79mxlYHgoLi7CwH7X0YWNQfJx85QLPCCpVYFBcxlYT5lxrTl5uQdoIyfYfLFlzEDXbo0HOedlrgyD'
+    'zOvi3PvymdMYGNqL3fcyM24IYew7d3o6UBELMHxUge7fI8csI6P9ghuoo6APSDDdVAYFxCaQaTtdgYTSJUaYcxiS9u'
+    'wKZ9A+Lyh6XVr7NK/wVVmW409f7mZKXsLEsjGkGKh9XhzfziNHVgFN4wKFf9KBnR4MTudldB8qlTWB3Gxyw8LzmRSD'
+    '89xPJUDpsD1Ah4vckmYgCnBKgMjwwwgRAEq3i4o=')
+DIGITS = '0123456789'
 GLYPH_SIZES = {'stamp': {'scale': 1.0, 'thickness': 2, 'shape': (10, 22, 19), 'top': -21,
                          'left': 0, 'advance': 18, 'data': _STAMP},
                'index': {'scale': 0.4, 'thickness': 1, 'shape': (10, 10, 7), 'top': -9,
-                         'left': 0, 'advance': 7, 'data': _INDEX}}
+                         'left': 0, 'advance': 7, 'data': _INDEX},
+               'score': {'scale': 0.35, 'thickness': 1, 'line_type': 'LINE_8',
+                         'chars': DIGITS + '.', 'shape': (11, 8, 6), 'top': -7, 'left': 0,
+                         'advance': 5, 'advances': {'.': 2}, 'data': _SCORE}}
 
 
 @functools.lru_cache(maxsize=None)
 def glyph_table(size: str) -> np.ndarray:
-    '''(10, gh, gw) uint8 coverage of the digits 0-9 at ``size`` ('stamp'
-    or 'index').'''
+    '''(n, gh, gw) uint8 coverage of the size's characters (the digits 0-9,
+    and '.' for 'score') at ``size`` ('stamp', 'index' or 'score').'''
     spec = GLYPH_SIZES[size]
     raw = zlib.decompress(base64.b64decode(''.join(spec['data'])))
     table = np.frombuffer(raw, np.uint8).reshape(spec['shape'])
@@ -315,28 +333,39 @@ def draw_contours_aa(img: np.ndarray, contours: Iterable[np.ndarray],
             line_aa(img, p, pts[(j + 1) % len(pts)], color)
 
 
-def put_number(img: np.ndarray, value: int, org: Tuple[int, int], size: str,
-               color: Sequence[int]) -> None:
-    '''``cv2.putText(img, str(value), org, FONT_HERSHEY_SIMPLEX, scale,
-    color, thickness, LINE_AA)`` in place for a non-negative integer, at
-    ``size`` 'stamp' (scale 1, thickness 2) or 'index' (0.4, 1).'''
+def put_text(img: np.ndarray, text: str, org: Tuple[int, int], size: str,
+             color: Sequence[int]) -> None:
+    '''``cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, scale, color,
+    thickness, line_type)`` in place at ``size`` (``GLYPH_SIZES``), for text
+    of that size's characters; clipped at every edge of the image.'''
     spec, table = GLYPH_SIZES[size], glyph_table(size)
+    chars, advances = spec.get('chars', DIGITS), spec.get('advances', {})
+    if any(ch not in chars for ch in text):
+        raise ValueError(f'{text!r}: size {size!r} draws only {chars!r}')
     h, w = img.shape[:2]
     gh, gw = table.shape[1:]
     x = int(org[0])
-    for digit in str(int(value)):
+    for ch in text:
         y0, x0 = int(org[1]) + spec['top'], x + spec['left']
         ys0, xs0 = max(0, -y0), max(0, -x0)
         ys1, xs1 = min(gh, h - y0), min(gw, w - x0)
         if ys1 > ys0 and xs1 > xs0:
-            a = table[int(digit), ys0:ys1, xs0:xs1].astype(np.int64)
+            a = table[chars.index(ch), ys0:ys1, xs0:xs1].astype(np.int64)
             region = img[y0 + ys0:y0 + ys1, x0 + xs0:x0 + xs1]
             if img.ndim == 3:
                 a, c = a[..., None], np.asarray(color[:img.shape[2]], np.int64)
             else:
                 c = int(color[0])
             region[...] = (region.astype(np.int64) * (255 - a) + c * a + 127) // 255
-        x += spec['advance']
+        x += advances.get(ch, spec['advance'])
+
+
+def put_number(img: np.ndarray, value: int, org: Tuple[int, int], size: str,
+               color: Sequence[int]) -> None:
+    '''``cv2.putText(img, str(value), org, FONT_HERSHEY_SIMPLEX, scale,
+    color, thickness, LINE_AA)`` in place for a non-negative integer, at
+    ``size`` 'stamp' (scale 1, thickness 2) or 'index' (0.4, 1).'''
+    put_text(img, str(int(value)), org, size, color)
 
 
 def _linear_taps(src: int, dst: int, clamp: bool):

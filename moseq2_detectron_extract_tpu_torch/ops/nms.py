@@ -1,6 +1,7 @@
-'''Batched greedy NMS as a fixpoint of the suppression relation.
+'''Batched greedy NMS as a fixpoint of the suppression relation, and the
+top-k of the kept boxes.
 
-Port of ``moseq2_detectron_extract_tpu/ops/nms.py:20-67``: a box is kept iff
+Port of ``moseq2_detectron_extract_tpu/ops/nms.py:20-81``: a box is kept iff
 no higher-ranked kept box overlaps it above the threshold. Ranks order by
 score, ties by index (the earlier index wins). The decided-state propagation
 runs at most ``MAX_ITERS`` rounds, as the reference's bounded while loop.
@@ -80,3 +81,15 @@ def stable_topk(values, k: int):
     '''
     sorted_vals, order = torch.sort(values, dim=-1, descending=True, stable=True)
     return sorted_vals[..., :k], order[..., :k]
+
+
+def topk_after_nms(boxes, scores, keep, k: int):
+    '''The top-``k`` kept boxes of (K, 4) ``boxes`` by score, ties to the
+    lower index, zero-padded where fewer than ``k`` are kept: (boxes (k, 4),
+    scores (k,), valid (k,), idx (k,)).'''
+    masked = torch.where(keep, scores, torch.full_like(scores, -torch.inf))
+    top_scores, top_idx = stable_topk(masked, k)
+    top_valid = torch.isfinite(top_scores)
+    return (torch.where(top_valid[:, None], boxes[top_idx], torch.zeros_like(boxes[top_idx])),
+            torch.where(top_valid, top_scores, torch.zeros_like(top_scores)),
+            top_valid, top_idx)

@@ -3,6 +3,7 @@ chunk; on the device, decode, dropout fill and scale.
 
 Port of ``moseq2_detectron_extract_tpu/ops/preprocess.py``
 (``prep_raw_frames_host`` and its C++ core, lines 140-237;
+``find_invalid_pixels``, line 20;
 ``fill_invalid_pixels`` and ``decode_prepped_frames``, lines 26-79 and
 240-246; ``prep_raw_frames``, lines 108-137; ``bbox_from_roi`` and
 ``apply_roi``, lines 326-350; ``scale_raw_frames``, lines 353-366;
@@ -133,6 +134,12 @@ def _prep_frames_cxx(frames: np.ndarray, bground_im, roi_crop, vmin: Optional[fl
     if rc != 0:
         raise RuntimeError(f'prep_frames_native returned {rc}')
     return out
+
+
+def find_invalid_pixels(frames: torch.Tensor) -> torch.Tensor:
+    '''Mask of invalid (Kinect dropout) pixels: raw value == 0, on the
+    frames' device.'''
+    return frames == 0
 
 
 def _neighbor_sum(x: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,10 @@ respect to the features; its backward scatters the taps' weighted
 gradients back with ``index_add_``, chunk by chunk, so it stores no
 chunk's taps (the JAX package remats each chunk for the same reason). On
 CUDA ``index_add_`` accumulates with atomics, so the card's feature
-gradients are not bitwise repeatable.
+gradients are not bitwise repeatable. ``roi_align_level`` (``roi_align.py:392``)
+pools one level through it.
 '''
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -280,6 +282,14 @@ def batched_multilevel_roi_align(features: Sequence[torch.Tensor], boxes,
                              offsets, heights, widths, output_size, min_level,
                              len(features), chunk)
     return pooled.reshape(b, k, output_size, output_size, c)
+
+
+def roi_align_level(feat, boxes, output_size: int, stride: float):
+    '''ROIAlign of (K, 4) boxes (image coordinates) on one (H, W, C) level
+    of ``stride`` -> (K, out, out, C) in ``feat``'s dtype.'''
+    min_level = int(round(math.log2(stride))) if stride >= 1 else 0
+    return multilevel_roi_align((feat,), boxes, output_size, min_level=min_level,
+                                chunk=min(128, max(boxes.shape[0], 1)))
 
 
 def crop_resize_masks(masks, gt_idx, boxes, output_size: int):

@@ -1,13 +1,18 @@
 '''Angle helpers and the moving-median flip filter of the untracked path.
 
-Port of ``moseq2_detectron_extract_tpu/proc/angles.py`` (lines 16-95):
+Port of ``moseq2_detectron_extract_tpu/proc/angles.py``:
 ``clamp_angles_deg``, ``clamp_angles_rad``, ``angle_difference``, ``_move_median3``,
-``_move_median``, ``filter_angles`` and ``iterative_filter_angles``. The
-reference jits them in f32 (no x64) and iterates the filter in a
-``while_loop`` to a fixpoint under ``jnp.allclose``'s defaults; here they are
+``_move_median``, ``filter_angles`` and ``iterative_filter_angles`` (lines
+16-95), and the host feature smoothing ``hampel_filter``,
+``feature_hampel_filter`` and ``interpolate_nan_values`` (98-144). The
+reference jits the flip filter in f32 (no x64) and iterates it in a
+``while_loop`` to a fixpoint under ``jnp.allclose``'s defaults; here it is
 f32 numpy with the same operations, the same fixpoint test and the same
-``max_iters``, so they give its numbers bit for bit.
+``max_iters``, so it gives its numbers bit for bit. The smoothing is f64
+numpy in both packages, the same operations in the same order.
 '''
+import warnings
+
 import numpy as np
 
 _F32 = np.float32
@@ -92,3 +97,58 @@ def iterative_filter_angles(angles, window: int = 3, tolerance: float = 60.0,
         last, curr, it = curr, filter_angles(curr, window, tolerance), it + 1
     flips = _isclose(np.abs(curr - angles), _F32(180.0))
     return curr, flips
+
+
+def hampel_filter(data: np.ndarray, span: int, sigma: float = 3) -> np.ndarray:
+    '''Hampel (median/MAD) outlier replacement over a sliding window of
+    ``span`` samples, NaN-padded by ``span // 2`` at both ends: a value
+    further than ``sigma`` MADs from its window's median becomes the median.
+    1-D data, or 2-D data column by column; a copy in f64.'''
+    data = np.asarray(data, dtype=float).copy()
+
+    def _filter_1d(col):
+        padded = np.pad(col, (span // 2, span // 2), 'constant', constant_values=np.nan)
+        windows = np.lib.stride_tricks.sliding_window_view(padded, span)
+        with warnings.catch_warnings():     # an all-NaN window's median is NaN
+            warnings.simplefilter('ignore', RuntimeWarning)
+            med = np.nanmedian(windows, axis=1)
+            mad = np.nanmedian(np.abs(windows - med[:, None]), axis=1)
+        vals = np.abs(col - med[:len(col)])
+        fill = vals > med[:len(col)] + sigma * mad[:len(col)]
+        col[fill] = med[:len(col)][fill]
+        return col
+
+    if data.ndim == 1:
+        return _filter_1d(data)
+    if data.ndim == 2:
+        for i in range(data.shape[1]):
+            data[:, i] = _filter_1d(data[:, i])
+        return data
+    raise ValueError(f'cannot accept data with {data.ndim} dimentions!')
+
+
+def feature_hampel_filter(features: dict, centroid_hampel_span=None, centroid_hampel_sig=3,
+                          angle_hampel_span=None, angle_hampel_sig=3) -> dict:
+    '''Hampel-filter the centroid's x column and the orientation of a
+    features dict in place (a span of None or 0 leaves that feature);
+    returns the dict.'''
+    if centroid_hampel_span is not None and centroid_hampel_span > 0:
+        features['centroid'][:, 0] = hampel_filter(
+            features['centroid'][:, 0], centroid_hampel_span, centroid_hampel_sig)
+    if angle_hampel_span is not None and angle_hampel_span > 0:
+        features['orientation'] = hampel_filter(
+            features['orientation'], angle_hampel_span, angle_hampel_sig)
+    return features
+
+
+def interpolate_nan_values(data: np.ndarray) -> np.ndarray:
+    '''Linear interpolation over the NaN entries of 1-D data (held at the
+    first and last finite values beyond them); all-NaN data comes back as
+    it is. A copy in f64.'''
+    data = np.asarray(data, dtype=float).copy()
+    nans = np.isnan(data)
+    if nans.all():
+        return data
+    idx = np.arange(len(data))
+    data[nans] = np.interp(idx[nans], idx[~nans], data[~nans])
+    return data

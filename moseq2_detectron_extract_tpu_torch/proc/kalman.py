@@ -1,20 +1,24 @@
 '''Kalman filtering, smoothing and EM of the host brain (f64, numpy and C++).
 
-Port of ``moseq2_detectron_extract_tpu/proc/kalman.py``: ``KalmanParams``,
-the filter step (lines 72-110), ``kalman_filter`` (123-189),
-``kalman_smooth`` (211-288) with its ``numpy``, ``steady`` (291-395) and
-``native`` backends, EM (589-632), the tracker items (639-767),
-``KalmanTracker`` (769-908) and ``angle_intervention_filter`` (487-586).
+Port of ``moseq2_detectron_extract_tpu/proc/kalman.py``: the gap helpers
+``timestamps_to_steps``, ``expand_missing_entries`` and
+``reduce_missing_entries`` (lines 31-64), ``KalmanParams``, the filter step
+(72-110), ``kalman_filter`` (123-189), ``kalman_smooth`` (211-288) with its
+``numpy``, ``steady`` (291-395), ``native`` and ``scan`` (398-484)
+backends, EM (589-632), the tracker items (639-767), ``KalmanTracker``
+(769-908) and ``angle_intervention_filter`` (487-586).
 
 The numpy backends and EM are the reference's numpy operations in the same
 order, so they give its numbers bit for bit. The reference's ``scan``
-backend (a jitted f64 ``lax.scan``) has no counterpart: where rows are
-missing, ``kalman_smooth`` takes ``MISSING_ROWS_BACKEND`` instead, which is
-the numpy recurrence of the same filter and smoother (it meets the scan to
-f64 round-off). The ``native`` backend is ``csrc/kalman_host.cpp``, built
-by g++ at its first use; when its filter or smoother reports a numerical
-failure (rc != 0), that pass is done again in numpy, as in the reference,
-and ``native_fallbacks`` counts it (the first is logged).
+backend is a jitted f64 ``lax.scan`` on the CPU of the same filter and
+smoother; here ``scan`` and ``kalman_smooth_scan`` run the numpy recurrence,
+which meets the scan to f64 round-off. Where rows are missing and no backend
+is named, ``kalman_smooth`` takes ``MISSING_ROWS_BACKEND``, which is that
+numpy recurrence too. The ``native`` backend is
+``csrc/kalman_host.cpp``, built by g++ at its first use; when its filter or
+smoother reports a numerical failure (rc != 0), that pass is done again in
+numpy, as in the reference, and ``native_fallbacks`` counts it (the first is
+logged).
 
 The reference's angle filter is a jitted f64 scan; here it is a plain f64
 loop over the frames with the same arithmetic (the analytic 2x2 inverse, NaN
@@ -27,12 +31,13 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 
 from moseq2_detectron_extract_tpu_torch import native
+from moseq2_detectron_extract_tpu_torch.proc import angles
 
 # The smoother for chunks with missing rows, chosen by a measurement on the
 # H100 machine's host (chip_smoke.py phase 4b, the point tracker's S=54,
 # O=18, T=1000 with 5% of the rows missing; PERF.md section 5).
 MISSING_ROWS_BACKEND = 'numpy'
-BACKENDS = ('steady', 'numpy', 'native')
+BACKENDS = ('steady', 'numpy', 'native', 'scan')
 
 # Calls of the C++ core that failed (rc != 0) and ran in numpy instead;
 # the first is logged.
@@ -46,6 +51,45 @@ def _native_failed(what: str) -> None:
         logging.warning('the C++ Kalman core failed in %s (a covariance not positive '
                         'definite); this and any later such call run in numpy '
                         '(counted in proc.kalman.native_fallbacks)', what)
+
+
+def timestamps_to_steps(timestamps, step_size=(1 / 30 * 1000)):
+    '''The whole number of ``step_size`` steps (ms) between consecutive
+    timestamps.'''
+    return np.rint(np.diff(timestamps) / step_size).astype(int)
+
+
+def expand_missing_entries(data, time_steps):
+    '''Spread ``data``'s rows onto the full time grid of ``time_steps``
+    (``timestamps_to_steps``): the rows in between are zero and masked.'''
+    out_shape = (int(np.sum(time_steps)) + 1, *data.shape[1:])
+    full = np.zeros(out_shape, dtype=data.dtype)
+    mask = np.zeros(out_shape, dtype=int)
+    i = j = 0
+    for j, k in enumerate(time_steps):
+        full[i] = data[j]
+        if k > 1:
+            mask[i + 1:i + k] = 1
+        i += k
+    full[i] = data[j + 1]
+    return np.ma.masked_array(full, mask=mask)
+
+
+def reduce_missing_entries(data, time_steps):
+    '''The rows of full-grid ``data`` at the observed time steps (the
+    inverse of :func:`expand_missing_entries`).'''
+    reduced = np.zeros((time_steps.shape[0] + 1, *data.shape[1:]), dtype=data.dtype)
+    i = j = 0
+    for j, k in enumerate(time_steps):
+        reduced[j] = data[i]
+        i += k
+    reduced[j + 1] = data[i]
+    return reduced
+
+
+def angle_difference(angles1, angles2):
+    '''Smallest signed difference angles2 - angles1 in degrees, in (-180, 180].'''
+    return np.asarray(angles.angle_difference(angles1, angles2))
 
 
 def block_diag(*blocks) -> np.ndarray:
@@ -176,16 +220,21 @@ def kalman_filter(params: KalmanParams, observations, missing,
 
 
 def kalman_smooth(params: KalmanParams, observations, missing,
-                  backend: Optional[str] = None):
+                  use_native: bool = False, backend: Optional[str] = None):
     '''RTS smoother. Returns smoothed means/covs and lag-one covariances
     (V_{t+1, t | T} for t = 0..T-2) for EM.
 
     ``backend`` is one of ``'steady'`` (Riccati-converged fast path, no
-    missing rows only), ``'numpy'`` or ``'native'`` (the C++ core); None
-    takes ``steady`` when no row is missing, else ``MISSING_ROWS_BACKEND``.
+    missing rows only), ``'numpy'``, ``'native'`` (the C++ core) or
+    ``'scan'`` (:func:`kalman_smooth_scan`, the numpy recurrence); None
+    takes ``native`` when ``use_native``, else ``steady`` when no row is
+    missing, else ``MISSING_ROWS_BACKEND``.
     '''
     if backend is None:
-        backend = 'steady' if not np.any(missing) else MISSING_ROWS_BACKEND
+        if use_native:
+            backend = 'native'
+        else:
+            backend = 'steady' if not np.any(missing) else MISSING_ROWS_BACKEND
     if backend not in BACKENDS:
         raise ValueError(f'unknown backend {backend!r}; one of {BACKENDS}')
     if backend == 'steady':
@@ -342,6 +391,13 @@ def kalman_smooth_steady(params: KalmanParams, observations,
     return {'means': s_means, 'covs': s_covs, 'lag_one_covs': lag_ones,
             'filtered': {'means': f_means, 'covs': f_covs,
                          'pred_means': pred_means, 'pred_covs': p_covs}}
+
+
+def kalman_smooth_scan(params: KalmanParams, observations, missing):
+    '''The reference's ``scan`` smoother (a jitted f64 ``lax.scan`` on the
+    CPU): the same filter and RTS smoother, step for step, which here is the
+    ``numpy`` backend. Same contract as :func:`kalman_smooth`.'''
+    return kalman_smooth(params, observations, missing, backend='numpy')
 
 
 def angle_intervention_filter(params: KalmanParams, mean0, cov0,
@@ -661,6 +717,11 @@ class KalmanTracker:
         obs = np.nan_to_num(obs, nan=0.0, posinf=0.0, neginf=0.0)
         return obs.astype(np.float64), missing
 
+    def smooth(self, data: Sequence[np.ndarray]):
+        '''Smooth a chunk; the streaming state stays as it is.'''
+        obs, missing = self._obs_and_missing(data)
+        return self._inverse_format_data(kalman_smooth(self.params, obs, missing)['means'])
+
     def smooth_update(self, data: Sequence[np.ndarray]):
         '''Smooth a chunk and carry the final state into the next chunk.'''
         obs, missing = self._obs_and_missing(data)
@@ -675,6 +736,11 @@ class KalmanTracker:
         self.last_covar = covs[-1]
         self.params = self.params._replace(initial_mean=means[-1], initial_cov=covs[-1])
         return self._inverse_format_data(means)
+
+    def filter(self, data: Sequence[np.ndarray]):
+        '''Forward-filter a chunk; the streaming state stays as it is.'''
+        obs, missing = self._obs_and_missing(data)
+        return self._inverse_format_data(kalman_filter(self.params, obs, missing)['means'])
 
     def filter_update(self, data: Sequence[np.ndarray]):
         '''Streaming one-step filter update.'''

@@ -3,7 +3,7 @@
 Port of ``moseq2_detectron_extract_tpu/proc/keypoints.py``:
 ``default_keypoint_names``, ``default_keypoint_colors`` and
 ``default_keypoint_connection_rules`` (the annotation metadata),
-``rotate_points_batch`` (line 71),
+``rotate_points`` (line 49), ``rotate_points_batch`` (71),
 ``keypoint_attributes`` (87), ``dispatch_z_lookup`` (103) and
 ``keypoints_to_dict`` (123); the outlier search's ``load_keypoint_data_from_h5``,
 ``load_keypoint_data_from_dict``, ``_move_median_axis0``,
@@ -52,6 +52,28 @@ default_keypoint_connection_rules = [
     ('TailBase', 'Right Hip', (51, 160, 44)),
     ('TailBase', 'TailTip', (251, 154, 153)),
 ]
+
+
+def rotate_points(points: np.ndarray, center: Tuple[float, float] = (0, 0),
+                  angle: float = 0) -> np.ndarray:
+    '''Rotate (nkp, 2|3) points about ``center`` by ``angle`` degrees (f64);
+    a third column (scores) is carried through.'''
+    points = np.asarray(points, dtype=float)
+    weights = None
+    if points.shape[1] == 3:
+        weights = points[:, 2]
+        points = points[:, :2]
+    elif points.shape[1] != 2:
+        raise ValueError(f'expected 2 or 3 columns, got {points.shape[1]}')
+
+    theta = np.deg2rad(-angle)
+    rot = np.array([[np.cos(theta), -np.sin(theta)],
+                    [np.sin(theta), np.cos(theta)]])
+    origin = np.atleast_2d(center)
+    rotated = np.squeeze((rot @ (points.T - origin.T) + origin.T).T)
+    if weights is not None:
+        rotated = np.append(np.atleast_2d(rotated), weights[..., None], 1)
+    return rotated
 
 
 def rotate_points_batch(points: np.ndarray, centers: np.ndarray, angles) -> np.ndarray:

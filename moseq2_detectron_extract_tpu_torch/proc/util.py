@@ -1,9 +1,9 @@
-'''Pixel to millimetre conversion of the Kinect v2's field of view, and a
-session's completion status.
+'''Pixel to millimetre conversion of the Kinect v2's field of view, a
+session's completion status, and indexing a dict of arrays.
 
 Port of ``moseq2_detectron_extract_tpu/proc/util.py``: ``convert_pxs_to_mm``
-(lines 11-26) and ``check_completion_status`` (29-37, through the port's
-YAML reader).
+(lines 11-26), ``check_completion_status`` (29-37, through the port's YAML
+reader) and ``slice_dict`` (40-42).
 '''
 import os
 from typing import Tuple
@@ -38,3 +38,8 @@ def check_completion_status(status_filename: str) -> bool:
         except Exception:  # noqa: BLE001 - an unreadable status is not complete
             return False
     return False
+
+
+def slice_dict(data: dict, index: int) -> dict:
+    '''Index every array in a dict along axis 0.'''
+    return {key: value[index] for key, value in data.items()}

@@ -4,6 +4,9 @@ Port of ``moseq2_detectron_extract_tpu/viz.py``: the video helpers
 (``colorize_video``, ``stack_videos``, lines 34-98), the keypoint drawing
 (``_chan``, ``draw_keypoints``, ``_skeleton_idx``,
 ``precompute_keypoint_draws``, ``draw_keypoints_fast``, lines 105-187),
+the single-image views of annotations and predictions
+(``draw_mask_contour``, ``draw_instances``, ``draw_annotation_item``,
+``visualize_annotations``, ``visualize_inference``, lines 187-299),
 ``_gray_chunk_to_rgb`` (306; ``_blend_mask``, 328, is
 ``ops/draw.py:blend_mask``), the three views
 (``ArenaView``, ``RotatedKeypointsView``, ``CleanedFramesView``, 363-549),
@@ -13,22 +16,28 @@ Port of ``moseq2_detectron_extract_tpu/viz.py``: the video helpers
 The JAX package draws with cv2 and skips every overlay where cv2 is
 missing; the port always draws, with ``ops/draw.py`` (cv2 5.0's pixels,
 through its C++ core: a view records a block's primitives in a
-``DrawList`` and draws them in one call). The ROI outline's contours come
+``DrawList`` and draws them in one call; the single-image views draw
+their keypoints so too, and their contours, text and boxes through the
+plain versions). The contours of the ROI and of masks come
 from ``io/annot.py:mask_to_poly`` (``cv2.findContours`` written out).
+``visualize_annotations`` returns matplotlib's ``(fig, axs)`` where
+matplotlib imports, else the stacked RGB array, as the JAX function does.
 Videos are written by ``io/video.py:PreviewVideoWriter`` as Motion-JPEG
 AVIs: ``preview.avi`` and ``<results>.preview.avi`` where the JAX package
 writes ``.mp4``.
 '''
 import logging
 import os
-from typing import Optional, Sequence, Tuple
+import random
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from moseq2_detectron_extract_tpu_torch.device import resolve_device
 from moseq2_detectron_extract_tpu_torch.io import hdf5
-from moseq2_detectron_extract_tpu_torch.io.annot import mask_to_poly
+from moseq2_detectron_extract_tpu_torch.io.annot import mask_to_poly, poly_to_mask
+from moseq2_detectron_extract_tpu_torch.io.image import read_image
 from moseq2_detectron_extract_tpu_torch.io.session import Session, Stream
 from moseq2_detectron_extract_tpu_torch.io.video import PreviewVideoWriter, apply_colormap_jet
 from moseq2_detectron_extract_tpu_torch.ops import draw
@@ -171,6 +180,104 @@ def draw_keypoints_fast(draws: DrawList, frame: int, pts, fin, colors, skeleton,
             if fin[ia] and fin[ib]:
                 draws.line(frame, pts[ia], pts[ib], color)
     return draws
+
+
+def draw_mask_contour(image: np.ndarray, mask: np.ndarray,
+                      color=(255, 255, 255)) -> np.ndarray:
+    '''Outline a boolean mask's external contours on an RGB image in place
+    (anti-aliased, one pixel wide).'''
+    draw.draw_contours_aa(image, mask_to_poly(np.asarray(mask, np.uint8)), color)
+    return image
+
+
+def draw_instances(image: np.ndarray, masks: np.ndarray, keypoints: np.ndarray,
+                   scores: Optional[np.ndarray] = None) -> np.ndarray:
+    '''Each instance's mask outline, keypoints and (where ``scores`` are
+    given) its score with two decimals at the mask's top-left, in place.'''
+    for d in range(len(masks)):
+        draw_mask_contour(image, masks[d])
+        draw_keypoints(image, keypoints[d])
+        if scores is not None:
+            ys, xs = np.nonzero(masks[d])
+            if len(ys):
+                draw.put_text(image, f'{scores[d]:.2f}', (int(xs.min()), int(ys.min())),
+                              'score', (255, 255, 255))
+    return image
+
+
+def draw_annotation_item(item: Dict) -> np.ndarray:
+    '''One annotated dataset item as RGB uint8: the image scaled by its
+    ``rescale_intensity``, each instance's mask blended and outlined, its
+    keypoints and its box. A segmentation is a mask array or a Label
+    Studio polygon list.'''
+    image = np.atleast_3d(read_image(item['file_name']))[:, :, 0]
+    scale_factor = item.get('rescale_intensity') or 1
+    image = np.clip(image.astype('float32') * scale_factor, 0, 255)
+    rgb = _gray_chunk_to_rgb(image.astype('uint8')[None])[0]
+    h, w = rgb.shape[:2]
+    for annot in item.get('annotations', []):
+        seg = annot.get('segmentation')
+        if seg is not None:
+            if isinstance(seg, np.ndarray) and seg.dtype != object:
+                mask = np.atleast_3d(seg)[:, :, 0].astype(bool)
+            else:
+                poly = np.reshape(np.asarray(seg[0], float), (-1, 2))
+                mask = poly_to_mask(poly, (h, w))[..., 0].astype(bool)
+            draw.blend_mask(rgb, mask, color=(0, 120, 255), alpha=0.35)
+            draw_mask_contour(rgb, mask, color=(0, 200, 255))
+        kp = np.asarray(annot.get('keypoints', []), float).reshape(-1, 3)
+        if kp.size:
+            draw_keypoints(rgb, kp[:, :2])
+        box = annot.get('bbox')
+        if box is not None:
+            x0, y0, x1, y1 = [int(round(v)) for v in box]
+            draw.rectangle(rgb, (x0, y0), (x1, y1), (0, 255, 0))
+    return rgb
+
+
+def visualize_annotations(annotations: Sequence[Dict], num: int = 5,
+                          seed: Optional[int] = None):
+    '''``num`` items drawn by ``random.Random(seed).sample``, each by
+    :func:`draw_annotation_item`: ``(fig, axs)`` of one matplotlib row
+    where matplotlib imports, else the renderings stacked side by side.'''
+    num = min(num, len(annotations))
+    sampled = random.Random(seed).sample(list(annotations), num)
+    rendered = [draw_annotation_item(item) for item in sampled]
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return stack_videos([r[None] for r in rendered], orientation='horizontal')[0]
+    fig, axs = plt.subplots(1, num, figsize=(4 * num, 4), squeeze=False)
+    for image, ax in zip(rendered, axs[0]):
+        ax.imshow(image)
+        ax.axis('off')
+    return fig, axs[0]
+
+
+def _host(value) -> np.ndarray:
+    return value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+
+
+def visualize_inference(frame, prediction: Dict, min_height: float, max_height: float,
+                        scale: float = 2.0) -> np.ndarray:
+    '''One prediction drawn over its depth frame, as RGB uint8: ``frame``
+    (H, W) in mm, normalised by [min_height, max_height]; ``prediction`` a
+    Predictor-style dict of one frame (masks (D, H, W), keypoints (D, K, 3),
+    scores (D,), valid (D,)), numpy arrays or tensors on any device; the
+    valid instances drawn by :func:`draw_instances`; the image resized by
+    ``scale`` (linear).'''
+    norm = (_host(frame).astype('float32') - min_height) / max(max_height - min_height, 1e-9)
+    gray = (np.clip(norm, 0, 1) * 255).astype('uint8')
+    rgb = _gray_chunk_to_rgb(gray[None])[0]
+    masks = _host(prediction['masks'])
+    valid = _host(prediction['valid']).astype(bool) if 'valid' in prediction else \
+        np.ones(len(masks), bool)
+    scores = prediction.get('scores')
+    draw_instances(rgb, masks[valid], _host(prediction['keypoints'])[valid],
+                   _host(scores)[valid] if scores is not None else None)
+    if scale != 1.0:
+        rgb = draw.resize_linear(rgb, (int(rgb.shape[1] * scale), int(rgb.shape[0] * scale)))
+    return rgb
 
 
 def _gray_chunk_to_rgb(frames: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:

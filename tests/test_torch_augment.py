@@ -7,7 +7,9 @@ the whole batch at most 2 pixels beyond it: see the test)
 (the FFT of a random field runs in another library, pocketfft or MKL
 against XLA's, and its f32 rounding reaches the field's rescale to up to
 250 grey levels); the cubic grid weights 1e-6; the affine samples 1e-4;
-masks, boxes, validity and keypoint visibility equal.
+masks, boxes, validity and keypoint visibility equal. ``augment_sample``
+equals ``augment_batch`` on a batch of one with the same draw exactly, and
+meets the JAX ``augment_sample`` on its own draws at the batch's tolerances.
 '''
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from moseq2_detectron_extract_tpu.models.config import ModelConfig as JaxModelCo
 from moseq2_detectron_extract_tpu_torch.models import augment
 
 from tests.jax_draws import (augment_batch_draws, doughnut_draws, gauss_draws, grf_draws,
-                             particle_draws, stack_draws)
+                             particle_draws, sample_draws, stack_draws)
 
 S = 48
 
@@ -199,3 +201,34 @@ def test_draw_augment_ranges():
     # the same seed draws the same values
     again = augment.draw_augment(torch.Generator().manual_seed(0), 64, 32, 'cpu')
     assert torch.equal(again['grf']['field'], d['grf']['field'])
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_augment_sample_matches_batch_of_one_and_jax(seed):
+    cfg = JaxModelConfig(image_size=S, max_gt_instances=2)
+    image = _image(20 + seed, 1)[0]
+    masks, kpts, valid = (a[0] for a in _gt_batch(1, seed=21 + seed))
+    args = [torch.from_numpy(a) for a in (image, masks, kpts, valid)]
+
+    draws = augment.draw_augment(torch.Generator().manual_seed(seed), 1, S, 'cpu')
+    one = augment.augment_sample(augment.take_draw(draws, 0), *args, cfg)
+    x, gt = augment.augment_batch(draws, *(a[None] for a in args), cfg)
+    mean = torch.tensor(cfg.pixel_mean)[:, None, None]
+    std = torch.tensor(cfg.pixel_std)[:, None, None]
+    assert torch.equal((one['image'][None] - mean) / std, x[0])
+    for key in ('boxes', 'valid', 'masks', 'keypoints'):
+        assert torch.equal(one[key], gt[key][0]), key
+
+    key = jax.random.PRNGKey(30 + seed)
+    ref = jax.jit(lambda *a: jaug.augment_sample(*a, cfg))(key, image, masks, kpts, valid)
+    ours = augment.augment_sample(augment.take_draw(stack_draws([sample_draws(key, S)]), 0),
+                                  *args, cfg)
+    ref_image = np.asarray(ref['image'])
+    err = np.abs(ours['image'].numpy() - ref_image)
+    assert (err > 1e-4 * np.abs(ref_image).max()).sum() <= 2, float(err.max())
+    for name in ('masks', 'boxes', 'valid'):
+        np.testing.assert_array_equal(ours[name].numpy(), np.asarray(ref[name]), err_msg=name)
+    np.testing.assert_array_equal(ours['keypoints'][..., 2].numpy(),
+                                  np.asarray(ref['keypoints'][..., 2]))
+    np.testing.assert_allclose(ours['keypoints'][..., :2].numpy(),
+                               np.asarray(ref['keypoints'][..., :2]), atol=1e-4)

@@ -8,8 +8,12 @@ plain f64 loop here, held as ``tests/test_proc.py`` holds the scan against
 the loop: angles to 1e-8, flips equal, the tracker's last mean and
 covariance to 1e-9. The Kalman smoothing runs ``steady`` (bit for bit)
 where no row is missing, and meets the reference's scan to 1e-8 where rows
-are. ``iterative_filter_angles`` is f32 on both sides, bit for bit.
+are. ``iterative_filter_angles`` is f32 on both sides, bit for bit. The
+feature smoothing (``hampel_filter``, ``feature_hampel_filter``,
+``interpolate_nan_values``) is f64 numpy on both sides, bit for bit.
 '''
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -231,3 +235,63 @@ def test_keypoint_helpers_are_jaxs(chunk):
                                   jfeatures.compute_keypoint_alignment_scores(kpts[:, :7, :2]))
     np.testing.assert_array_equal(pfeatures.estimate_keypoint_rotation(kpts[:, :7, :2]),
                                   jfeatures.estimate_keypoint_rotation(kpts[:, :7, :2]))
+
+
+def _noisy_track(seed, n=120, cols=None):
+    rng = np.random.default_rng(seed)
+    shape = (n,) if cols is None else (n, cols)
+    data = np.cumsum(rng.normal(0, 1, shape), axis=0)
+    spikes = rng.choice(n, 9, replace=False)
+    data[spikes] += rng.choice([-40.0, 40.0], (9,) + shape[1:])
+    data[40:52] = np.nan                                     # a gap longer than the span
+    data[0] = np.nan
+    return data
+
+
+@pytest.mark.parametrize('span', [5, 8, 11])
+@pytest.mark.parametrize('cols', [None, 3], ids=['1d', '2d'])
+def test_hampel_filter_bit_for_bit(span, cols):
+    data = _noisy_track(span, cols=cols)
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')                       # all-NaN windows stay silent
+        ours = pangles.hampel_filter(data, span, sigma=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        ref = jangles.hampel_filter(data, span, sigma=2)
+    np.testing.assert_array_equal(ours, ref)
+    assert ours.dtype == np.float64 and not np.array_equal(ours, data, equal_nan=True)
+    with pytest.raises(ValueError, match='3 dimentions'):
+        pangles.hampel_filter(np.zeros((4, 3, 2)), span)
+
+
+def test_feature_hampel_filter_in_place_bit_for_bit():
+    def feats():
+        return {'centroid': _noisy_track(1, cols=2), 'orientation': _noisy_track(2),
+                'axis_length': _noisy_track(3, cols=2)}
+    ours, ref = feats(), feats()
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore', RuntimeWarning)
+        jangles.feature_hampel_filter(ref, centroid_hampel_span=7, angle_hampel_span=9,
+                                      angle_hampel_sig=2)
+    out = pangles.feature_hampel_filter(ours, centroid_hampel_span=7, angle_hampel_span=9,
+                                        angle_hampel_sig=2)
+    assert out is ours
+    for key in ref:
+        np.testing.assert_array_equal(ours[key], ref[key], err_msg=key)
+    untouched = feats()
+    assert pangles.feature_hampel_filter(untouched, 0, 3, None) is untouched
+    for key, value in feats().items():
+        np.testing.assert_array_equal(untouched[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize('case', ['gaps', 'none', 'all'])
+def test_interpolate_nan_values_bit_for_bit(case):
+    data = _noisy_track(4)
+    data[-5:] = np.nan
+    if case == 'none':
+        data = np.nan_to_num(data)
+    elif case == 'all':
+        data[:] = np.nan
+    ours = pangles.interpolate_nan_values(data)
+    np.testing.assert_array_equal(ours, jangles.interpolate_nan_values(data))
+    assert ours is not data and np.isnan(ours).all() == (case == 'all')

@@ -15,8 +15,11 @@ synthetic Label Studio export of PNG views, two steps, a checkpoint, then
 k-means, without sklearn), the last slice (``extract --device-input
 prescaled``, ``extract-batch`` printing and in process, the largest
 component, the temporal median, the CC features, one data-parallel step),
-the C++ Kalman core and the stage-2 experiment's check on the CPU with all
-of them blocked.'''
+the C++ Kalman core, the functions ported last (the Hampel filter and NaN
+fill, the scan smoother, the tensor helpers, ``augment_sample``, the
+inference drawing, ``visualize_annotations`` without matplotlib, as on the
+card's machine) and the stage-2 experiment's check on the CPU with all of
+them blocked.'''
 import ast
 import os
 import subprocess
@@ -260,6 +263,39 @@ params = kalman.KalmanParams(np.eye(3), np.eye(3)[:1], np.eye(3), np.eye(1), np.
 smoothed = kalman.kalman_smooth(params, np.ones((5, 1)), np.array([0, 1, 0, 0, 0], bool),
                                 backend='native')
 assert np.isfinite(smoothed['means']).all()
+scanned = kalman.kalman_smooth(params, np.ones((5, 1)), np.array([0, 1, 0, 0, 0], bool),
+                               backend='scan')
+assert np.allclose(scanned['means'], smoothed['means'], rtol=0, atol=1e-9)
+from moseq2_detectron_extract_tpu_torch.proc import angles
+assert angles.hampel_filter(np.r_[np.zeros(9), 50.0, np.zeros(9)], 5)[9] == 0
+assert angles.interpolate_nan_values(np.array([0.0, np.nan, 2.0]))[1] == 1.0
+from moseq2_detectron_extract_tpu_torch.ops import find_invalid_pixels, nms, roi_align
+assert int(find_invalid_pixels(torch.tensor([[0, 3], [0, 0]])).sum()) == 3
+top = nms.topk_after_nms(torch.rand(6, 4), torch.rand(6), torch.ones(6, dtype=torch.bool), 3)
+assert len(top) == 4 and bool(top[2].all())
+assert roi_align.roi_align_level(torch.rand(16, 16, 4), torch.tensor([[2.0, 2.0, 30.0, 40.0]]),
+                                 7, 4).shape == (1, 7, 7, 4)
+from moseq2_detectron_extract_tpu_torch.models import augment
+draws = augment.draw_augment(torch.Generator().manual_seed(0), 1, 32, 'cpu')
+sample = augment.augment_sample(augment.take_draw(draws, 0), torch.rand(32, 32) * 50,
+                                torch.ones(1, 32, 32, dtype=torch.bool), torch.zeros(1, 8, 3),
+                                torch.ones(1, dtype=torch.bool), None)
+assert sample['image'].shape == (32, 32) and bool(sample['valid'][0])
+from moseq2_detectron_extract_tpu_torch import viz
+masks = np.zeros((1, 24, 30), bool)
+masks[0, 5:15, 6:20] = True
+drawn = viz.visualize_inference(np.full((24, 30), 50.0), {
+    'masks': masks, 'keypoints': np.full((1, 8, 3), 10.0), 'scores': np.array([0.93]),
+    'valid': np.ones(1, bool)}, 0, 100)
+assert drawn.shape == (48, 60, 3) and drawn.std() > 0
+from moseq2_detectron_extract_tpu_torch.io.annot import read_annotations
+from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
+sys.modules['matplotlib.pyplot'] = None        # absent on the card's machine
+with tempfile.TemporaryDirectory() as tmp:
+    items = read_annotations(write_annotated_views(tmp, 3, size=40, seed=0),
+                             list(viz.default_keypoint_names))
+    stacked = viz.visualize_annotations(items, num=2, seed=1)
+    assert stacked.shape == (40, 80, 3), stacked.shape
 from moseq2_detectron_extract_tpu_torch.benchmarks import roi_stage2_exp
 errors = roi_stage2_exp.main(device='cpu', check_shape=(1, 8, 16, 64))['errors']
 assert len(errors) == 5 and max(errors.values()) < 0.05, errors

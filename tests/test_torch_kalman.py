@@ -6,7 +6,12 @@ EM are the reference's numpy operations in the same order, so they are held
 bit for bit. The port's smoother for chunks with missing rows meets the
 reference's ``scan`` backend (a jitted f64 ``lax.scan``, another order of
 the same sums) to 1e-8, the tolerance ``tests/test_proc.py`` holds the scan
-to; the C++ core (Cholesky solves) meets numpy to 1e-9, as there.
+to; the C++ core (Cholesky solves) meets numpy to 1e-9, as there. The
+port's ``scan`` backend (the numpy recurrence) meets the
+reference's to 1e-9 of each array's largest magnitude (about 4e-15
+measured), as do the automatic backend choice and the tracker's ``smooth``
+and ``filter`` (the reference's filter runs its C++ core, the port's
+numpy). The gap helpers are numpy on both sides, bit for bit.
 '''
 import logging
 
@@ -179,8 +184,9 @@ def test_backend_choice():
     with pytest.raises(ValueError, match='steady'):
         pk.kalman_smooth(_params(pk), obs, missing, backend='steady')
     with pytest.raises(ValueError, match='unknown backend'):
-        pk.kalman_smooth(_params(pk), obs, missing, backend='scan')
+        pk.kalman_smooth(_params(pk), obs, missing, backend='lax')
     assert pk.MISSING_ROWS_BACKEND in ('numpy', 'native')
+    assert 'scan' in pk.BACKENDS
 
 
 def _trackers(mod):
@@ -223,3 +229,106 @@ def test_tracker_initialize_and_two_smooth_updates(nan_rows):
     for a, b in zip(ours.filter_update(step), ref.filter_update(step)):
         check(a, b)
     check(ours.last_covar, ref.last_covar)
+
+
+def _assert_rel(ours, ref, rel=1e-9):
+    '''Every array of a smoother's result to ``rel`` of its largest magnitude.'''
+    pairs = [(k, ours[k], ref[k]) for k in ('means', 'covs', 'lag_one_covs')]
+    pairs += [(f'filtered/{k}', ours['filtered'][k], ref['filtered'][k])
+              for k in ('means', 'covs', 'pred_means', 'pred_covs')]
+    for key, a, b in pairs:
+        b = np.asarray(b)
+        assert a.shape == b.shape and a.dtype == np.float64, key
+        scale = np.abs(b).max() if b.size else 0.0
+        np.testing.assert_allclose(a, b, rtol=0, atol=rel * scale, err_msg=key)
+
+
+def test_gap_helpers_bit_for_bit():
+    rng = np.random.default_rng(12)
+    steps_true = rng.choice([1, 1, 1, 2, 5], 40)
+    timestamps = np.concatenate([[0.0], np.cumsum(steps_true)]) * (1000 / 30) \
+        + rng.uniform(-3, 3, 41)
+    steps = pk.timestamps_to_steps(timestamps)
+    np.testing.assert_array_equal(steps, jk.timestamps_to_steps(timestamps))
+    np.testing.assert_array_equal(steps, steps_true)
+    np.testing.assert_array_equal(pk.timestamps_to_steps(timestamps, 20.0),
+                                  jk.timestamps_to_steps(timestamps, 20.0))
+    data = rng.normal(size=(41, 3, 2)).astype('float32')
+    ours, ref = pk.expand_missing_entries(data, steps), jk.expand_missing_entries(data, steps)
+    assert isinstance(ours, np.ma.MaskedArray) and ours.dtype == ref.dtype
+    np.testing.assert_array_equal(ours.data, ref.data)
+    np.testing.assert_array_equal(np.ma.getmaskarray(ours), np.ma.getmaskarray(ref))
+    assert int(np.ma.getmaskarray(ours)[:, 0, 0].sum()) == int(np.sum(steps_true - 1))
+    back = pk.reduce_missing_entries(ours.data, steps)
+    np.testing.assert_array_equal(back, jk.reduce_missing_entries(ref.data, steps))
+    np.testing.assert_array_equal(back, data)
+    np.testing.assert_array_equal(pk.angle_difference([10.0, 350.0], [350.0, 10.0]),
+                                  jk.angle_difference([10.0, 350.0], [350.0, 10.0]))
+
+
+@pytest.mark.parametrize('missing_rows', [(), ((50, 60),), ((0, 3), (120, 121), (197, 200))],
+                         ids=['none', 'block', 'edges'])
+def test_scan_matches_jax_scan(missing_rows):
+    if not jk._scan_available():
+        pytest.skip('f64 LAPACK not registered on this jax CPU backend')
+    obs, missing = _obs(13, missing_rows)
+    rng = np.random.default_rng(14)
+    ours = pk.kalman_smooth_scan(_params(pk, rng), obs, missing)
+    _assert_rel(ours, jk.kalman_smooth_scan(_params(jk, np.random.default_rng(14)), obs,
+                                            missing))
+    _assert_smooth(pk.kalman_smooth(_params(pk, np.random.default_rng(14)), obs, missing,
+                                    backend='scan'), ours)
+    one = pk.kalman_smooth_scan(_params(pk), obs[:1], missing[:1])
+    _assert_rel(one, jk.kalman_smooth_scan(_params(jk), obs[:1], missing[:1]))
+    assert one['lag_one_covs'].shape == (0, S, S)
+
+
+@pytest.mark.parametrize('missing_rows', [(), ((50, 60),)], ids=['none', 'block'])
+def test_automatic_backend_matches_jax(missing_rows):
+    '''``backend=None``: the port's choice (steady, else
+    ``MISSING_ROWS_BACKEND``) against the reference's (steady, else scan).'''
+    if not jk._scan_available():
+        pytest.skip('f64 LAPACK not registered on this jax CPU backend')
+    obs, missing = _obs(15, missing_rows)
+    _assert_rel(pk.kalman_smooth(_params(pk), obs, missing),
+                jk.kalman_smooth(_params(jk), obs, missing))
+
+
+def test_use_native_forces_the_native_backend(monkeypatch):
+    obs, missing = _obs(16)
+    params = _params(pk)
+    chosen = []
+    monkeypatch.setattr(pk, '_filter_native',
+                        lambda *a, _f=pk._filter_native: chosen.append(1) or _f(*a))
+    ours = pk.kalman_smooth(params, obs, missing, use_native=True)
+    assert chosen == [1]
+    _assert_smooth(ours, pk.kalman_smooth(params, obs, missing, backend='native'))
+    assert pk.kalman_smooth(params, obs, missing, use_native=True, backend='numpy')['means'] \
+        .tobytes() == pk.kalman_smooth(params, obs, missing, backend='numpy')['means'].tobytes()
+
+
+@pytest.mark.parametrize('nan_rows', [(), (3, 17, 18)], ids=['all-rows', 'missing-rows'])
+def test_tracker_smooth_and_filter_keep_the_state(nan_rows):
+    if not jk._scan_available():
+        pytest.skip('f64 LAPACK not registered on this jax CPU backend')
+    first = _tracker_data(17, 30)
+    chunk = _tracker_data(18, 25, nan_rows)
+    ours, ref = _trackers(pk), _trackers(jk)
+    ours.initialize(first)
+    ref.initialize(first)
+    ours.smooth_update(first)
+    ref.smooth_update(first)
+    before = (ours.last_mean.copy(), ours.last_covar.copy(), [a.copy() for a in ours.params])
+    for method in ('smooth', 'filter'):
+        got, want = getattr(ours, method)(chunk), getattr(ref, method)(chunk)
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert a.shape == b.shape, method
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max(),
+                                       err_msg=method)
+    np.testing.assert_array_equal(ours.last_mean, before[0])
+    np.testing.assert_array_equal(ours.last_covar, before[1])
+    for a, b in zip(ours.params, before[2]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(ours.smooth_update(chunk), ref.smooth_update(chunk)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-8)

@@ -16,6 +16,13 @@
 * ``ops/instances.py``: ``pack_masks_cropped``/``unpack_masks_cropped``
   and ``gather_selected_mask_windows`` equal.
 * ``utils/profiling.py``: ``enable_profiling`` writes both files at exit.
+* The helpers without a JAX kernel: ``ops/preprocess.py:find_invalid_pixels``
+  and ``ops/nms.py:topk_after_nms`` (ties to the lower index, fewer kept
+  boxes than ``k``) equal; ``ops/roi_align.py:roi_align_level`` (the gather
+  form on both sides, one level) to 1e-5 on unit-scale features (the f32
+  tap weights and their sums in another order: 3.1e-6 measured);
+  ``proc/keypoints.py:rotate_points`` and ``proc/util.py:slice_dict``
+  (host numpy) bit for bit.
 
 About 10 s on the CPU.
 '''
@@ -33,9 +40,15 @@ import jax.numpy as jnp
 from moseq2_detectron_extract_tpu.ops import cc as jcc
 from moseq2_detectron_extract_tpu.ops import instances as jinst
 from moseq2_detectron_extract_tpu.ops import morphology as jmorph
+from moseq2_detectron_extract_tpu.ops import nms as jnms
+from moseq2_detectron_extract_tpu.ops import preprocess as jprep
+from moseq2_detectron_extract_tpu.ops import roi_align as jroi
 from moseq2_detectron_extract_tpu.proc import features as jfeatures
-from moseq2_detectron_extract_tpu_torch.ops import cc, instances, morphology
-from moseq2_detectron_extract_tpu_torch.proc import features
+from moseq2_detectron_extract_tpu.proc import keypoints as jkeypoints
+from moseq2_detectron_extract_tpu.proc import util as jutil
+from moseq2_detectron_extract_tpu_torch.ops import cc, instances, morphology, nms, preprocess, \
+    roi_align
+from moseq2_detectron_extract_tpu_torch.proc import features, keypoints, util
 from moseq2_detectron_extract_tpu_torch.utils.profiling import StageTimer
 
 from tests.test_torch_brain import recipe_chunk
@@ -230,3 +243,61 @@ def test_enable_profiling_writes_both_files(tmp_path):
     with timer.time('a'):
         pass
     assert timer.counts == {'a': 2} and set(timer.summary()) == {'a'}
+
+
+def test_find_invalid_pixels_equal():
+    frames = np.random.default_rng(5).integers(0, 4, (3, 20, 24)).astype(np.uint16)
+    ours = preprocess.find_invalid_pixels(torch.from_numpy(frames.astype(np.int32)))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(jprep.find_invalid_pixels(frames)))
+    assert ours.dtype == torch.bool and ours.any()
+
+
+@pytest.mark.parametrize('k,kept', [(4, 10), (6, 3)], ids=['enough', 'padded'])
+def test_topk_after_nms_equal(k, kept):
+    rng = np.random.default_rng(k)
+    boxes = rng.uniform(0, 50, (12, 4)).astype('float32')
+    scores = np.round(rng.uniform(0, 1, 12), 1).astype('float32')    # ties
+    keep = np.zeros(12, bool)
+    keep[rng.permutation(12)[:kept]] = True
+    ours = nms.topk_after_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
+                              torch.from_numpy(keep), k)
+    ref = jnms.topk_after_nms(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(keep), k)
+    assert len(ours) == len(ref) == 4
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(ours[2].sum()) == min(k, kept)
+
+
+@pytest.mark.parametrize('stride,k', [(4, 9), (8, 1), (16, 0)])
+def test_roi_align_level_matches_jax(stride, k):
+    rng = np.random.default_rng(stride)
+    feat = rng.normal(size=(24, 30, 8)).astype('float32')
+    xy = rng.uniform(-10, 30 * stride, (k, 2))
+    wh = rng.uniform(4, 12 * stride, (k, 2))
+    boxes = np.concatenate([xy, xy + wh], axis=1).astype('float32')
+    ours = roi_align.roi_align_level(torch.from_numpy(feat), torch.from_numpy(boxes), 7, stride)
+    ref = jroi.roi_align_level(jnp.asarray(feat), jnp.asarray(boxes), 7, stride)
+    assert tuple(ours.shape) == (k, 7, 7, 8) == tuple(ref.shape)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('cols', [2, 3])
+def test_rotate_points_bit_for_bit(cols):
+    points = np.random.default_rng(cols).normal(20, 8, (8, cols))
+    for center, angle in (((0, 0), 0), ((12.5, -3.0), 37.0), ((40, 40), -190.0)):
+        np.testing.assert_array_equal(keypoints.rotate_points(points, center, angle),
+                                      jkeypoints.rotate_points(points, center, angle))
+    one = keypoints.rotate_points(points[:1], (1.0, 2.0), 90.0)
+    np.testing.assert_array_equal(one, jkeypoints.rotate_points(points[:1], (1.0, 2.0), 90.0))
+    with pytest.raises(ValueError, match='2 or 3 columns'):
+        keypoints.rotate_points(np.zeros((4, 4)), (0, 0), 10)
+
+
+def test_slice_dict_bit_for_bit():
+    rng = np.random.default_rng(9)
+    data = {'a': rng.normal(size=(5, 3)), 'b': np.arange(5), 'c': rng.normal(size=(5, 2, 2))}
+    for index in (0, 3, slice(1, 4), np.array([4, 0])):
+        ours, ref = util.slice_dict(data, index), jutil.slice_dict(data, index)
+        assert list(ours) == list(ref)
+        for key in ref:
+            np.testing.assert_array_equal(ours[key], ref[key])

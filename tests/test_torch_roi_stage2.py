@@ -70,7 +70,7 @@ def _jax_run(jax_exp, variant, dtype, feats, boxes, block_k=8):
 def test_plain_matches_jax_body(jax_exp, variant, dtype, b, k, seed):
     feats, boxes = jax_exp.make_inputs(b=b, k=k, c=128, canvas=256, seed=seed)
     ref = _jax_run(jax_exp, variant, dtype, feats, boxes)
-    tf, tb = port_exp.make_inputs(b, k, 128, 256, seed=seed)
+    tf, tb = port_exp.make_inputs(b, k, 128, 256, seed=seed, device='cpu')
     ours = rs.roi_stage2(tf, tb, 7, variant, 8, getattr(torch, dtype))
     assert ours.dtype == getattr(torch, dtype)
     assert tuple(ours.shape) == ref.shape == ((b, k, 7, 128, 7) if variant == 'noxpose'
@@ -82,7 +82,7 @@ def test_plain_matches_jax_body(jax_exp, variant, dtype, b, k, seed):
 
 def test_noxpose_is_dotswap_permuted(jax_exp):
     '''Exactly, in the plain version and in the JAX bodies.'''
-    tf, tb = port_exp.make_inputs(2, 11, 32, 256, seed=4)
+    tf, tb = port_exp.make_inputs(2, 11, 32, 256, seed=4, device='cpu')
     dot = rs.roi_stage2_plain(tf, tb, 7, 'dotswap', 8)
     nox = rs.roi_stage2_plain(tf, tb, 7, 'noxpose', 8)
     assert torch.equal(nox, dot.transpose(3, 4).contiguous())
@@ -94,7 +94,7 @@ def test_noxpose_is_dotswap_permuted(jax_exp):
 
 def test_plain_block_k_changes_nothing():
     '''The ROI padding is cut again: block_k 8 and 16 give the same result.'''
-    tf, tb = port_exp.make_inputs(1, 21, 16, 128, seed=5)
+    tf, tb = port_exp.make_inputs(1, 21, 16, 128, seed=5, device='cpu')
     for variant in rs.VARIANTS:
         assert torch.equal(rs.roi_stage2_plain(tf, tb, 7, variant, 8),
                            rs.roi_stage2_plain(tf, tb, 7, variant, 16))
@@ -102,7 +102,7 @@ def test_plain_block_k_changes_nothing():
 
 def test_make_inputs_match_jax(jax_exp):
     feats, boxes = jax_exp.make_inputs(b=2, k=5, c=8, canvas=64, seed=3)
-    tf, tb = port_exp.make_inputs(2, 5, 8, 64, seed=3)
+    tf, tb = port_exp.make_inputs(2, 5, 8, 64, seed=3, device='cpu')
     for a, t in zip(feats, tf):
         assert t.dtype == torch.bfloat16
         np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)), t.float().numpy())
@@ -193,7 +193,7 @@ def test_launch_plan_refuses(args, match):
 def test_stage2_inputs_padding(block_k):
     '''The kernels' inputs: the separable inputs in bf16, zero past sum H,
     Wmax and the K real ROIs.'''
-    tf, tb = port_exp.make_inputs(2, 13, 16, 160, seed=6)
+    tf, tb = port_exp.make_inputs(2, 13, 16, 160, seed=6, device='cpu')
     f, wy, wx = rs.stage2_inputs(tf, tb, 7, block_k)
     ref_f, ref_wy, ref_wx = _separable_inputs(tf, tb, 7, 2, as_dtype=torch.bfloat16)
     assert f.shape == (2, 80, 48, 16) and wy.shape == (2, 16, 7, 80) and wx.shape == (2, 16, 7, 48)
@@ -209,7 +209,7 @@ def test_stage2_inputs_padding(block_k):
 def test_tile_counts_and_mma_count(block_k):
     '''The tiles a kernel's block walks, against a loop over its blocks; the
     mma counts from them.'''
-    tf, tb = port_exp.make_inputs(2, 21, 32, 160, seed=10)
+    tf, tb = port_exp.make_inputs(2, 21, 32, 160, seed=10, device='cpu')
     _, wy, wx = rs.stage2_inputs(tf, tb, 7, block_k)
     wy[1, 3:] = 0                        # the second image's ROIs past 3 weigh nothing:
     wx[1, 3:] = 0                        # its ROI blocks of zero weights walk nothing
@@ -247,7 +247,7 @@ def test_tile_counts_and_mma_count(block_k):
 def test_mma_count_pairs_the_twins():
     '''transpose issues retile's mma and dotswap noxpose's, on the same
     weights, at both block_k; all four share stage 1.'''
-    tf, tb = port_exp.make_inputs(2, 19, 48, 256, seed=12)
+    tf, tb = port_exp.make_inputs(2, 19, 48, 256, seed=12, device='cpu')
     _, wy, wx = rs.stage2_inputs(tf, tb, 7, 8)
     wy[0, 5:9] = 0
     wx[0, 5:9] = 0
@@ -299,7 +299,7 @@ def test_kernel_walk_covers_each_tile_once_and_counts_the_mma(variant, block_k):
     '''The walk visits each (ROI, h tile, w tile, channel) at most once, and
     every h and w tile where a ROI's own weights are nonzero, for every
     channel; mma_count is the walk's count.'''
-    tf, tb = port_exp.make_inputs(2, 21, 48, 160, seed=11)
+    tf, tb = port_exp.make_inputs(2, 21, 48, 160, seed=11, device='cpu')
     _, wy, wx = rs.stage2_inputs(tf, tb, 7, block_k)
     wy[1, 2:16] = 0                      # a partly zero group, an all-zero one at block_k 8
     wx[1, 2:16] = 0
@@ -319,7 +319,7 @@ def test_kernel_walk_covers_each_tile_once_and_counts_the_mma(variant, block_k):
 
 
 def test_cpu_dispatch_runs_the_plain_version_without_launching():
-    tf, tb = port_exp.make_inputs(1, 9, 16, 128, seed=7)
+    tf, tb = port_exp.make_inputs(1, 9, 16, 128, seed=7, device='cpu')
     before = dict(rs.launch_count)
     for variant in rs.VARIANTS:
         out = rs.roi_stage2(tf, tb, 7, variant, 8)
@@ -328,7 +328,7 @@ def test_cpu_dispatch_runs_the_plain_version_without_launching():
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
-    tf, tb = port_exp.make_inputs(1, 8, 16, 128, seed=8)
+    tf, tb = port_exp.make_inputs(1, 8, 16, 128, seed=8, device='cpu')
     inputs = rs.stage2_inputs(tf, tb, 7, 8)
     for variant in rs.VARIANTS:
         with pytest.raises(ValueError, match='CUDA'):
@@ -336,7 +336,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_dispatch_refuses_what_the_kernels_do_not_take():
-    tf, tb = port_exp.make_inputs(1, 8, 16, 128, seed=9)
+    tf, tb = port_exp.make_inputs(1, 8, 16, 128, seed=9, device='cpu')
     with pytest.raises(ValueError, match='output_size'):
         rs.roi_stage2(tf, tb, 14, 'dotswap')
     with pytest.raises(ValueError, match='out_dtype'):

@@ -18,6 +18,8 @@ both packages read.
   rounded to f16.
 * flax's default init: each layer's weight std within 10% of
   lecun_normal's.
+* ``zero_nonfinite`` equal to the JAX optax transformation, in place, and
+  reached by ``apply_gradients``.
 '''
 import json
 import os
@@ -371,3 +373,31 @@ def test_init_follows_flax_defaults():
     assert checked > 10
     bn = model.backbone.stem_norm
     assert bool((bn.weight == 1).all()) and bool((bn.running_var == 1).all())
+
+
+def test_zero_nonfinite_matches_jax_and_apply_gradients_uses_it(monkeypatch):
+    from moseq2_detectron_extract_tpu.models import train as jtrain
+    from moseq2_detectron_extract_tpu_torch.models import train
+    rng = np.random.default_rng(3)
+    grads = [rng.normal(size=(4, 5)).astype('float32'), rng.normal(size=(7,)).astype('float32')]
+    grads[0][1, 2], grads[0][3, 0], grads[1][4] = np.nan, np.inf, -np.inf
+    tx = jtrain.zero_nonfinite()
+    ref, _ = tx.update([jnp.asarray(g) for g in grads], tx.init(None))
+    ours = [torch.from_numpy(g.copy()) for g in grads]
+    held = [g.data_ptr() for g in ours]
+    train.zero_nonfinite(ours)
+    assert [g.data_ptr() for g in ours] == held
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    calls = []
+    monkeypatch.setattr(train, 'zero_nonfinite',
+                        lambda g, _f=train.zero_nonfinite: calls.append(len(g)) or _f(g))
+    model = torch.nn.Linear(5, 4)
+    state = train.TrainState(step=0, model=model,
+                             optimizer=torch.optim.SGD(model.parameters(), lr=0.1))
+    model.weight.grad = torch.from_numpy(grads[0].copy())
+    model.bias.grad = torch.full((4,), float('nan'))
+    train.apply_gradients(state, ModelConfig())
+    assert calls == [2] and state.step == 1
+    assert bool(torch.isfinite(model.weight).all() and torch.isfinite(model.bias).all())

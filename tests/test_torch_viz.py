@@ -16,10 +16,21 @@ against cv2 5.0 where the JAX package draws with cv2.
 * The three views (``ArenaView``, ``RotatedKeypointsView``,
   ``CleanedFramesView``) on the same inputs against the JAX views drawn with
   cv2: equal.
+* The score text (``put_text`` at the 'score' size: scale 0.35, thickness
+  1, ``LINE_8``, the digits and '.'): each glyph is cv2 5.0's, and whole
+  scores equal ``cv2.putText`` on random colour images, clipped at every
+  edge.
+* The single-image views (``draw_mask_contour``, ``draw_instances``,
+  ``draw_annotation_item``, ``visualize_annotations`` with and without
+  matplotlib, ``visualize_inference`` at three scales and on tensors)
+  against the JAX functions drawn with cv2 5.0: equal, pixel for pixel.
 '''
+import sys
+
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from moseq2_detectron_extract_tpu import viz as jviz
 from moseq2_detectron_extract_tpu.io import video as jvideo
@@ -260,3 +271,162 @@ def test_draw_keypoints_equals_jax():
                                                                     dtype=np.uint8))
     ref = jviz.draw_keypoints(image.copy(), s['kpts'][2])
     np.testing.assert_array_equal(pviz.draw_keypoints(image.copy(), s['kpts'][2]), ref)
+
+
+def test_score_glyphs_are_cv2s():
+    '''Each character's coverage table is cv2 5.0's ``LINE_8`` rendering of it
+    at scale 0.35 (the same as ``LINE_AA``'s).'''
+    table, spec = draw.glyph_table('score'), draw.GLYPH_SIZES['score']
+    assert (spec['scale'], spec['thickness'], spec['chars']) == (0.35, 1, '0123456789.')
+    gh, gw = table.shape[1:]
+    for i, ch in enumerate(spec['chars']):
+        for line_type in (cv2.LINE_8, cv2.LINE_AA):
+            canvas = np.zeros((40, 40), np.uint8)
+            cv2.putText(canvas, ch, (12, 20), FONT, 0.35, 255, 1, line_type)
+            top, left = 20 + spec['top'], 12 + spec['left']
+            np.testing.assert_array_equal(canvas[top:top + gh, left:left + gw], table[i])
+            assert canvas.sum() == int(table[i].sum())
+        step = spec['advances'].get(ch, spec['advance'])
+        assert cv2.getTextSize(ch, FONT, 0.35, 1)[0][0] in (step, step + 1)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_score_text_equals_cv2(seed):
+    '''Scores as ``draw_instances`` writes them, on random colour images and
+    origins inside the image and past each edge (so a glyph is cut at the
+    right, the bottom, the top or the left).'''
+    rng = np.random.default_rng(seed)
+    for t in range(200):
+        h, w = (int(v) for v in rng.integers(6, 30, 2))
+        image = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        ref = image.copy()
+        text = f'{rng.uniform(0, 1):.2f}'
+        org = (int(rng.integers(-20, w + 2)), int(rng.integers(-2, h + 8)))
+        color = (255, 255, 255) if t % 2 else tuple(int(v) for v in rng.integers(0, 256, 3))
+        cv2.putText(ref, text, org, FONT, 0.35, color, 1)
+        draw.put_text(image, text, org, 'score', color)
+        np.testing.assert_array_equal(image, ref, err_msg=f'{text} at {org} on {h}x{w}')
+    with pytest.raises(ValueError, match='draws only'):
+        draw.put_text(image, '-0.5', (2, 10), 'score', (255, 255, 255))
+
+
+def _blob_masks(seed, d=3, h=40, w=52):
+    '''Instance masks: ellipses, one with a hole and a second piece, one
+    cut by the frame's top-left corner (the score's text then starts at
+    row 0), and one empty.'''
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    masks = np.zeros((d + 1, h, w), bool)
+    for i in range(d):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        ay, ax = rng.uniform(4, 12, 2)
+        masks[i] = ((yy - cy) / ay) ** 2 + ((xx - cx) / ax) ** 2 < 1
+    masks[0] |= ((yy - 3) / 5.0) ** 2 + ((xx - 4) / 7.0) ** 2 < 1
+    masks[1, 20:22, 25:28] = False
+    masks[1, 30:33, 2:6] = True
+    return masks
+
+
+def _instance_keypoints(seed, d, h=40, w=52):
+    rng = np.random.default_rng(seed)
+    kp = np.concatenate([rng.uniform(-2, w + 2, (d, 8, 1)), rng.uniform(-2, h + 2, (d, 8, 1)),
+                         rng.uniform(0, 1, (d, 8, 1))], axis=-1)
+    kp[0, 2, :2] = np.nan
+    return kp
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_draw_mask_contour_equals_jax(seed):
+    image = np.random.default_rng(seed).integers(0, 256, (40, 52, 3), dtype=np.uint8)
+    for mask in _blob_masks(seed):
+        for color in ((255, 255, 255), (0, 200, 255)):
+            ref = jviz.draw_mask_contour(image.copy(), mask, color)
+            np.testing.assert_array_equal(pviz.draw_mask_contour(image.copy(), mask, color), ref)
+
+
+@pytest.mark.parametrize('with_scores', [True, False])
+def test_draw_instances_equals_jax(with_scores):
+    masks = _blob_masks(3)
+    kp = _instance_keypoints(4, len(masks))
+    scores = np.array([0.987, 0.5, 0.0449, 1.0], np.float32) if with_scores else None
+    image = np.ascontiguousarray(np.random.default_rng(5).integers(0, 256, (40, 52, 3),
+                                                                    dtype=np.uint8))
+    ref = jviz.draw_instances(image.copy(), masks, kp, scores)
+    np.testing.assert_array_equal(pviz.draw_instances(image.copy(), masks, kp, scores), ref)
+
+
+def _prediction(seed):
+    masks = _blob_masks(seed)
+    d = len(masks)
+    return {'masks': masks, 'keypoints': _instance_keypoints(seed, d).astype(np.float32),
+            'scores': np.random.default_rng(seed).uniform(0, 1, d).astype(np.float32),
+            'valid': np.array([True, True, False, True])}
+
+
+@pytest.mark.parametrize('scale', [2.0, 1.0, 1.5])
+def test_visualize_inference_equals_jax(scale):
+    frame = np.random.default_rng(6).uniform(-20, 140, (40, 52)).astype(np.float32)
+    pred = _prediction(7)
+    ref = jviz.visualize_inference(frame, pred, 10.0, 100.0, scale=scale)
+    ours = pviz.visualize_inference(frame, pred, 10.0, 100.0, scale=scale)
+    assert ours.shape == ref.shape == (int(40 * scale), int(52 * scale), 3)
+    np.testing.assert_array_equal(ours, ref)
+    tensors = {k: torch.from_numpy(v) for k, v in pred.items()}
+    np.testing.assert_array_equal(
+        pviz.visualize_inference(torch.from_numpy(frame), tensors, 10.0, 100.0, scale=scale),
+        ref)
+    del pred['valid'], pred['scores']
+    np.testing.assert_array_equal(pviz.visualize_inference(frame, pred, 0, 120, scale=scale),
+                                  jviz.visualize_inference(frame, pred, 0, 120, scale=scale))
+
+
+def _annotation_items(tmp_path):
+    '''Both packages' items of a synthetic Label Studio export (polygons and
+    keypoints), plus one with a mask array and a rescaled intensity.'''
+    from moseq2_detectron_extract_tpu.io import annot as jannot
+    from moseq2_detectron_extract_tpu_torch.io import annot as pannot
+    from moseq2_detectron_extract_tpu_torch.synthetic import write_annotated_views
+    export = write_annotated_views(str(tmp_path / 'views'), 4, size=48, seed=2)
+    names = list(jviz.default_keypoint_names)
+    items = (jannot.read_annotations(export, names), pannot.read_annotations(export, names))
+    mask = np.zeros((48, 48), np.uint8)
+    mask[10:30, 8:40] = 1
+    extra = dict(items[1][0], rescale_intensity=1.7,
+                 annotations=[{'segmentation': mask, 'bbox': [7.6, 9.5, 40.4, 30.2],
+                               'keypoints': list(np.arange(24) % 40.0)}])
+    return items[0] + [extra], items[1] + [dict(extra)]
+
+
+def test_draw_annotation_item_equals_jax(tmp_path):
+    jax_items, port_items = _annotation_items(tmp_path)
+    assert len(port_items) == 5
+    for a, b in zip(jax_items, port_items):
+        ref = jviz.draw_annotation_item(a)
+        ours = pviz.draw_annotation_item(b)
+        assert ours.shape == ref.shape and ours.dtype == np.uint8
+        np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize('matplotlib', [True, False], ids=['figure', 'array'])
+def test_visualize_annotations_equals_jax(tmp_path, monkeypatch, matplotlib):
+    jax_items, port_items = _annotation_items(tmp_path)
+    if matplotlib:
+        import matplotlib as mpl
+        mpl.use('Agg')
+    else:                                      # the card's machine has no matplotlib
+        monkeypatch.setitem(sys.modules, 'matplotlib.pyplot', None)
+    ref = jviz.visualize_annotations(jax_items, num=3, seed=4)
+    ours = pviz.visualize_annotations(port_items, num=3, seed=4)
+    if not matplotlib:
+        assert isinstance(ours, np.ndarray) and ours.shape == (48, 3 * 48, 3)
+        np.testing.assert_array_equal(ours, ref)
+        return
+    import matplotlib.pyplot as plt
+    try:
+        assert len(ours[1]) == len(ref[1]) == 3
+        for a, b in zip(ours[1], ref[1]):
+            np.testing.assert_array_equal(np.asarray(a.images[0].get_array()),
+                                          np.asarray(b.images[0].get_array()))
+    finally:
+        plt.close(ours[0])
+        plt.close(ref[0])
