@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--model-dir benchmarks/bench_model_fast160]
 
+Phases 1-4j drive ``--model-dir`` (the shipping fast160 model); phase 4k
+drives the faithful model, the ``bench_model`` folder beside it.
+
 Phases, each printed with its elapsed seconds as it starts:
 
 1. the card's name and power limit (nvidia-smi);
@@ -231,6 +234,36 @@ Phases, each printed with its elapsed seconds as it starts:
    it draws), so this checks only the hand-off of a card prediction (its
    CUDA tensors give the drawing of the same prediction as numpy arrays)
    and that something was drawn over the frame;
+4k. the faithful model (``bench_model`` beside ``--model-dir``: canvas 256,
+   frames scaled to 240-250 px, 1,000 proposals a level into an NMS pool of
+   1,024, 256 proposals an image after it): (a) ROIAlign at its three
+   stages on the 256 canvas, batch 16 (box: out 7, K 256, 4,096 ROIs;
+   mask: out 14, K 1; keypoint: out 7, K 1; boxes drawn as phase 3's and
+   scaled by 256 / 160), each held to its plain version by phase 3's rule,
+   with its launch plan, device ms over 20 calls, bound and share of it,
+   and the card's clocks, power and temperature before and after;
+   (b) ``Predictor.from_model_dir`` at batch 16 and phase 4's chunk through
+   ``process_chunk`` with the launch counts and ``ops.nms.sync_count`` set
+   to 0 just before and read just after (3 ROIAlign launches a batch, 1
+   clean; the proposal NMS's host syncs a batch printed), phase 4's checks
+   of the output, the median stage ms of 5 chunks, the chunk's frames/s and
+   peak memory, one profiled chunk; (c) phase 4's reference check on its
+   first 4 frames (``valid`` and ``keep`` equal, boxes within 1 px, scores
+   within 1e-2, cleaned windows equal where the origins agree; the largest
+   keypoint difference printed); (d) ``extract`` through ``cli.main`` on
+   phase 4b's 1,100-frame session with the CLI's defaults (batch 10, the
+   preview written): ``complete: true``, 600 ROIAlign and 2 clean launches,
+   frames/s, ``stage_stats`` and the file's size; then again with cuDNN's
+   deterministic algorithms, whose datasets must equal a serial
+   ``extract_chunks`` run of the faithful predictor at the CLI's batch size
+   (also deterministic) bit for bit (the first run's file against it is
+   printed: cuDNN's default algorithms move keypoint scores run to run);
+   (e) phase 4d (b)'s 5 split train steps at the faithful train shapes
+   (canvas 256, 240-250 px views, 2,000 proposals a level and 1,500 after
+   an NMS with no cap, batch 8) from its weights on phase 4d's views: it/s,
+   the train NMS's ms and host syncs a step, the gather ROIAlign's ms, peak
+   memory; every loss finite (no CPU comparison: 4d (c) holds the training
+   code);
 5. a JSON line of the kernels (ROIAlign, clean and the four stage-2
    kernels; a stage-2 kernel's ``ms``, ``plain_ms`` and ``bound_ms`` are at
    the box shape with block_k 8, its ``launches`` those of phase 3b's
@@ -241,8 +274,10 @@ Phases, each printed with its elapsed seconds as it starts:
    ``avi_extract_launches`` those of phase 4h (b)'s ``.avi`` run;
    ROIAlign's ``op_ms`` its device time through the registered op (``ms``
    is the direct launch's), ``max_ulps`` and
-   ``one_ulp`` its distance from the plain version in bf16 steps), the
-   whole smoke's wall time, then the result line.
+   ``one_ulp`` its distance from the plain version in bf16 steps; under
+   ``faithful``, phase 4k's launches, ROIAlign's device ms, plain ms and
+   bound for one faithful batch and per stage), the whole smoke's wall
+   time, then the result line.
 
 It exits non-zero, without a result line, when CUDA is unavailable, when
 the port's package is not beside it, or when any phase fails.
@@ -319,6 +354,15 @@ def card_query() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
+def card_clocks() -> str:
+    '''The card's SM and memory clocks, power draw and temperature now
+    (nvidia-smi), to print beside a time that may move with them.'''
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem,power.draw,'
+                          'temperature.gpu', '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0].strip()
+
+
 def wall_ms(fn, reps: int) -> float:
     """Median over ``reps`` single calls of CUDA-event time around each call:
     it includes the host's launch time wherever the device waits for it."""
@@ -370,9 +414,10 @@ def device_ms(fn, reps: int, attempts: int = 3) -> float:
 
 
 def roi_inputs(rng, batch: int, k: int, canvas: int = 160, c: int = 256, device='cuda'):
-    '''P2..P5 of a 160 canvas (40, 20, 10, 5) and boxes shaped like the
-    main path's: small mouse-sized boxes (level 2), with a quarter of the
-    box stage's proposals large enough for level 3.'''
+    '''P2..P5 of a square canvas (40, 20, 10, 5 at 160; 64, 32, 16, 8 at 256)
+    and boxes shaped like the main path's, drawn for a 160 canvas and scaled
+    to ``canvas``: small mouse-sized boxes (level 2), with a quarter of the
+    box stage's proposals large enough for level 3 (levels 3 and 4 at 256).'''
     import numpy as np
     import torch
     levels = [torch.from_numpy(rng.normal(0, 1, (batch, canvas // s, canvas // s, c))
@@ -385,7 +430,7 @@ def roi_inputs(rng, batch: int, k: int, canvas: int = 160, c: int = 256, device=
     if k > 1:
         w[:, : k // 4] = rng.uniform(115, 160, (batch, k // 4))
         h[:, : k // 4] = rng.uniform(115, 160, (batch, k // 4))
-    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1) * (canvas / 160)
     boxes = np.clip(boxes, 0, canvas).astype('float32')
     return levels, torch.from_numpy(boxes).to(device)
 
@@ -447,33 +492,40 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
-def check_kernels(rng, reps: int, card: str):
-    '''Phase 3: each kernel against its plain version at main-path shapes.'''
-    import numpy as np
+MAIN_STAGES = (('box', 7, 16), ('mask', 14, 1), ('keypoint', 7, 1))   # (stage, out, K)
+
+
+def check_roi_stages(rng, reps: int, card: str, stages=MAIN_STAGES, canvas: int = 160,
+                     label: str = 'roi_align'):
+    '''ROIAlign's stages at batch 16 on ``canvas``, each against the plain
+    version (2 bf16 ulps of its magnitude, at most 0.2% of the elements off
+    and 0.1% two ulps or more), with its launch plan, device ms (kernel,
+    plain, through the registered op), bound and share of it. Returns the
+    stages summed (one batch's pooling) and each stage's numbers.'''
     import torch
-    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.ops import roi_align_kernel
     from moseq2_detectron_extract_tpu_torch.ops.roi_align import separable_batched_roi_align
 
     roi = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'max_abs_err': 0.0,
-           'bytes': 0, 'ops': 0}
-    for stage, out, k in (('box', 7, 16), ('mask', 14, 1), ('keypoint', 7, 1)):
-        levels, boxes = roi_inputs(rng, 16, k)
+           'bytes': 0, 'ops': 0, 'stages': {}}
+    for stage, out, k in stages:
+        levels, boxes = roi_inputs(rng, 16, k, canvas)
         got = roi_align_kernel.roi_align_cuda(levels, boxes, out)
         ref = separable_batched_roi_align(levels, boxes, out, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs()
         allowed = BF16_TOL * (1 + ref.float().abs())
         if not bool((err <= allowed).all()):
-            raise AssertionError(f'roi_align {stage}: kernel differs from plain version '
+            raise AssertionError(f'{label} {stage}: kernel differs from plain version '
                                  f'(max abs err {float(err.max()):.3e})')
         ulps = bf16_ulps(got, ref)
         far = ulps >= 2
-        phase(f'roi_align {stage}: kernel against the plain version in bf16 ulps: max '
+        phase(f'{label} {stage}: kernel against the plain version in bf16 ulps: max '
               f'{int(ulps.max())}, {int((ulps == 1).sum())} elements one ulp off, '
               f'{int(far.sum())} two or more (their max abs err '
               f'{float(err[far].max()) if far.any() else 0.0:.3e}), of {ulps.numel()}')
         if int((ulps >= 1).sum()) > 2e-3 * ulps.numel() or int(far.sum()) > 1e-3 * ulps.numel():
-            raise AssertionError(f'roi_align {stage}: more elements off the plain version than '
+            raise AssertionError(f'{label} {stage}: more elements off the plain version than '
                                  'the shared bf16 rounding allows (0.2%, 0.1% two ulps)')
         roi['one_ulp'] = roi.get('one_ulp', 0) + int((ulps == 1).sum())
         roi['max_ulps'] = max(roi.get('max_ulps', 0), int(ulps.max()))
@@ -482,28 +534,40 @@ def check_kernels(rng, reps: int, card: str):
                                   out_dtype=torch.bfloat16)
         via_op = functools.partial(torch.ops.m2de.roi_align_bf16, levels, boxes, out, 2)
         if not torch.equal(via_op(), got):
-            raise AssertionError(f'roi_align {stage}: the registered op differs from the launch')
+            raise AssertionError(f'{label} {stage}: the registered op differs from the launch')
         ms, plain_ms = device_ms(kernel, reps), device_ms(plain, reps)
         wall, plain_wall = wall_ms(kernel, reps), wall_ms(plain, reps)
         op_ms, op_wall = device_ms(via_op, reps), wall_ms(via_op, reps)
         nbytes, ops = roi_bound(levels, boxes, out)
         b_ms, by = bound_ms(nbytes, ops)
         plan = roi_align_kernel.launch_plan(16 * k, 256, out, 8)
-        phase(f'roi_align {stage} plan: {plan.warps} warps, one per (ROI, output row, '
+        phase(f'{label} {stage} plan: {plan.warps} warps, one per (ROI, output row, '
               f'segment of {-(-out // plan.segs)} columns), {plan.vec} channels a lane')
-        phase(f'roi_align {stage} (B=16, K={k}, out={out}, C=256): max_abs_err '
-              f'{float(err.max()):.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); device ms: kernel '
-              f'{ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by} ({nbytes} B, '
-              f'{ops} ops); wall ms per call: kernel {wall:.4f}, plain {plain_wall:.4f}; '
-              f'through the registered op m2de::roi_align_bf16 (bit for bit the launch): '
-              f'device ms {op_ms:.4f}, wall ms {op_wall:.4f} [{card}]')
+        phase(f'{label} {stage} (B=16, K={k}, out={out}, C=256, canvas {canvas}): '
+              f'max_abs_err {float(err.max()):.3e} (tol {BF16_TOL:.4f}*(1+|ref|)); device ms: '
+              f'kernel {ms:.4f}, plain {plain_ms:.4f}, bound {b_ms:.4f} by {by} ({nbytes} B, '
+              f'{ops} ops; the kernel at {100 * b_ms / ms:.1f}% of it); wall ms per call: '
+              f'kernel {wall:.4f}, plain {plain_wall:.4f}; through the registered op '
+              f'm2de::roi_align_bf16 (bit for bit the launch): device ms {op_ms:.4f}, wall ms '
+              f'{op_wall:.4f} [{card}]')
         roi['ms'] += ms
         roi['op_ms'] = roi.get('op_ms', 0.0) + op_ms
         roi['plain_ms'] += plain_ms
         roi['max_abs_err'] = max(roi['max_abs_err'], float(err.max()))
         roi['bytes'] += nbytes
         roi['ops'] += ops
+        roi['stages'][stage] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                                'bound_by': by, 'max_abs_err': float(err.max())}
     roi['bound_ms'], roi['bound_by'] = bound_ms(roi['bytes'], roi['ops'])
+    return roi
+
+
+def check_kernels(rng, reps: int, card: str):
+    '''Phase 3: each kernel against its plain version at main-path shapes.'''
+    import torch
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel
+
+    roi = check_roi_stages(rng, reps, card)
 
     frames = torch.from_numpy(rng.integers(0, 256, (64, 160, 160)).astype('uint8')).cuda()
     got = clean_kernel.clean_frames_cuda(frames)
@@ -687,7 +751,8 @@ def stage_times(chunk, predictor, config, tracker) -> dict:
     return times
 
 
-def profile_chunk(chunk, predictor, config, tracker, card: str) -> None:
+def profile_chunk(chunk, predictor, config, tracker, card: str,
+                  label: str = 'profiled chunk') -> None:
     '''One chunk under ``torch.profiler``: the device's busy share of its
     wall time (profiler overhead included) and the top kernels. A trace that
     records no device time is taken again, at most twice.'''
@@ -709,19 +774,76 @@ def profile_chunk(chunk, predictor, config, tracker, card: str) -> None:
             break
     else:
         raise RuntimeError('the profiler recorded no device time in 3 traces')
-    phase(f'profiled chunk: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
+    phase(f'{label}: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
           f'({100 * busy_us / 1e3 / (wall * 1e3):.1f}%), {len(kernels)} kernel names, '
           f'{sum(e.count for e in kernels)} launches [{card}]')
     copies = [e for e in kernels if 'copy' in e.key.lower()]
-    phase(f'profiled chunk: copy kernels {sum(e.device_time_total for e in copies) / 1e3:.3f} '
+    phase(f'{label}: copy kernels {sum(e.device_time_total for e in copies) / 1e3:.3f} '
           f'ms in {sum(e.count for e in copies)} launches [{card}]')
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP_KERNELS]:
         print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}', flush=True)
 
 
+def check_chunk(out, launches: dict) -> int:
+    '''``process_chunk``'s output on a chunk of FRAMES 424x512 frames at
+    batch BATCH: the shapes, finite outputs and centroids, the windows, the
+    launch counts (3 ROIAlign per batch, 1 clean) and the mouse found in 90%
+    of the frames, which it returns.'''
+    import torch
+    n = FRAMES
+    inf = out['inference']
+    batches = -(-n // BATCH)
+    expect = {'boxes': (n, 1, 4), 'masks': (n, 1, 424, 512), 'keypoints': (n, 1, 8, 3)}
+    for key, shape in expect.items():
+        if tuple(inf[key].shape) != shape:
+            raise AssertionError(f'{key} shape {tuple(inf[key].shape)} != {shape}')
+    for key in ('boxes', 'scores', 'keypoints', 'mask_probs'):
+        if not bool(torch.isfinite(inf[key]).all()):
+            raise AssertionError(f'non-finite {key}')
+    fd = out['feat_dispatch']
+    if tuple(fd['cleaned_frames'].shape) != (n, 160, 160):
+        raise AssertionError(f'cleaned windows shape {tuple(fd["cleaned_frames"].shape)}')
+    found = int(out['num_instances'].sum())
+    has = torch.from_numpy(out['num_instances'] > 0).cuda()
+    if not bool(torch.isfinite(fd['feats_dev']['centroid'][has]).all()):
+        raise AssertionError('non-finite centroid of a selected instance')
+    if launches['roi_align'] != 3 * batches or launches['clean'] != 1:
+        raise AssertionError(f'launch counts {launches}; expected roi_align '
+                             f'{3 * batches} (3 per batch), clean 1')
+    if found < 0.9 * n:
+        raise AssertionError(f'the mouse was found in only {found} of {n} frames')
+    return found
+
+
+def time_chunks(predictor, config, tracker, seed: int, card: str, label: str = '') -> None:
+    '''CHUNKS timed chunks of FRAMES sentinel frames made from ``seed`` + 1
+    on (``stage_times``: the median of each stage and of the chunk, peak
+    device memory), then one more under ``torch.profiler``
+    (``profile_chunk``).'''
+    import torch
+    from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk
+    n = FRAMES
+    chunks = [make_sentinel_chunk(n, 424, 512, seed=seed + 1 + i) for i in range(CHUNKS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [stage_times(c, predictor, config, tracker) for c in chunks[:CHUNKS]]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    medians = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    phase(f'{label}{CHUNKS} timed chunks, median wall ms: ' + ', '.join(
+        f'{k} {v * 1e3:.2f}' for k, v in medians.items()) + f' [{card}]')
+    phase(f'{label}chunk: {n} frames at {n / medians["chunk"]:.1f} frames/s (median; chunks '
+          + ', '.join(f'{n / r["chunk"]:.1f}' for r in runs)
+          + f'), peak memory {peak_gib:.2f} GiB [{card}]')
+    profile_chunk(chunks[CHUNKS], predictor, config, tracker, card,
+                  f'{label}profiled chunk')
+
+
 def reference_check(model_dir: str, chunk, config, devices=('cuda', 'cpu')):
     '''The same 4 frames through the port on the card (kernels) and on the
-    CPU (plain versions), both with the model in f32.'''
+    CPU (plain versions), both with the model in f32: ``valid`` and
+    ``keep`` equal, boxes within 1 px, scores within 1e-2, the cleaned
+    windows equal where the window origins agree. Returns the boxes', the
+    scores' and the valid keypoints' (x, y) largest differences and the
+    number of shared origins.'''
     import numpy as np
     import torch
     from moseq2_detectron_extract_tpu_torch.extract import process_chunk
@@ -750,7 +872,10 @@ def reference_check(model_dir: str, chunk, config, devices=('cuda', 'cpu')):
                                      cpu['feat_dispatch']['cleaned_frames'][same]))
     if not same.any() or not cleaned_equal:
         raise AssertionError('reference check: cleaned windows differ between card and CPU')
-    return box_err, score_err, int(same.sum())
+    valid = cpu['inference']['valid']
+    kp_gap = (gpu['inference']['keypoints'].cpu() - cpu['inference']['keypoints'])[..., :2]
+    kp_err = float(kp_gap[valid].abs().max()) if bool(valid.any()) else 0.0
+    return box_err, score_err, kp_err, int(same.sum())
 
 
 def tool_versions() -> None:
@@ -1325,6 +1450,17 @@ def _run_cli(path: str, model_dir: str, out_dir: str, card: str, label: str, nfr
     return status, launches, wall, peak_gib
 
 
+def serial_results(session, prepared: dict, predictor) -> dict:
+    '''The session's chunks through ``extract.extract_chunks``, gathered as
+    the results writer writes them (``written_rows``).'''
+    from moseq2_detectron_extract_tpu_torch import extract
+    results = {}
+    for out in extract.extract_chunks(session, predictor, prepared):
+        written_rows(out, prepared['first_frame_idx'], results)
+        del out
+    return results
+
+
 def _expected_launches(nframes: int, chunk: int, batch: int) -> dict:
     chunks = -(-nframes // chunk)
     return {'roi_align': 3 * chunks * -(-chunk // batch), 'clean': chunks}
@@ -1401,10 +1537,7 @@ def check_extract(path: str, serial: dict, prepared: dict, card: str, seed: int,
                 del runs
             try:
                 torch.backends.cudnn.deterministic = True
-                results = {}
-                for out in extract.extract_chunks(session, predictor, again):
-                    written_rows(out, again['first_frame_idx'], results)
-                    del out
+                results = serial_results(session, again, predictor)
             finally:
                 torch.backends.cudnn.deterministic = False
             differ_d = _compare_file(os.path.join(out_d, 'results_00.h5'), results)
@@ -1595,10 +1728,13 @@ def train_card_vs_cpu(card: str, seed: int) -> None:
           f'abs err {img_err:.2e}, mask pixels differing {mask_diff} [{card}]')
 
 
-def train_step_split(cfg, items, card: str, seed: int) -> None:
-    '''(b) SPLIT_STEPS synchronised full-width steps split into augment,
+def train_step_split(cfg, items, card: str, seed: int, weights=None,
+                     label: str = '4d (b)') -> None:
+    '''(b) SPLIT_STEPS synchronised full-width steps, from ``weights`` (a
+    state dict) or else from the flax-default init, split into augment,
     forward and losses (the gather ROIAlign's 3 calls and the proposal NMS
-    timed apart inside it), backward and optimizer; then one step under
+    timed apart inside it), backward and optimizer, every loss finite, with
+    their iterations/s and peak device memory; then one step under
     torch.profiler (CUDA activity only).'''
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1611,6 +1747,8 @@ def train_step_split(cfg, items, card: str, seed: int) -> None:
     from moseq2_detectron_extract_tpu_torch.ops import nms
 
     state = create_train_state(cfg, seed=seed, device='cuda')
+    if weights is not None:
+        state.model.load_state_dict(weights, strict=True)
     loader = TrainLoader(items, cfg, seed=seed)
     gen = torch.Generator('cuda').manual_seed(seed)
     spent = {'roi_align': 0.0, 'nms': 0.0}
@@ -1642,6 +1780,9 @@ def train_step_split(cfg, items, card: str, seed: int) -> None:
         apply_gradients(state, cfg)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        bad = [k for k, v in losses.items() if not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError(f'{label}: non-finite losses {bad} at step {state.step}')
         if split is not None:
             for key, dt in zip(('augment', 'forward_losses', 'backward', 'optimizer'),
                                (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
@@ -1655,18 +1796,21 @@ def train_step_split(cfg, items, card: str, seed: int) -> None:
         rpn.batched_nms_keep_mask = timed('nms', bnms)
         split = {k: [] for k in ('augment', 'forward_losses', 'backward', 'optimizer')}
         nms.sync_count = 0
+        torch.cuda.reset_peak_memory_stats()
         walls = [step(split) for _ in range(SPLIT_STEPS)]
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         syncs = nms.sync_count / SPLIT_STEPS
     finally:
         rcnn.MaskKeypointRCNN.train_pool = staticmethod(pool)
         rpn.batched_nms_keep_mask = bnms
     med = {k: statistics.median(v) * 1e3 for k, v in split.items()}
-    phase(f'4d (b) step split, median of {SPLIT_STEPS} synchronised steps (batch '
+    phase(f'{label} step split, median of {SPLIT_STEPS} synchronised steps (batch '
           f'{cfg.ims_per_batch}, ms): ' + ', '.join(f'{k} {v:.2f}' for k, v in med.items())
           + f'; inside forward_losses, per step: gather ROIAlign (3 calls) '
           f'{spent["roi_align"] * 1e3 / SPLIT_STEPS:.2f}, train proposal NMS '
           f'{spent["nms"] * 1e3 / SPLIT_STEPS:.2f}; step wall median '
-          f'{statistics.median(walls) * 1e3:.2f}; NMS host syncs per step {syncs:.1f} [{card}]')
+          f'{statistics.median(walls) * 1e3:.2f} ({1 / statistics.median(walls):.2f} it/s); NMS '
+          f'host syncs per step {syncs:.1f}; peak device memory {peak_gib:.2f} GiB [{card}]')
     try:
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1682,7 +1826,7 @@ def train_step_split(cfg, items, card: str, seed: int) -> None:
             raise RuntimeError('the profiler recorded no device time in 3 traces')
     finally:
         loader.close()
-    phase(f'4d (b) profiled step: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
+    phase(f'{label} profiled step: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms '
           f'({100 * busy_us / 1e3 / (wall * 1e3):.1f}%), {sum(e.count for e in kernels)} '
           f'launches of {len(kernels)} kernel names [{card}]')
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:TOP_KERNELS]:
@@ -2758,7 +2902,7 @@ def check_parallel(card: str, seed: int, export: str, cfg_path: str, session_pat
     out = extract.process_chunk(chunk, predictor, config)
     per_frame = out['h2d_bytes'] / len(chunk)
     full_per_frame = chunk.shape[1] * chunk.shape[2] * chunk.dtype.itemsize
-    box_err, score_err, n_same = reference_check(model_dir, chunk[:4], config)
+    box_err, score_err, _, n_same = reference_check(model_dir, chunk[:4], config)
     phase(f'4i (b) extract --device-input prescaled: {SESSION_FRAMES / wall_b:.1f} frames/s '
           f'(cli wall), full input (phase 4c (a), deterministic) '
           f'{SESSION_FRAMES / dat_run["wall"]:.1f}; bytes to the card per frame '
@@ -3025,6 +3169,123 @@ def check_ported_last(card: str, seed: int, predictor, frame) -> None:
     phase(f'4j: {time.perf_counter() - t_phase:.1f} s [{card}]')
 
 
+FAITHFUL_MODEL = 'bench_model'     # phase 4k: the faithful model's folder, beside --model-dir
+FAITHFUL_STAGES = (('box', 7, 256), ('mask', 14, 1), ('keypoint', 7, 1))   # (stage, out, K)
+FAITHFUL_CANVAS = 256
+
+
+def check_faithful(card: str, seed: int, model_dir: str, chunk, config: dict,
+                   session_path: str, export: str, tmp: str) -> dict:
+    '''Phase 4k: the faithful model (``model_dir``, a 256 canvas, 256
+    proposals an image from an NMS pool of 1,024) through the entry points a
+    user calls: (a) ROIAlign at its three stages' shapes against the plain
+    version; (b) ``Predictor.from_model_dir`` and phase 4's chunk through
+    ``process_chunk`` (the kernels' launches, the proposal NMS's host syncs,
+    the timed and the profiled chunks); (c) the reference check card against
+    CPU; (d) ``extract`` through the CLI on phase 4b's session, timed, then
+    again with cuDNN's deterministic algorithms, whose file must equal a
+    serial ``extract_chunks`` run's; (e) SPLIT_STEPS train steps at
+    its train shapes from its weights, measured only. Returns (b)'s and
+    (d)'s launches and (a)'s numbers for the report line.'''
+    import numpy as np
+    import torch
+    from moseq2_detectron_extract_tpu_torch import extract
+    from moseq2_detectron_extract_tpu_torch.cli import extract_parser
+    from moseq2_detectron_extract_tpu_torch.io.annot import read_annotations
+    from moseq2_detectron_extract_tpu_torch.io.session import Session
+    from moseq2_detectron_extract_tpu_torch.models.checkpoint import load_model_dir
+    from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, nms, roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.proc.keypoints import default_keypoint_names
+
+    t_phase = time.perf_counter()
+    before = card_clocks()
+    roi = check_roi_stages(np.random.default_rng(seed), REPS, card, FAITHFUL_STAGES,
+                           FAITHFUL_CANVAS, '4k (a) roi_align')
+    phase(f'4k (a) roi_align, the three stages of one batch of 16: device ms kernel '
+          f'{roi["ms"]:.4f}, plain {roi["plain_ms"]:.4f}, bound {roi["bound_ms"]:.4f} by '
+          f'{roi["bound_by"]} (the kernel at {100 * roi["bound_ms"] / roi["ms"]:.1f}% of it); '
+          f'SM clock, memory clock, power, temperature before: {before}, after: '
+          f'{card_clocks()} [{card}]')
+
+    t = time.perf_counter()
+    predictor = Predictor.from_model_dir(model_dir, batch_size=BATCH)
+    cfg = predictor.cfg
+    phase(f'4k (b) loaded {os.path.relpath(model_dir, REPO)} in {time.perf_counter() - t:.1f} s '
+          f'(amp {cfg.amp_dtype}, canvas {cfg.image_size}, test sizes {cfg.min_size_test}-'
+          f'{cfg.max_size_test}, {cfg.rpn_pre_nms_topk_test} proposals a level into an NMS pool '
+          f'of {cfg.rpn_nms_global_cap}, {cfg.rpn_post_nms_topk_test} after it, batch {BATCH})')
+    if (cfg.image_size, cfg.rpn_nms_global_cap, cfg.rpn_post_nms_topk_test) != (256, 1024, 256):
+        raise AssertionError(f'{model_dir} is not the faithful model')
+    tracker = extract.make_tracker()
+    roi_align_kernel.launch_count = 0
+    clean_kernel.launch_count = 0
+    nms.sync_count = 0
+    out = extract.process_chunk(chunk, predictor, config, tracker=tracker)
+    torch.cuda.synchronize()
+    launches = {'roi_align': roi_align_kernel.launch_count, 'clean': clean_kernel.launch_count}
+    syncs = nms.sync_count / -(-FRAMES // BATCH)
+    found = check_chunk(out, launches)
+    phase(f'4k (b) main path launches {launches}; proposal NMS host syncs {syncs:.1f} per '
+          f'batch (at most {nms.MAX_ITERS}); detections found in {found} of {FRAMES} frames '
+          f'[{card}]')
+    time_chunks(predictor, config, tracker, seed, card, '4k (b) ')
+
+    box_err, score_err, kp_err, n_same = reference_check(model_dir, chunk[:4], config)
+    phase(f'4k (c) reference check (4 frames, f32 model, card vs CPU plain versions): valid '
+          f'and keep equal; boxes {box_err:.4f} px, scores {score_err:.2e}, keypoints '
+          f'{kp_err:.4f} px; cleaned windows equal at {n_same} of 4 shared origins [{card}]')
+
+    defaults = extract_parser().parse_args([session_path])
+    out_dir = os.path.join(tmp, 'extract')
+    _, cli_launches, wall, _ = _run_cli(session_path, model_dir, out_dir, card, '4k (d)',
+                                        SESSION_FRAMES)
+    expect = _expected_launches(SESSION_FRAMES, defaults.chunk_size, defaults.batch_size)
+    if cli_launches != expect:
+        raise AssertionError(f'4k (d) launches {cli_launches}, expected {expect}')
+    h5_path = os.path.join(out_dir, 'results_00.h5')
+    phase(f'4k (d): {SESSION_FRAMES} frames at {SESSION_FRAMES / wall:.1f} frames/s (cli wall, '
+          f'find_roi, model load and the preview included); results_00.h5 '
+          f'{os.path.getsize(h5_path) / 1e6:.2f} MB [{card}]')
+    # cuDNN's default algorithms vary run to run (phase 4c (a): the keypoint
+    # scores), so the file is held to the serial path with its deterministic
+    # ones on both sides, bit for bit; the default run's file is compared too
+    serial = Predictor.from_model_dir(model_dir, batch_size=defaults.batch_size,
+                                      score_threshold=defaults.instance_threshold)
+    session = Session(session_path)
+    prepared = extract.prepare_session(session, {'chunk_size': defaults.chunk_size},
+                                       device='cuda')
+    out_d = os.path.join(tmp, 'extract-deterministic')
+    try:
+        torch.backends.cudnn.deterministic = True
+        _run_cli(session_path, model_dir, out_d, card, '4k (d) deterministic', SESSION_FRAMES)
+        results = serial_results(session, prepared, serial)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = _compare_file(h5_path, results)
+    differ_d = _compare_file(os.path.join(out_d, 'results_00.h5'), results)
+    phase(f'4k (d): against a serial extract_chunks run at the CLI\'s batch size '
+          f'({defaults.batch_size}), both with cudnn.deterministic: '
+          + (f'{len(differ_d)} datasets differ: {differ_d}' if differ_d else
+             f'all {len(results)} per-frame datasets equal bit for bit')
+          + '; the run with cuDNN\'s default algorithms: '
+          + (f'{len(differ)} differ: {differ}' if differ else 'all equal') + f' [{card}]')
+    if differ_d:
+        raise AssertionError('4k (d): the faithful extract differs from the serial path '
+                             'with deterministic cuDNN at the same batch size')
+
+    train_cfg, weights, _ = load_model_dir(model_dir)
+    phase(f'4k (e) {SPLIT_STEPS} train steps from the faithful weights: canvas '
+          f'{train_cfg.image_size}, train sizes {train_cfg.min_size_train}-'
+          f'{train_cfg.max_size_train}, proposals {train_cfg.rpn_pre_nms_topk_train} a level, '
+          f'{train_cfg.rpn_post_nms_topk_train} after an NMS with no cap, batch '
+          f'{train_cfg.ims_per_batch}, on phase 4d\'s views [{card}]')
+    train_step_split(train_cfg, read_annotations(export, default_keypoint_names), card, seed,
+                     weights=weights, label='4k (e)')
+    phase(f'4k: {time.perf_counter() - t_phase:.1f} s [{card}]')
+    return {'launches': launches, 'extract_launches': cli_launches, 'roi': roi}
+
+
 def start_build():
     '''Start the kernels' build (``native.build_library``: nvcc, no torch)
     in a thread, so that it runs while torch imports; the thread and a dict
@@ -3137,48 +3398,14 @@ def main() -> int:
                 'clean': clean_kernel.launch_count}
     phase(f'main path launches: {launches}')
 
-    n = FRAMES
-    inf = out['inference']
-    batches = -(-n // BATCH)
-    expect = {'boxes': (n, 1, 4), 'masks': (n, 1, 424, 512), 'keypoints': (n, 1, 8, 3)}
-    for key, shape in expect.items():
-        if tuple(inf[key].shape) != shape:
-            raise AssertionError(f'{key} shape {tuple(inf[key].shape)} != {shape}')
-    for key in ('boxes', 'scores', 'keypoints', 'mask_probs'):
-        if not bool(torch.isfinite(inf[key]).all()):
-            raise AssertionError(f'non-finite {key}')
-    fd = out['feat_dispatch']
-    if tuple(fd['cleaned_frames'].shape) != (n, 160, 160):
-        raise AssertionError(f'cleaned windows shape {tuple(fd["cleaned_frames"].shape)}')
-    found = int(out['num_instances'].sum())
-    has = torch.from_numpy(out['num_instances'] > 0).cuda()
-    if not bool(torch.isfinite(fd['feats_dev']['centroid'][has]).all()):
-        raise AssertionError('non-finite centroid of a selected instance')
-    if launches['roi_align'] != 3 * batches or launches['clean'] != 1:
-        raise AssertionError(f'launch counts {launches}; expected roi_align '
-                             f'{3 * batches} (3 per batch), clean 1')
-    if found < 0.9 * n:
-        raise AssertionError(f'the mouse was found in only {found} of {n} frames')
+    found = check_chunk(out, launches)
+    phase(f'detections found: {found} of {FRAMES} frames [{card}]')
+    time_chunks(predictor, config, tracker, args.seed, card)
 
-    phase(f'detections found: {found} of {n} frames [{card}]')
-
-    chunks = [make_sentinel_chunk(n, 424, 512, seed=args.seed + 1 + i)
-              for i in range(CHUNKS + 1)]
-    torch.cuda.reset_peak_memory_stats()
-    runs = [stage_times(c, predictor, config, tracker) for c in chunks[:CHUNKS]]
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    medians = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    phase(f'{CHUNKS} timed chunks, median wall ms: ' + ', '.join(
-        f'{k} {v * 1e3:.2f}' for k, v in medians.items()) + f' [{card}]')
-    phase(f'chunk: {n} frames at {n / medians["chunk"]:.1f} frames/s (median; chunks '
-          + ', '.join(f'{n / r["chunk"]:.1f}' for r in runs)
-          + f'), peak memory {peak_gib:.2f} GiB [{card}]')
-    profile_chunk(chunks[CHUNKS], predictor, config, tracker, card)
-
-    box_err, score_err, n_same = reference_check(args.model_dir, chunk[:4], config)
+    box_err, score_err, kp_err, n_same = reference_check(args.model_dir, chunk[:4], config)
     phase(f'reference check (4 frames, f32 model, card vs CPU plain versions): boxes '
-          f'{box_err:.4f} px, scores {score_err:.2e}, cleaned windows equal at '
-          f'{n_same} of 4 shared origins')
+          f'{box_err:.4f} px, scores {score_err:.2e}, keypoints {kp_err:.4f} px, cleaned '
+          f'windows equal at {n_same} of 4 shared origins')
 
     work = tempfile.mkdtemp(prefix='m2de-smoke-')
     try:
@@ -3223,6 +3450,14 @@ def main() -> int:
               'prediction (host drawing)')
         check_ported_last(card, args.seed, predictor,
                           chunk[int(np.argmax(out['num_instances'] > 0))])
+
+        phase('4k/5 the faithful model (benchmarks/bench_model: canvas 256, 256 proposals from '
+              'an NMS pool of 1,024): ROIAlign at its shapes, process_chunk, card vs CPU, '
+              'extract, train steps')
+        faithful = check_faithful(
+            card, args.seed,
+            os.path.join(os.path.dirname(os.path.abspath(args.model_dir)), FAITHFUL_MODEL),
+            chunk, config, session_path, export, os.path.join(work, 'faithful'))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3240,7 +3475,14 @@ def main() -> int:
          'max_abs_err': roi['max_abs_err'], 'max_ulps': roi['max_ulps'],
          'one_ulp': roi['one_ulp'],
          'ms': roi['ms'], 'op_ms': roi['op_ms'], 'plain_ms': roi['plain_ms'],
-         'bound_ms': roi['bound_ms'], 'bound_by': roi['bound_by'], 'library_ms': None},
+         'bound_ms': roi['bound_ms'], 'bound_by': roi['bound_by'], 'library_ms': None,
+         'faithful': {'launches': faithful['launches']['roi_align'],
+                      'extract_launches': faithful['extract_launches']['roi_align'],
+                      'max_abs_err': faithful['roi']['max_abs_err'],
+                      'ms': faithful['roi']['ms'], 'plain_ms': faithful['roi']['plain_ms'],
+                      'bound_ms': faithful['roi']['bound_ms'],
+                      'bound_by': faithful['roi']['bound_by'],
+                      'stages': faithful['roi']['stages']}},
         {'name': 'clean', 'route': 'cuda', 'source': f'{PKG}/csrc/clean.cu',
          'replaces': 'moseq2_detectron_extract_tpu/ops/pallas_clean.py:74',
          'launches': launches['clean'], 'session_launches': session_launches['clean'],
@@ -3250,7 +3492,9 @@ def main() -> int:
          'batch_extract_launches': last_launches['batch']['clean'],
          'max_abs_err': clean['max_abs_err'],
          'ms': clean['ms'], 'plain_ms': clean['plain_ms'], 'bound_ms': clean['bound_ms'],
-         'bound_by': clean['bound_by'], 'library_ms': None},
+         'bound_by': clean['bound_by'], 'library_ms': None,
+         'faithful': {'launches': faithful['launches']['clean'],
+                      'extract_launches': faithful['extract_launches']['clean']}},
     ]
     replaces = {'retile': 59, 'transpose': 92, 'dotswap': 114, 'noxpose': 133}
     for variant, line in replaces.items():

@@ -51,8 +51,9 @@ class RoiPlan(NamedTuple):
 def launch_plan(rois: int, channels: int, output_size: int, vec: int) -> RoiPlan:
     '''The fewest column segments per output row (at most one per column)
     that put WARPS_PER_SM warps on every SM: the box stage (256 ROIs x 7
-    rows) needs none, the K = 1 stages (16 ROIs) split their rows so they
-    still spread over the card.'''
+    rows, 4,096 ROIs at the faithful model's 256 proposals) needs none, the
+    K = 1 stages (16 ROIs) split their rows so they still spread over the
+    card.'''
     groups = -(-channels // (32 * vec))
     rows = rois * output_size * groups
     segs = max(1, min(-(-SMS * WARPS_PER_SM // rows), output_size))

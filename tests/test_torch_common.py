@@ -69,6 +69,12 @@ def jax_init_params(cfg: JaxModelConfig, seed: int = 0):
                          'bias': rng.normal(0, 0.1, shape),
                          'mean': rng.normal(0, 0.1, shape),
                          'var': rng.uniform(0.5, 1.5, shape)}[leaf].astype('float32')
+    return jax_tree(flat), flat
+
+
+def jax_tree(flat):
+    '''``/``-joined keys (the npz layout) -> the nested tree of JAX arrays
+    that flax's ``apply`` takes.'''
     tree: dict = {}
     for key, value in flat.items():
         node = tree
@@ -76,7 +82,7 @@ def jax_init_params(cfg: JaxModelConfig, seed: int = 0):
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = jnp.asarray(value)
-    return tree, flat
+    return tree
 
 
 def port_predictor(cfg: JaxModelConfig, flat, batch_size: int = 4,

@@ -94,7 +94,20 @@ def test_cuda_roi_align_ulps(cuda_device, out, k):
     nearly cancel, or whose T moved), each within 2 ulps of its magnitude
     (read on the card: 0.0018% and 0.0005% here, 0.066% and 0.011% at
     chip_smoke.py's mask stage).'''
-    feats, boxes = random_pyramid(16, k, 256, seed=40 + out + k)
+    _assert_kernel_ulps(cuda_device, out, k, 160, seed=40 + out + k)
+
+
+@pytest.mark.parametrize('out,k', [(7, 256), (14, 1), (7, 1)])
+def test_cuda_roi_align_faithful_shapes(cuda_device, out, k):
+    '''The faithful model's stages (``benchmarks/bench_model``) on its 256
+    canvas (P2 of 64 x 64; the box stage's 256 ROIs an image, 4,096 in a
+    batch of 16), held as ``test_cuda_roi_align_ulps`` holds the main
+    path's.'''
+    _assert_kernel_ulps(cuda_device, out, k, 256, seed=50 + out + k)
+
+
+def _assert_kernel_ulps(cuda_device, out, k, canvas, seed):
+    feats, boxes = random_pyramid(16, k, 256, canvas=canvas, seed=seed)
     levels = [torch.from_numpy(f).to(cuda_device, torch.bfloat16) for f in feats]
     bx = torch.from_numpy(boxes).to(cuda_device)
     ours = roi_align_kernel.roi_align_cuda(levels, bx, out)
@@ -102,12 +115,57 @@ def test_cuda_roi_align_ulps(cuda_device, out, k):
     ulps = bf16_ulps(ours, plain)
     far = ulps >= 2
     gap = (ours.float() - plain.float()).abs()
-    print(f'out {out} K {k}: {int((ulps == 1).sum())} one ulp, {int(far.sum())} two or more '
+    print(f'out {out} K {k} canvas {canvas}: {int((ulps == 1).sum())} one ulp, '
+          f'{int(far.sum())} two or more '
           f'(max {int(ulps.max())} ulps, max abs {float(gap[far].max()) if far.any() else 0.0:.2e}'
           f'), of {ulps.numel()}')
     assert int((ulps >= 1).sum()) <= 2e-3 * ulps.numel()
     assert int(far.sum()) <= 1e-3 * ulps.numel()
     assert bool((gap <= BF16_TOL * (1 + plain.float().abs())).all())
+
+
+def chain_of_boxes(rng, k: int, chain: int):
+    '''(K, 4) boxes, scores, levels and validity: a chain of ``chain``
+    unit-offset 10 x 10 boxes with falling scores (each overlaps the next at
+    IoU 0.82 and the one after at 0.67, so greedy NMS keeps every other box
+    and the fixpoint decides two a round), then random boxes away from it
+    with tied scores, three levels and a few padding entries.'''
+    boxes = np.zeros((k, 4), 'float32')
+    scores = np.zeros(k, 'float32')
+    i = np.arange(chain, dtype='float32')
+    boxes[:chain] = np.stack([i, np.zeros_like(i), i + 10, np.full_like(i, 10)], -1)
+    scores[:chain] = 0.99 - i / 1024
+    n = k - chain
+    xy = rng.uniform(0, 240, (n, 2)) + [0, 40]
+    wh = rng.uniform(4, 60, (n, 2))
+    boxes[chain:] = np.concatenate([xy, xy + wh], 1)
+    scores[chain:] = np.round(rng.uniform(0, 0.9, n), 2)
+    levels = rng.integers(0, 3, k).astype('int32')
+    levels[:chain] = 0
+    valid = rng.random(k) > 0.02
+    valid[:chain] = True
+    return boxes, scores, levels, valid
+
+
+@pytest.mark.parametrize('batched', [False, True])
+def test_cuda_nms_at_the_global_cap_matches_cpu(cuda_device, batched):
+    '''The faithful model's proposal NMS shape, (2, 1024, 1024), with a
+    chain of suppressions past the 32-round cap: the card's keep mask
+    equals the CPU's, after 32 host syncs on each.'''
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    rng = np.random.default_rng(21)
+    parts = [torch.from_numpy(np.stack(p)) for p in zip(*(chain_of_boxes(rng, 1024, 100)
+                                                          for _ in range(2)))]
+    keep = {}
+    for dev in ('cpu', cuda_device):
+        boxes, scores, levels, valid = (p.to(dev) for p in parts)
+        nms.sync_count = 0
+        if batched:
+            keep[str(dev)] = nms.batched_nms_keep_mask(boxes, scores, levels, 0.7, valid=valid)
+        else:
+            keep[str(dev)] = nms.nms_keep_mask(boxes, scores, 0.7, valid=valid)
+        assert nms.sync_count == nms.MAX_ITERS
+    assert torch.equal(keep[str(cuda_device)].cpu(), keep['cpu'])
 
 
 @pytest.mark.parametrize('shape', [(64, 160, 160), (3, 77, 101), (2, 424, 512),

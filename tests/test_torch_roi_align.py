@@ -313,6 +313,7 @@ def test_warp_walk_separable_matches_plain(out, segs):
 
 @pytest.mark.parametrize('rois,c,out,vec,segs,warps', [
     (256, 256, 7, 8, 1, 1792),     # box stage: B 16, K 16
+    (4096, 256, 7, 8, 1, 28672),   # the faithful model's box stage: B 16, K 256
     (16, 256, 14, 8, 5, 1120),     # mask stage: B 16, K 1, rows in 5 segments
     (16, 256, 7, 8, 7, 784),       # keypoint stage: a warp per output
     (12, 6, 5, 1, 5, 300),         # C = 6: one channel a lane
