@@ -48,6 +48,7 @@ from moseq2_detectron_extract_tpu_torch.pipeline.steps import (FeatureTrackers, 
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
 from moseq2_detectron_extract_tpu_torch.proc.util import check_completion_status
 from moseq2_detectron_extract_tpu_torch.utils.hostmem import tune_host_allocator
+from moseq2_detectron_extract_tpu_torch.utils.profiling import span
 
 # the extract CLI's defaults (cli.py:46-66, pipeline/steps.py:166-169, 319-393)
 DEFAULT_CONFIG = {'min_height': 0.0, 'max_height': 100.0, 'feature_window': 160,
@@ -77,7 +78,14 @@ def process_chunk(chunk_u8, predictor, config: Optional[Dict] = None,
     ``feat_dispatch`` with ``cleaned_frames``, ``feat_masks`` and
     ``feats_dev`` (centroid in frame coordinates, orientation, axis_length)
     and ``height_stats`` (see ``pipeline.steps.dispatch_window_features``).
+    Recorded as the root span ``chunk``.
     '''
+    with span('chunk'):
+        return _process_chunk(chunk_u8, predictor, config, tracker)
+
+
+def _process_chunk(chunk_u8, predictor, config: Optional[Dict],
+                   tracker: Optional[CentroidTracker]) -> Dict:
     config = {**DEFAULT_CONFIG, **(config or {})}
     chunk = torch.as_tensor(np.asarray(chunk_u8)) if not torch.is_tensor(chunk_u8) \
         else chunk_u8

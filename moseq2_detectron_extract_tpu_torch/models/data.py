@@ -23,6 +23,7 @@ from moseq2_detectron_extract_tpu_torch.io.annot import DataItem, poly_to_mask
 from moseq2_detectron_extract_tpu_torch.io.image import read_image
 from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import compute_test_scale
+from moseq2_detectron_extract_tpu_torch.utils.profiling import count, span
 
 FIELDS = ('image', 'masks', 'keypoints', 'valid')
 
@@ -82,7 +83,9 @@ def load_sample(item: DataItem, cfg: ModelConfig) -> Dict[str, np.ndarray]:
 class TrainLoader:
     '''Endless batches of samples drawn with replacement from
     ``np.random.default_rng(seed)``, made by one prefetch thread (each
-    sample loaded once, then cached).'''
+    sample loaded once, then cached). Each batch is the host span
+    ``loader.batch``; each sample read (a cache miss) adds one to the
+    counter ``loader.samples_read``.'''
 
     def __init__(self, items: Sequence[DataItem], cfg: ModelConfig,
                  batch_size: Optional[int] = None, seed: int = 0, prefetch: int = 4):
@@ -100,15 +103,17 @@ class TrainLoader:
         self._thread.start()
 
     def _sample_batch(self) -> Dict[str, np.ndarray]:
-        idxs = self.rng.integers(0, len(self.items), self.batch_size)
-        samples = []
-        for i in idxs:
-            item = self.items[int(i)]
-            key = str(item['image_id'])
-            if key not in self._cache:
-                self._cache[key] = load_sample(item, self.cfg)
-            samples.append(self._cache[key])
-        return {field: np.stack([s[field] for s in samples]) for field in FIELDS}
+        with span('loader.batch', device=False):
+            idxs = self.rng.integers(0, len(self.items), self.batch_size)
+            samples = []
+            for i in idxs:
+                item = self.items[int(i)]
+                key = str(item['image_id'])
+                if key not in self._cache:
+                    self._cache[key] = load_sample(item, self.cfg)
+                    count('loader.samples_read')
+                samples.append(self._cache[key])
+            return {field: np.stack([s[field] for s in samples]) for field in FIELDS}
 
     def _worker(self):
         try:

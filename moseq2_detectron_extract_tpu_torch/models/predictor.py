@@ -23,6 +23,7 @@ from moseq2_detectron_extract_tpu_torch.models.layers import cast_to_compute_dty
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
 from moseq2_detectron_extract_tpu_torch.ops.instances import nms_and_centers
 from moseq2_detectron_extract_tpu_torch.ops.preprocess import compute_test_scale
+from moseq2_detectron_extract_tpu_torch.utils.profiling import span
 
 
 @functools.lru_cache(maxsize=64)
@@ -133,25 +134,31 @@ class Predictor:
     def step(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         '''One batch: frames (B, H, W) uint8 -> detections at frame resolution,
         with the extraction's selection fused in (``keep``, ``centers``,
-        ``mask_iou``).'''
+        ``mask_iou``). Recorded as the span ``predictor.batch``, numbered
+        among the batches of its parent span.'''
         canvas = self.cfg.image_size
         h, w = frames.shape[1], frames.shape[2]
         _, new_h, new_w = self.test_geometry((h, w))
-        x = _resize_bilinear(frames.float(), (new_h, new_w))
-        x = F.pad(x, (0, canvas - new_w, 0, canvas - new_h))
-        return self._detect(x, (h, w))
+        with span('predictor.batch', indexed=True):
+            with span('predictor.resize_in'):
+                x = _resize_bilinear(frames.float(), (new_h, new_w))
+                x = self._normalize(F.pad(x, (0, canvas - new_w, 0, canvas - new_h)))
+            return self._detect(x, (h, w))
 
-    def _detect(self, x: torch.Tensor, frame_shape: Tuple[int, int]) -> Dict[str, torch.Tensor]:
-        '''The shared tail: x (B, canvas, canvas) f32 with the resized frame
-        in the top-left corner -> detections at ``frame_shape``.'''
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        '''(B, canvas, canvas) f32 depth -> (B, 3, canvas, canvas), each
+        channel less the model's pixel mean over its std.'''
         cfg = self.cfg
-        h, w = frame_shape
-        scale, new_h, new_w = self.test_geometry((h, w))
         x = x[:, None].expand(-1, 3, -1, -1)
         mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=x.device)
         std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=x.device)
-        x = (x - mean[None, :, None, None]) / std[None, :, None, None]
+        return (x - mean[None, :, None, None]) / std[None, :, None, None]
 
+    def _detect(self, x: torch.Tensor, frame_shape: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+        '''The shared tail: x (B, 3, canvas, canvas), the normalized frames
+        resized into the top-left corner -> detections at ``frame_shape``.'''
+        h, w = frame_shape
+        scale, new_h, new_w = self.test_geometry((h, w))
         b = x.shape[0]
         image_sizes = torch.tensor([[new_h, new_w]], dtype=torch.float32,
                                    device=x.device).repeat(b, 1)
@@ -160,14 +167,16 @@ class Predictor:
         else:
             out = self.model.inference(x, image_sizes)
 
-        inv = 1.0 / scale
-        keypoints = out['keypoints'].clone()
-        keypoints[..., :2] = keypoints[..., :2] * inv
-        mask_canvas = out['masks'][:, :, :new_h, :new_w].float()
-        masks = _resize_bilinear(mask_canvas, (h, w)) > 0.5
-        masks = masks & out['valid'][:, :, None, None]
-        keep, centers, iou = nms_and_centers(masks, out['scores'], out['valid'])
-        return {'boxes': out['boxes'] * inv, 'scores': out['scores'],
+        with span('predictor.to_frame'):
+            inv = 1.0 / scale
+            boxes = out['boxes'] * inv
+            keypoints = out['keypoints'].clone()
+            keypoints[..., :2] = keypoints[..., :2] * inv
+            mask_canvas = out['masks'][:, :, :new_h, :new_w].float()
+            masks = _resize_bilinear(mask_canvas, (h, w)) > 0.5
+            masks = masks & out['valid'][:, :, None, None]
+            keep, centers, iou = nms_and_centers(masks, out['scores'], out['valid'])
+        return {'boxes': boxes, 'scores': out['scores'],
                 'classes': out['classes'], 'valid': out['valid'],
                 'masks': masks, 'keypoints': keypoints,
                 'mask_probs': out['mask_probs'],
@@ -189,8 +198,12 @@ class Predictor:
         pad = (-n) % self.batch_size
         if pad:
             frames = torch.cat([frames, frames.new_zeros((pad,) + tuple(frames.shape[1:]))])
-        outs = [self._detect(frames[i:i + self.batch_size].float(), tuple(frame_shape))
-                for i in range(0, frames.shape[0], self.batch_size)]
+        outs = []
+        for i in range(0, frames.shape[0], self.batch_size):
+            with span('predictor.batch', indexed=True):
+                with span('predictor.resize_in'):
+                    x = self._normalize(frames[i:i + self.batch_size].float())
+                outs.append(self._detect(x, tuple(frame_shape)))
         out = {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
         if not select:
             for key in ('keep', 'centers', 'mask_iou'):

@@ -40,6 +40,7 @@ from moseq2_detectron_extract_tpu_torch.ops.nms import (batched_nms_keep_mask,
 from moseq2_detectron_extract_tpu_torch.ops.roi_align import (batched_multilevel_roi_align,
                                                               crop_resize_masks)
 from moseq2_detectron_extract_tpu_torch.ops.roi_align_kernel import roi_align
+from moseq2_detectron_extract_tpu_torch.utils.profiling import span
 
 FPN_STRIDES = (4, 8, 16, 32, 64)
 
@@ -77,10 +78,11 @@ class MaskKeypointRCNN(nn.Module):
 
     def features(self, images: torch.Tensor):
         '''images (B, 3, S, S) normalized f32 -> P2..P6 (NCHW).'''
-        x = images.to(self.compute_dtype)
-        if x.is_cuda:
-            x = x.contiguous(memory_format=torch.channels_last)
-        return self.fpn(self.backbone(x))
+        with span('detector.backbone'):
+            x = images.to(self.compute_dtype)
+            if x.is_cuda:
+                x = x.contiguous(memory_format=torch.channels_last)
+            return self.fpn(self.backbone(x))
 
     def _anchors(self, fpn_feats):
         shapes = tuple((f.shape[2], f.shape[3]) for f in fpn_feats)
@@ -119,28 +121,30 @@ class MaskKeypointRCNN(nn.Module):
         proposals, prop_valid, _ = self.proposals(fpn_feats, image_sizes, train=False)
 
         p = proposals.shape[1]
-        levels = self.pool_levels(fpn_feats)
-        pooled = roi_align(levels, proposals, cfg.box_pooler_resolution)
-        cls_logits, box_deltas = self.box_head(pooled.reshape(b * p, *pooled.shape[2:]))
-        cls_logits = cls_logits.reshape(b, p, -1).float()
-        box_deltas = box_deltas.reshape(b, p, 4).float()
-        fg_scores = torch.softmax(cls_logits, dim=-1)[..., 0]
-        boxes = decode_boxes(box_deltas, proposals, cfg.box_reg_weights)
+        with span('detector.box_head'):
+            levels = self.pool_levels(fpn_feats)
+            pooled = roi_align(levels, proposals, cfg.box_pooler_resolution)
+            cls_logits, box_deltas = self.box_head(pooled.reshape(b * p, *pooled.shape[2:]))
+            cls_logits = cls_logits.reshape(b, p, -1).float()
+            box_deltas = box_deltas.reshape(b, p, 4).float()
+            fg_scores = torch.softmax(cls_logits, dim=-1)[..., 0]
+            boxes = decode_boxes(box_deltas, proposals, cfg.box_reg_weights)
 
-        # per-image test-time select (rcnn.py:167-183), batched
-        boxes = clip_boxes(boxes, image_sizes)
-        valid = prop_valid & (fg_scores > cfg.test_score_thresh)
-        keep = batched_nms_keep_mask(boxes, fg_scores,
-                                     torch.zeros(fg_scores.shape, dtype=torch.int32,
-                                                 device=dev),
-                                     cfg.test_nms_thresh, valid=valid)
-        masked = torch.where(keep, fg_scores, torch.full_like(fg_scores, -torch.inf))
-        top_scores, top_idx = stable_topk(masked, cfg.test_detections_per_image)
-        det_valid = torch.isfinite(top_scores)
-        det_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
-        det_boxes = torch.where(det_valid[..., None], det_boxes,
-                                torch.zeros_like(det_boxes))
-        det_scores = torch.where(det_valid, top_scores, torch.zeros_like(top_scores))
+            # per-image test-time select (rcnn.py:167-183), batched
+            boxes = clip_boxes(boxes, image_sizes)
+            valid = prop_valid & (fg_scores > cfg.test_score_thresh)
+        with span('detector.box_nms'):
+            keep = batched_nms_keep_mask(boxes, fg_scores,
+                                         torch.zeros(fg_scores.shape, dtype=torch.int32,
+                                                     device=dev),
+                                         cfg.test_nms_thresh, valid=valid)
+            masked = torch.where(keep, fg_scores, torch.full_like(fg_scores, -torch.inf))
+            top_scores, top_idx = stable_topk(masked, cfg.test_detections_per_image)
+            det_valid = torch.isfinite(top_scores)
+            det_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+            det_boxes = torch.where(det_valid[..., None], det_boxes,
+                                    torch.zeros_like(det_boxes))
+            det_scores = torch.where(det_valid, top_scores, torch.zeros_like(top_scores))
 
         out = {'boxes': det_boxes, 'scores': det_scores,
                'classes': torch.zeros(det_scores.shape, dtype=torch.int32, device=dev),
@@ -148,24 +152,27 @@ class MaskKeypointRCNN(nn.Module):
         d = det_boxes.shape[1]
 
         if cfg.mask_on:
-            mask_pooled = roi_align(levels, det_boxes, cfg.mask_pooler_resolution)
-            mask_logits = self.mask_head(mask_pooled.reshape(b * d, *mask_pooled.shape[2:]))
-            mask_logits = mask_logits[..., 0].reshape(b, d, cfg.mask_resolution,
-                                                      cfg.mask_resolution)
-            out['mask_probs'] = torch.sigmoid(mask_logits.float())
-            masks = paste_masks(mask_logits.reshape(b * d, *mask_logits.shape[2:]),
-                                det_boxes.reshape(b * d, 4), canvas)
-            out['masks'] = masks.reshape(b, d, *canvas) & det_valid[..., None, None]
+            with span('detector.mask_head'):
+                mask_pooled = roi_align(levels, det_boxes, cfg.mask_pooler_resolution)
+                mask_logits = self.mask_head(mask_pooled.reshape(b * d,
+                                                                 *mask_pooled.shape[2:]))
+                mask_logits = mask_logits[..., 0].reshape(b, d, cfg.mask_resolution,
+                                                          cfg.mask_resolution)
+                out['mask_probs'] = torch.sigmoid(mask_logits.float())
+                masks = paste_masks(mask_logits.reshape(b * d, *mask_logits.shape[2:]),
+                                    det_boxes.reshape(b * d, 4), canvas)
+                out['masks'] = masks.reshape(b, d, *canvas) & det_valid[..., None, None]
 
         if cfg.keypoint_on:
-            kp_pooled = roi_align(levels, det_boxes, cfg.keypoint_pooler_resolution)
-            kp_logits = self.keypoint_head(kp_pooled.reshape(b * d, *kp_pooled.shape[2:]))
-            s = kp_logits.shape[1]
-            out['keypoint_heatmaps'] = kp_logits.reshape(
-                b, d, s, s, cfg.num_keypoints).float()
-            out['keypoints'] = heatmaps_to_keypoints(
-                kp_logits, det_boxes.reshape(b * d, 4)).reshape(
-                    b, d, cfg.num_keypoints, 3)
+            with span('detector.keypoint_head'):
+                kp_pooled = roi_align(levels, det_boxes, cfg.keypoint_pooler_resolution)
+                kp_logits = self.keypoint_head(kp_pooled.reshape(b * d, *kp_pooled.shape[2:]))
+                s = kp_logits.shape[1]
+                out['keypoint_heatmaps'] = kp_logits.reshape(
+                    b, d, s, s, cfg.num_keypoints).float()
+                out['keypoints'] = heatmaps_to_keypoints(
+                    kp_logits, det_boxes.reshape(b * d, 4)).reshape(
+                        b, d, cfg.num_keypoints, 3)
         return out
 
     # ---------------------------------------------------------------- training
@@ -174,17 +181,19 @@ class MaskKeypointRCNN(nn.Module):
         (B, P, 4), valid (B, P), and the RPN's (logits, deltas, anchors) per
         level. Training takes the train top-k with no global cap.'''
         cfg = self.cfg
-        logits, deltas = self.rpn_head(fpn_feats)
-        anchors = self._anchors(fpn_feats)
+        with span('detector.rpn_head'):
+            logits, deltas = self.rpn_head(fpn_feats)
+            anchors = self._anchors(fpn_feats)
         if train:
             pre_k, post_k, cap = (cfg.rpn_pre_nms_topk_train,
                                   cfg.rpn_post_nms_topk_train, None)
         else:
             pre_k, post_k, cap = (cfg.rpn_pre_nms_topk_test, cfg.rpn_post_nms_topk_test,
                                   cfg.rpn_nms_global_cap or None)
-        boxes, _, valid = select_proposals(anchors, logits, deltas, image_sizes, pre_k,
-                                           post_k, cfg.rpn_nms_thresh,
-                                           cfg.rpn_box_reg_weights, global_cap=cap)
+        with span('detector.proposal_nms'):
+            boxes, _, valid = select_proposals(anchors, logits, deltas, image_sizes, pre_k,
+                                               post_k, cfg.rpn_nms_thresh,
+                                               cfg.rpn_box_reg_weights, global_cap=cap)
         return boxes, valid, (logits, deltas, anchors)
 
     @staticmethod

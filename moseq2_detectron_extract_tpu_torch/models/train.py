@@ -28,6 +28,7 @@ from torch import nn
 from moseq2_detectron_extract_tpu_torch.device import resolve_device
 from moseq2_detectron_extract_tpu_torch.models.config import ModelConfig
 from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
+from moseq2_detectron_extract_tpu_torch.utils.profiling import span
 
 # scipy's truncated normal on [-2, 2] has this std; flax divides it out
 _TRUNC_STD = 0.87962566103423978
@@ -136,12 +137,17 @@ def make_train_step(cfg: ModelConfig):
     '''``(state, batch, draws) -> (state, metrics)``: losses, backward and
     one optimizer update. ``batch`` holds images (B, 3, S, S) normalized f32
     and the gt dict of :meth:`MaskKeypointRCNN.losses`; ``draws`` that
-    method's random draws. The metrics stay on the device.'''
+    method's random draws. The metrics stay on the device. The three parts
+    are the spans ``train.forward``, ``train.backward`` and
+    ``train.optimizer``.'''
     def train_step(state: TrainState, batch: Dict, draws) -> tuple:
-        losses = state.model.losses(batch['images'], batch['gt'], draws)
-        losses['total_loss'].backward()
+        with span('train.forward'):
+            losses = state.model.losses(batch['images'], batch['gt'], draws)
+        with span('train.backward'):
+            losses['total_loss'].backward()
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics['lr'] = apply_gradients(state, cfg)
+        with span('train.optimizer'):
+            metrics['lr'] = apply_gradients(state, cfg)
         return state, metrics
     return train_step
 

@@ -33,6 +33,7 @@ from moseq2_detectron_extract_tpu_torch.models.rcnn import draw_loss_uniforms
 from moseq2_detectron_extract_tpu_torch.models.train import (TrainState, create_train_state,
                                                              make_eval_loss_step,
                                                              make_train_step)
+from moseq2_detectron_extract_tpu_torch.utils.profiling import span
 
 
 class MetricsWriter:
@@ -123,7 +124,10 @@ class Trainer:
                                 'optimizer': st.optimizer.state_dict()})
 
     def train(self) -> TrainState:
-        '''Run the solver schedule from the state's step to ``max_iter``.'''
+        '''Run the solver schedule from the state's step to ``max_iter``.
+        Each step is the root span ``train.step`` (with the thread's CPU
+        time), and inside it ``train.wait_batch`` (the loader's next batch),
+        ``train.to_device``, ``train.augment`` and the step's own spans.'''
         if self.state is None:
             raise RuntimeError('call resume_or_load() first')
         cfg = self.cfg
@@ -134,27 +138,32 @@ class Trainer:
         t_last = time.time()
         try:
             for step in range(start_step, cfg.max_iter):
-                batch = batch_to_device(next(loader), self.device)
-                images, gt, draws = augment_and_draw(batch, cfg, generator)
-                self.state, metrics = self._train_step(
-                    self.state, {'images': images, 'gt': gt}, draws)
+                with span('train.step', cpu=True):
+                    with span('train.wait_batch'):
+                        host_batch = next(loader)
+                    with span('train.to_device'):
+                        batch = batch_to_device(host_batch, self.device)
+                    with span('train.augment'):
+                        images, gt, draws = augment_and_draw(batch, cfg, generator)
+                    self.state, metrics = self._train_step(
+                        self.state, {'images': images, 'gt': gt}, draws)
 
-                if (step + 1) % self.log_period == 0:
-                    metrics = {k: float(v) for k, v in metrics.items()}
-                    elapsed = time.time() - t_last
-                    t_last = time.time()
-                    metrics['iters_per_sec'] = self.log_period / max(elapsed, 1e-9)
-                    metrics.update(device_memory_stats())
-                    self.metrics.write(step + 1, metrics)
-                    logging.info('iter %d: total_loss=%.4f lr=%.5f (%.2f it/s)',
-                                 step + 1, metrics['total_loss'], metrics['lr'],
-                                 metrics['iters_per_sec'])
+                    if (step + 1) % self.log_period == 0:
+                        metrics = {k: float(v) for k, v in metrics.items()}
+                        elapsed = time.time() - t_last
+                        t_last = time.time()
+                        metrics['iters_per_sec'] = self.log_period / max(elapsed, 1e-9)
+                        metrics.update(device_memory_stats())
+                        self.metrics.write(step + 1, metrics)
+                        logging.info('iter %d: total_loss=%.4f lr=%.5f (%.2f it/s)',
+                                     step + 1, metrics['total_loss'], metrics['lr'],
+                                     metrics['iters_per_sec'])
 
-                if (step + 1) % cfg.eval_period == 0 and self.test_items:
-                    self._run_validation(step + 1, generator)
+                    if (step + 1) % cfg.eval_period == 0 and self.test_items:
+                        self._run_validation(step + 1, generator)
 
-                if (step + 1) % cfg.checkpoint_period == 0 or (step + 1) == cfg.max_iter:
-                    logging.info('Saved checkpoint %s', self.checkpoint())
+                    if (step + 1) % cfg.checkpoint_period == 0 or (step + 1) == cfg.max_iter:
+                        logging.info('Saved checkpoint %s', self.checkpoint())
         finally:
             loader.close()
         return self.state

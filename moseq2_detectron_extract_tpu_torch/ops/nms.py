@@ -18,11 +18,13 @@ import threading
 import torch
 
 from moseq2_detectron_extract_tpu_torch.ops.boxes import pairwise_iou
+from moseq2_detectron_extract_tpu_torch.utils.profiling import count
 
 MAX_ITERS = 32
 
 # host syncs of the fixpoint loop (one per round's convergence test) since
-# the count was last set to 0
+# the count was last set to 0; each is also the recorder's counter
+# ``nms.sync``, credited to the open span (the proposal or the box NMS)
 sync_count = 0
 _count_lock = threading.Lock()
 
@@ -33,6 +35,7 @@ def _add_sync() -> None:
     global sync_count
     with _count_lock:
         sync_count += 1
+    count('nms.sync')
 
 
 def nms_keep_mask(boxes, scores, iou_threshold: float, valid=None):

@@ -5,7 +5,8 @@ Port of ``moseq2_detectron_extract_tpu/pipeline/pipeline_step.py`` (lines
 each result on every output queue; a producer step (no input queue) drives
 ``generate()`` instead. ``None`` on a queue ends the stream, and passes on
 downstream. A step that raises keeps its traceback in ``error_info`` and
-sets the pipeline's shutdown event, which stops every step.
+sets the pipeline's shutdown event, which stops every step. Each item a
+step makes or processes is the root span ``stage.<step name>``.
 '''
 import logging
 import queue
@@ -15,6 +16,8 @@ import traceback
 from typing import List, Optional
 
 import torch
+
+from moseq2_detectron_extract_tpu_torch.utils.profiling import span
 
 
 class PipelineStep(threading.Thread):
@@ -38,6 +41,7 @@ class PipelineStep(threading.Thread):
         self.busy_seconds = 0.0
         self.cpu_seconds = 0.0
         self.items_processed = 0
+        self.span_name = 'stage.' + step_name.strip()
         # the CUDA device the thread makes current (Pipeline.start gives the
         # starting thread's), so that launches without a tensor's device
         # follow the session's card
@@ -96,7 +100,8 @@ class PipelineStep(threading.Thread):
                 while not self.shutdown_event.is_set():
                     t0, c0 = time.perf_counter(), time.thread_time()
                     try:
-                        item = next(gen)
+                        with span(self.span_name):
+                            item = next(gen)
                     except StopIteration:
                         break
                     self.busy_seconds += time.perf_counter() - t0
@@ -112,7 +117,8 @@ class PipelineStep(threading.Thread):
                     if data is None:
                         break
                     t0, c0 = time.perf_counter(), time.thread_time()
-                    result = self.process(data)
+                    with span(self.span_name):
+                        result = self.process(data)
                     self.busy_seconds += time.perf_counter() - t0
                     self.cpu_seconds += time.thread_time() - c0
                     self.items_processed += 1

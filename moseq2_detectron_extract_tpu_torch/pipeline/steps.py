@@ -23,7 +23,6 @@ reads them.
 '''
 import logging
 import os
-import time
 from functools import partial
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -55,6 +54,7 @@ from moseq2_detectron_extract_tpu_torch.proc.scalars import (compute_scalars,
                                                              dispatch_scalar_stats)
 from moseq2_detectron_extract_tpu_torch.pipeline.pipeline_step import PipelineStep
 from moseq2_detectron_extract_tpu_torch.proc.tracker import CentroidTracker
+from moseq2_detectron_extract_tpu_torch.utils.profiling import StageTimer, span
 
 FeatureTrackers = Optional[Tuple[KalmanTracker, KalmanTracker]]
 
@@ -132,53 +132,58 @@ def select_instances(data: Dict, config: Dict, tracker: CentroidTracker,
     (N, K, 3) and ``raw_windows`` (N, c, c). Without ``chunk_dev`` (the
     prescaled input) the depth windows are cut from the host ``chunk``,
     uploaded (their bytes added to ``h2d_bytes``) and filled on the device,
-    and ``chunk`` then has its sentinels zeroed.
+    and ``chunk`` then has its sentinels zeroed. The fetches are the span
+    ``chunk.select.fetch``, the host tracker and the window origins
+    ``chunk.select.track``.
     '''
     inference = data['inference']
     expected = config.get('expected_instances', 1)
-    keep = inference['keep'].cpu().numpy()
-    centers = inference['centers'].cpu().numpy()
-    scores = inference['scores'].cpu().numpy()
-    raw_boxes = inference['boxes'].cpu().numpy().astype('float64')
+    with span('chunk.select.fetch'):
+        keep = inference['keep'].cpu().numpy()
+        centers = inference['centers'].cpu().numpy()
+        scores = inference['scores'].cpu().numpy()
+        raw_boxes = inference['boxes'].cpu().numpy().astype('float64')
+        iou = kpts_host = None
+        if instance_log is not None and (keep.sum(axis=1) > 1).any():
+            iou = inference['mask_iou'].cpu().numpy()
+            kpts_host = inference['keypoints'].cpu().numpy()
     boxes = raw_boxes.copy()
     boxes[~keep] = np.nan
     n = keep.shape[0]
-    iou = kpts_host = None
-    if instance_log is not None and (keep.sum(axis=1) > 1).any():
-        iou = inference['mask_iou'].cpu().numpy()
-        kpts_host = inference['keypoints'].cpu().numpy()
     n_true = len(data['frame_idxs']) if instance_log is not None else 0
 
-    chosen_idx = np.zeros(n, dtype='int32')
-    num_instances = np.zeros(n, dtype=int)
-    for i in range(n):
-        keep_idx = np.flatnonzero(keep[i])
-        keep_idx = keep_idx[np.argsort(-scores[i][keep_idx])]
-        if i < n_true:
-            instance_log.log_frame(int(data['frame_idxs'][i]), keep_idx, scores[i],
-                                   mask_iou=iou[i] if iou is not None else None,
-                                   centers=centers[i],
-                                   keypoints=kpts_host[i] if kpts_host is not None else None)
-        tracked = tracker.update(centers[i], keep[i])
-        if len(tracked) > 1:
-            tracked.sort(key=lambda o: o.age, reverse=True)
-            chosen = [o.last_detection_index for o in tracked[:expected]
-                      if o.last_detection_index is not None]
-        else:
-            chosen = list(keep_idx[:expected])
-        num_instances[i] = len(chosen)
-        if chosen:
-            chosen_idx[i] = chosen[0]
-
-    # window seeds: the chosen detection's box centre [x, y] (NaN if none)
-    chosen_boxes = raw_boxes[np.arange(n), chosen_idx]
-    sel_centers = np.stack([(chosen_boxes[:, 0] + chosen_boxes[:, 2]) / 2,
-                            (chosen_boxes[:, 1] + chosen_boxes[:, 3]) / 2], axis=1)
-    sel_centers[num_instances <= 0] = np.nan
     chunk_dev = data.get('chunk_dev')
-    h, w = data['chunk'].shape[1:] if chunk_dev is None else chunk_dev.shape[1:]
-    crop = min(int(config.get('feature_window', 160)), h, w)
-    origins = window_origins(sel_centers, (h, w), crop)
+    with span('chunk.select.track'):
+        chosen_idx = np.zeros(n, dtype='int32')
+        num_instances = np.zeros(n, dtype=int)
+        for i in range(n):
+            keep_idx = np.flatnonzero(keep[i])
+            keep_idx = keep_idx[np.argsort(-scores[i][keep_idx])]
+            if i < n_true:
+                instance_log.log_frame(int(data['frame_idxs'][i]), keep_idx, scores[i],
+                                       mask_iou=iou[i] if iou is not None else None,
+                                       centers=centers[i],
+                                       keypoints=kpts_host[i] if kpts_host is not None
+                                       else None)
+            tracked = tracker.update(centers[i], keep[i])
+            if len(tracked) > 1:
+                tracked.sort(key=lambda o: o.age, reverse=True)
+                chosen = [o.last_detection_index for o in tracked[:expected]
+                          if o.last_detection_index is not None]
+            else:
+                chosen = list(keep_idx[:expected])
+            num_instances[i] = len(chosen)
+            if chosen:
+                chosen_idx[i] = chosen[0]
+
+        # window seeds: the chosen detection's box centre [x, y] (NaN if none)
+        chosen_boxes = raw_boxes[np.arange(n), chosen_idx]
+        sel_centers = np.stack([(chosen_boxes[:, 0] + chosen_boxes[:, 2]) / 2,
+                                (chosen_boxes[:, 1] + chosen_boxes[:, 3]) / 2], axis=1)
+        sel_centers[num_instances <= 0] = np.nan
+        h, w = data['chunk'].shape[1:] if chunk_dev is None else chunk_dev.shape[1:]
+        crop = min(int(config.get('feature_window', 160)), h, w)
+        origins = window_origins(sel_centers, (h, w), crop)
     dev = inference['masks'].device
     gather_args = (inference['masks'], inference['keypoints'],
                    torch.as_tensor(chosen_idx, dtype=torch.long, device=dev),
@@ -210,13 +215,15 @@ def dispatch_window_features(data: Dict, config: Dict) -> Dict:
     the raw windows under the feature masks, dispatched without a host sync.
 
     Adds ``feat_dispatch`` (see ``proc.features.dispatch_instance_features``)
-    and ``height_stats`` (``proc.scalars.dispatch_scalar_stats``).
+    and ``height_stats`` (``proc.scalars.dispatch_scalar_stats``). Recorded
+    as the span ``chunk.window_features``.
     '''
-    data['feat_dispatch'] = dispatch_instance_features(
-        data['sel_masks'], data['raw_windows'], window_origins=data['win_origins'])
-    masked = data['raw_windows'] * data['feat_dispatch']['feat_masks']
-    data['height_stats'] = dispatch_scalar_stats(masked, config['min_height'],
-                                                 config['max_height'])
+    with span('chunk.window_features'):
+        data['feat_dispatch'] = dispatch_instance_features(
+            data['sel_masks'], data['raw_windows'], window_origins=data['win_origins'])
+        masked = data['raw_windows'] * data['feat_dispatch']['feat_masks']
+        data['height_stats'] = dispatch_scalar_stats(masked, config['min_height'],
+                                                     config['max_height'])
     return data
 
 
@@ -234,13 +241,13 @@ def make_feature_trackers(config: Dict) -> FeatureTrackers:
 
 
 def process_features(data: Dict, config: Dict, trackers: FeatureTrackers,
-                     timers: Optional[Dict[str, float]] = None) -> Dict:
+                     timers: Optional[StageTimer] = None) -> Dict:
     '''The host brain on one chunk's window features, then the output ops
     on the device, dispatched without a host sync.
 
     Pops ``feat_dispatch`` and adds ``features`` (see
-    ``proc.features.finish_instance_features``; ``timers`` gains its host
-    seconds), ``z_dev`` (keypoint heights in the cleaned windows),
+    ``proc.features.finish_instance_features``; ``timers`` times its host
+    stages), ``z_dev`` (keypoint heights in the cleaned windows),
     ``dev_cropped`` ((N, crop_h, crop_w) depth rotated upright, rounded and
     clipped to ``frame_dtype``), ``dev_packed_masks`` (the feature masks
     cropped the same way, bit-packed) and, with ``preview_arena_masks``,
@@ -416,10 +423,15 @@ class ProcessFeaturesStep(PipelineStep):
 
     def initialize(self):
         self.trackers = make_feature_trackers(self.config)
-        self.sub_times: Dict[str, float] = {}
+        self.timer = StageTimer('features.')
+
+    @property
+    def sub_times(self) -> Dict[str, float]:
+        '''Host seconds of the brain's stages (spans ``features.<stage>``).'''
+        return self.timer.totals
 
     def process(self, data):
-        data = process_features(data, self.config, self.trackers, timers=self.sub_times)
+        data = process_features(data, self.config, self.trackers, timers=self.timer)
         self.update_progress(len(data['frame_idxs']))
         return data
 
@@ -498,7 +510,8 @@ class PreviewVideoWriterStep(PipelineStep):
     ROI outline, mask fill, boxes and keypoints on the right (``viz.py``),
     in BGR as the reference renders it; each block goes on to the encode
     step as it is rendered. ``sub_times`` holds the seconds spent taking the
-    chunk apart (``marshal``) and rendering (``render``).'''
+    chunk apart (``marshal``) and rendering (``render``), each occurrence
+    also a span ``preview.<stage>``.'''
 
     block = 128
 
@@ -517,7 +530,7 @@ class PreviewVideoWriterStep(PipelineStep):
                                             scale=config.get('preview_crop_scale', 1.5),
                                             order=order)
         self.kp_names = default_keypoint_names
-        self.sub_times = {'marshal': 0.0, 'render': 0.0}
+        self.timer = StageTimer('preview.', stages=('marshal', 'render'))
         # render buffers by (name, shape, slot); the composites travel to the
         # encode step, so they rotate through a ring with a slot for each block
         # a consumer queue can hold, one being consumed and one being rendered
@@ -544,64 +557,65 @@ class PreviewVideoWriterStep(PipelineStep):
             cols.append(np.stack([x[:n], y[:n]], axis=1))
         return np.stack(cols, axis=1)
 
+    @property
+    def sub_times(self) -> Dict[str, float]:
+        return self.timer.totals
+
     def process(self, data):
         from moseq2_detectron_extract_tpu_torch.viz import stack_videos
-        t0 = time.perf_counter()
-        offset = data['offset']
-        n_true = len(data['frame_idxs'])
-        chunk = np.asarray(data['chunk'])[offset:n_true]
-        cropped = np.asarray(data['depth_frames'])[offset:n_true]
-        masks = np.asarray(data['mask_frames'])[offset:n_true]
-        frame_idxs = np.asarray(data['frame_idxs'])[offset:]
-        arena_crops = data.get('arena_mask_crops')
-        arena_origins = data.get('arena_mask_origins')
-        if arena_crops is not None:
-            arena_crops = arena_crops[offset:n_true]
-            arena_origins = arena_origins[offset:n_true]
-        ref_kpts = np.asarray(data['features']['keypoints'])[offset:n_true]
-        boxes = data.get('kept_boxes')
-        if boxes is not None:
-            boxes = boxes[offset:n_true]
-        rot_kpts = self._rotated_keypoints(data['keypoints'], n_true)
-        if rot_kpts is not None:
-            rot_kpts = rot_kpts[offset:]
-        t1 = time.perf_counter()
+        with self.timer.time('marshal'):
+            offset = data['offset']
+            n_true = len(data['frame_idxs'])
+            chunk = np.asarray(data['chunk'])[offset:n_true]
+            cropped = np.asarray(data['depth_frames'])[offset:n_true]
+            masks = np.asarray(data['mask_frames'])[offset:n_true]
+            frame_idxs = np.asarray(data['frame_idxs'])[offset:]
+            arena_crops = data.get('arena_mask_crops')
+            arena_origins = data.get('arena_mask_origins')
+            if arena_crops is not None:
+                arena_crops = arena_crops[offset:n_true]
+                arena_origins = arena_origins[offset:n_true]
+            ref_kpts = np.asarray(data['features']['keypoints'])[offset:n_true]
+            boxes = data.get('kept_boxes')
+            if boxes is not None:
+                boxes = boxes[offset:n_true]
+            rot_kpts = self._rotated_keypoints(data['keypoints'], n_true)
+            if rot_kpts is not None:
+                rot_kpts = rot_kpts[offset:]
 
         for s in range(0, len(frame_idxs), self.block):
             e = s + self.block
-            tb = time.perf_counter()
-            m = len(chunk[s:e])
-            cs = self.clean_view.scale
-            ch, cw = int(masks.shape[1] * cs), int(masks.shape[2] * cs)
-            ah = int(chunk.shape[1] * self.arena_view.scale)
-            aw = int(chunk.shape[2] * self.arena_view.scale)
-            arena = self.arena_view.render(
-                chunk[s:e], mask_crops=None if arena_crops is None else arena_crops[s:e],
-                mask_origins=None if arena_origins is None else arena_origins[s:e],
-                keypoints=ref_kpts[s:e], boxes=None if boxes is None else boxes[s:e],
-                out=self._buf('arena', (m, ah, aw, 3)))
-            clean = self.clean_view.render(cropped[s:e], masks[s:e],
-                                           out=self._buf('clean', (m, ch, cw, 3)))
-            if rot_kpts is not None:
-                rs = self.rot_kpt_view.scale
-                rh, rw = int(masks.shape[1] * rs), int(masks.shape[2] * rs)
-                rot = self.rot_kpt_view.render(masks[s:e], rot_kpts[s:e],
-                                               out=self._buf('rot', (m, rh, rw, 3)))
-                left = stack_videos([clean, rot], orientation='vertical',
-                                    out=self._buf('left', (m, clean.shape[1] + rot.shape[1],
-                                                           max(clean.shape[2], rot.shape[2]), 3)))
-            else:
-                left = clean
-            slot = self._block_no % self._ring
-            self._block_no += 1
-            composite = stack_videos(
-                [left, arena], orientation='horizontal',
-                out=self._buf('comp', (m, max(left.shape[1], arena.shape[1]),
-                                       left.shape[2] + arena.shape[2], 3), slot=slot))
-            tr = time.perf_counter()
+            with self.timer.time('render'):
+                m = len(chunk[s:e])
+                cs = self.clean_view.scale
+                ch, cw = int(masks.shape[1] * cs), int(masks.shape[2] * cs)
+                ah = int(chunk.shape[1] * self.arena_view.scale)
+                aw = int(chunk.shape[2] * self.arena_view.scale)
+                arena = self.arena_view.render(
+                    chunk[s:e], mask_crops=None if arena_crops is None else arena_crops[s:e],
+                    mask_origins=None if arena_origins is None else arena_origins[s:e],
+                    keypoints=ref_kpts[s:e], boxes=None if boxes is None else boxes[s:e],
+                    out=self._buf('arena', (m, ah, aw, 3)))
+                clean = self.clean_view.render(cropped[s:e], masks[s:e],
+                                               out=self._buf('clean', (m, ch, cw, 3)))
+                if rot_kpts is not None:
+                    rs = self.rot_kpt_view.scale
+                    rh, rw = int(masks.shape[1] * rs), int(masks.shape[2] * rs)
+                    rot = self.rot_kpt_view.render(masks[s:e], rot_kpts[s:e],
+                                                   out=self._buf('rot', (m, rh, rw, 3)))
+                    left = stack_videos([clean, rot], orientation='vertical',
+                                        out=self._buf('left', (m, clean.shape[1] + rot.shape[1],
+                                                               max(clean.shape[2],
+                                                                   rot.shape[2]), 3)))
+                else:
+                    left = clean
+                slot = self._block_no % self._ring
+                self._block_no += 1
+                composite = stack_videos(
+                    [left, arena], orientation='horizontal',
+                    out=self._buf('comp', (m, max(left.shape[1], arena.shape[1]),
+                                           left.shape[2] + arena.shape[2], 3), slot=slot))
             self._forward({'frame_idxs': frame_idxs[s:e], 'composite': composite})
-            self.sub_times['render'] += tr - tb
-        self.sub_times['marshal'] += t1 - t0
         return None
 
     def finalize(self):

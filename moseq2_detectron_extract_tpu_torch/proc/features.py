@@ -20,7 +20,6 @@ trackers, the flip votes and ``angles.iterative_filter_angles``.
 import functools
 import logging
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -39,6 +38,7 @@ from moseq2_detectron_extract_tpu_torch.proc.angles import (angle_difference, cl
 from moseq2_detectron_extract_tpu_torch.proc.kalman import (KalmanTracker,
                                                             angle_intervention_filter)
 from moseq2_detectron_extract_tpu_torch.proc.keypoints import rotate_points_batch
+from moseq2_detectron_extract_tpu_torch.utils.profiling import StageTimer
 
 
 def clean_frames(frames: torch.Tensor, prefilter_space=(3,), prefilter_time=None,
@@ -255,7 +255,7 @@ def finish_instance_features(dispatched: Dict, keypoints, num_instances: np.ndar
                              point_tracker: Optional[KalmanTracker],
                              angle_tracker: Optional[KalmanTracker],
                              debug: bool = False, debug_dir: str = '.',
-                             timers: Optional[Dict[str, float]] = None) -> Dict:
+                             timers: Optional[StageTimer] = None) -> Dict:
     '''Pull the dispatched moments and run the host brain.
 
     ``dispatched`` is ``dispatch_instance_features``' result; ``keypoints``
@@ -265,19 +265,19 @@ def finish_instance_features(dispatched: Dict, keypoints, num_instances: np.ndar
     angle filter, which carries the angle tracker's state. Without: flip
     votes and the iterative 180-degree filter.
 
-    ``timers`` gains host seconds under ``itf_moments``, ``itf_em_init``,
-    ``itf_kalman_smooth``, ``itf_flip_votes`` and ``itf_angle_filter``.
+    ``timers`` times the host stages ``itf_moments``, ``itf_em_init``,
+    ``itf_kalman_smooth``, ``itf_flip_votes`` and ``itf_angle_filter``
+    (:meth:`StageTimer.lap`).
     Returns ``cleaned_frames``, ``masks``, ``mask_origins``, ``features``
     (f64 ``centroid`` and ``axis_length``, ``orientation`` in degrees),
     ``flips``, ``keypoints`` and ``num_instances``.
     '''
-    mark = [time.perf_counter()]
+    if timers is not None:
+        timers.start()
 
     def _mark(name):
-        now = time.perf_counter()
         if timers is not None:
-            timers[name] = timers.get(name, 0.0) + (now - mark[0])
-        mark[0] = now
+            timers.lap(name)
 
     features, keypoints = _pull_features(dispatched['feats_dev'], keypoints)
     _mark('itf_moments')
@@ -379,7 +379,7 @@ def finish_instance_features(dispatched: Dict, keypoints, num_instances: np.ndar
 def instances_to_features(masks, keypoints, num_instances: np.ndarray, raw_frames,
                           point_tracker: Optional[KalmanTracker],
                           angle_tracker: Optional[KalmanTracker], debug: bool = False,
-                          debug_dir: str = '.', timers: Optional[Dict[str, float]] = None,
+                          debug_dir: str = '.', timers: Optional[StageTimer] = None,
                           window_origins=None) -> Dict:
     '''The feature stage and the brain in one call:
     :func:`dispatch_instance_features`, then :func:`finish_instance_features`.
