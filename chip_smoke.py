@@ -48,10 +48,21 @@ Phases, each printed with its elapsed seconds as it starts:
    multiply-adds x 2 over 989e12/s), the two-call form's time, and the mma
    each kernel issued (``roi_stage2_kernel.mma_count``) over its time, at
    both shapes;
+3c. the NMS kernel (``csrc/nms.cu``, through ``ops/nms.py:nms_keep_mask``)
+   at the main path's three shapes, on candidates made as the RPN makes
+   them (``synthetic.proposal_pool``): the faithful model's proposal NMS
+   (B 50, K 3,008, level-shifted), its train proposal NMS (B 8, K 5,008)
+   and its box head's NMS (B 50, K 1,000). Each keep mask equal bit for bit
+   to the plain fixpoint's on the same card tensors, one launch a call and
+   no host sync; CUDA-event time of back-to-back calls (kernel and plain)
+   beside the bound, the larger of the fp32 IoU operations of the distinct
+   pairs (12 a pair, B x K (K - 1) / 2) over 67e12/s and the bytes in and
+   out (22 a box) over 3.35 TB/s; each shape's launch plan and how many of
+   its clusters the card holds at once;
 4. the main path: ``Predictor.from_model_dir`` on the committed fast160
    model (R50-FPN, full width, weights read from its npz), a chunk of 64
    sentinel-encoded 424x512 frames made from ``--seed``, and
-   ``extract.process_chunk`` with both kernels' launch counts set to 0 just
+   ``extract.process_chunk`` with the kernels' launch counts set to 0 just
    before and read just after (and whether the FPN levels reach the pool
    as NHWC bf16, which decides whether its NHWC view copies); then 5 timed
    chunks (median wall time of
@@ -244,8 +255,8 @@ Phases, each printed with its elapsed seconds as it starts:
    and the card's clocks, power and temperature before and after;
    (b) ``Predictor.from_model_dir`` at batch 16 and phase 4's chunk through
    ``process_chunk`` with the launch counts and ``ops.nms.sync_count`` set
-   to 0 just before and read just after (3 ROIAlign launches a batch, 1
-   clean; the proposal NMS's host syncs a batch printed), phase 4's checks
+   to 0 just before and read just after (3 ROIAlign and 2 NMS launches a
+   batch, 1 clean, no NMS host sync), phase 4's checks
    of the output, the median stage ms of 5 chunks, the chunk's frames/s and
    peak memory, one profiled chunk; (c) phase 4's reference check on its
    first 4 frames (``valid`` and ``keep`` equal, boxes within 1 px, scores
@@ -594,6 +605,93 @@ def check_kernels(rng, reps: int, card: str):
     return roi, clean
 
 
+NMS_IOU_OPS = 12                   # max 2, min 2, sub 2, clamp 2, mul, add, sub, div
+NMS_BOX_BYTES = 16 + 4 + 1 + 1     # box, score, valid in; keep out
+# (label, B, candidates per level, level-shifted): the faithful model's
+# proposal NMS at inference and in training, and its box head's NMS
+NMS_SHAPES = (('proposal', 50, (1000, 1000, 768, 192, 48), True),
+              ('train', 8, (2000, 2000, 768, 192, 48), True),
+              ('box', 50, (1000,), False))
+
+
+def event_ms(fn, reps: int) -> float:
+    '''CUDA-event time of ``reps`` back-to-back calls, per call, after one
+    call to warm up.'''
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_nms(reps: int, card: str, seed: int) -> dict:
+    '''Phase 3c: the NMS kernel against the plain fixpoint at the main
+    path's shapes, and their times beside the bound.'''
+    import ctypes
+    import torch
+    from moseq2_detectron_extract_tpu_torch import native
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    from moseq2_detectron_extract_tpu_torch.synthetic import proposal_pool
+    lib = native.load_library()
+    plain_op = lambda b, s, v, t: nms.nms_keep_mask_plain(b, s, t, v)
+    kernel_op = nms.keep_mask_op
+    rows = {}
+    for label, b, level_k, shifted in NMS_SHAPES:
+        boxes, scores, levels, valid = (t.cuda() for t in proposal_pool(
+            b, level_k, seed=seed + sum(level_k)))
+        k = boxes.shape[1]
+        if shifted:
+            call = functools.partial(nms.batched_nms_keep_mask, boxes, scores, levels, 0.7,
+                                     valid=valid)
+        else:
+            call = functools.partial(nms.nms_keep_mask, boxes, scores, 0.7, valid=valid)
+        torch.cuda.synchronize()
+        nms.sync_count, nms.launch_count = 0, 0
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            keep = call()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        launches, syncs = nms.launch_count, nms.sync_count
+        nms.keep_mask_op = plain_op
+        try:
+            plain = call()
+            plain_rounds = nms.sync_count - 1
+            plain_ms = event_ms(call, max(2, reps // 4))
+        finally:
+            nms.keep_mask_op = kernel_op
+        torch.cuda.synchronize()
+        if (launches, syncs) != (1, 0) or not torch.equal(keep, plain):
+            raise AssertionError(f'nms {label} (B {b}, K {k}): {launches} launches, {syncs} '
+                                 f'syncs, {int((keep != plain).sum())} keep bits differ')
+        ms = event_ms(call, reps)
+        ops = NMS_IOU_OPS * b * k * (k - 1) // 2
+        nbytes = NMS_BOX_BYTES * b * k
+        b_ms, by = bound_ms(nbytes, ops)
+        plan = nms.launch_plan(k)
+        held = ctypes.c_int(0)
+        native.check(lib.m2de_nms_max_active_clusters(k, plan.cluster, plan.words_per_cta,
+                                                       int(plan.bits_in_smem),
+                                                       ctypes.byref(held)), 'occupancy')
+        phase(f'nms {label} (B {b}, K {k}{", level-shifted" if shifted else ""}): keep mask '
+              f'equal to the plain fixpoint ({int(keep.sum())} of {int(valid.sum())} valid '
+              f'kept; {plain_rounds} plain rounds), 1 launch, 0 host syncs; plan: clusters of '
+              f'{plan.cluster} CTAs x {plan.words_per_cta} words, bits in '
+              f'{"shared" if plan.bits_in_smem else "device"} memory, {plan.smem_bytes} B '
+              f'shared, {held.value} clusters at once; ms: kernel {ms:.4f}, plain '
+              f'{plain_ms:.4f}, bound {b_ms:.4f} by {by} ({ops:.3e} ops, {nbytes} B), share '
+              f'{100 * b_ms / ms:.1f}% [{card}]')
+        rows[label] = {'b': b, 'k': k, 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                       'bound_by': by, 'clusters_at_once': held.value}
+    return rows
+
+
 def dense_tc_ms(levels, boxes, out: int, block_k: int) -> float:
     '''The dense separable form's multiply-adds (stage 1 over every stacked
     row, stage 2 over every column, the ROIs padded to block_k) x 2 over the
@@ -787,8 +885,8 @@ def profile_chunk(chunk, predictor, config, tracker, card: str,
 def check_chunk(out, launches: dict) -> int:
     '''``process_chunk``'s output on a chunk of FRAMES 424x512 frames at
     batch BATCH: the shapes, finite outputs and centroids, the windows, the
-    launch counts (3 ROIAlign per batch, 1 clean) and the mouse found in 90%
-    of the frames, which it returns.'''
+    launch counts (3 ROIAlign and 2 NMS per batch, 1 clean) and the mouse
+    found in 90% of the frames, which it returns.'''
     import torch
     n = FRAMES
     inf = out['inference']
@@ -807,9 +905,11 @@ def check_chunk(out, launches: dict) -> int:
     has = torch.from_numpy(out['num_instances'] > 0).cuda()
     if not bool(torch.isfinite(fd['feats_dev']['centroid'][has]).all()):
         raise AssertionError('non-finite centroid of a selected instance')
-    if launches['roi_align'] != 3 * batches or launches['clean'] != 1:
+    if launches['roi_align'] != 3 * batches or launches['clean'] != 1 \
+            or launches['nms'] != 2 * batches:
         raise AssertionError(f'launch counts {launches}; expected roi_align '
-                             f'{3 * batches} (3 per batch), clean 1')
+                             f'{3 * batches} (3 per batch), clean 1, nms {2 * batches} '
+                             '(the proposal and the box NMS)')
     if found < 0.9 * n:
         raise AssertionError(f'the mouse was found in only {found} of {n} frames')
     return found
@@ -932,6 +1032,7 @@ def drive_session(session, predictor, prepared: dict, card: str, label: str,
     import torch
     from moseq2_detectron_extract_tpu_torch import extract
     from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.utils.profiling import StageTimer
 
     stages = {'produce': extract.produce_chunks, 'process_chunk': extract.process_chunk,
               'process_features': extract.process_features,
@@ -953,7 +1054,7 @@ def drive_session(session, predictor, prepared: dict, card: str, label: str,
     def timed_produce(*args):
         chunks = stages['produce'](*args)
         while True:
-            rows.append({'brain': {}})
+            rows.append({'brain': StageTimer()})
             t = time.perf_counter()
             item = next(chunks, None)
             rows[-1]['produce'] = time.perf_counter() - t
@@ -1026,7 +1127,7 @@ def drive_session(session, predictor, prepared: dict, card: str, label: str,
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     upto = sum(r['produce'] + r['process_chunk'] for r in rows)
     for i, r in enumerate(rows):
-        b = r['brain']
+        b = r['brain'].totals
         phase(f'{label} chunk {i}: {r["frames"]} true frames of {chunk_size}; read+prep '
               f'{r["produce"] * 1e3:.1f} ms (host), process_chunk {r["process_chunk"] * 1e3:.1f},'
               f' process_features {r["process_features"] * 1e3:.1f} (brain: moments pull '
@@ -3220,15 +3321,14 @@ def check_faithful(card: str, seed: int, model_dir: str, chunk, config: dict,
     tracker = extract.make_tracker()
     roi_align_kernel.launch_count = 0
     clean_kernel.launch_count = 0
-    nms.sync_count = 0
+    nms.sync_count, nms.launch_count = 0, 0
     out = extract.process_chunk(chunk, predictor, config, tracker=tracker)
     torch.cuda.synchronize()
-    launches = {'roi_align': roi_align_kernel.launch_count, 'clean': clean_kernel.launch_count}
-    syncs = nms.sync_count / -(-FRAMES // BATCH)
+    launches = {'roi_align': roi_align_kernel.launch_count, 'clean': clean_kernel.launch_count,
+                'nms': nms.launch_count}
     found = check_chunk(out, launches)
-    phase(f'4k (b) main path launches {launches}; proposal NMS host syncs {syncs:.1f} per '
-          f'batch (at most {nms.MAX_ITERS}); detections found in {found} of {FRAMES} frames '
-          f'[{card}]')
+    phase(f'4k (b) main path launches {launches}; NMS host syncs {nms.sync_count}; detections '
+          f'found in {found} of {FRAMES} frames [{card}]')
     time_chunks(predictor, config, tracker, seed, card, '4k (b) ')
 
     box_err, score_err, kp_err, n_same = reference_check(model_dir, chunk[:4], config)
@@ -3357,11 +3457,14 @@ def main() -> int:
     phase('3b/5 stage-2 variants vs plain versions (the ROIAlign stage-2 experiment)')
     stage2_launches, stage2 = check_stage2(rng, REPS, card, args.seed)
 
+    phase('3c/5 the NMS kernel vs the plain fixpoint at the main path\'s shapes')
+    nms_rows = check_nms(REPS, card, args.seed)
+
     phase('4/5 main path: Predictor.from_model_dir + process_chunk')
     from moseq2_detectron_extract_tpu_torch.extract import make_tracker, process_chunk
     from moseq2_detectron_extract_tpu_torch.models.predictor import Predictor
     from moseq2_detectron_extract_tpu_torch.models.rcnn import MaskKeypointRCNN
-    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, roi_align_kernel
+    from moseq2_detectron_extract_tpu_torch.ops import clean_kernel, nms, roi_align_kernel
     from moseq2_detectron_extract_tpu_torch.synthetic import make_sentinel_chunk
     t = time.perf_counter()
     predictor = Predictor.from_model_dir(args.model_dir, batch_size=BATCH)
@@ -3384,6 +3487,7 @@ def main() -> int:
     MaskKeypointRCNN.pool_levels = staticmethod(spy)
     roi_align_kernel.launch_count = 0
     clean_kernel.launch_count = 0
+    nms.launch_count = 0
     try:
         out = process_chunk(chunk, predictor, config, tracker=tracker)
         torch.cuda.synchronize()
@@ -3395,7 +3499,7 @@ def main() -> int:
           + ('NHWC bf16 already, the NHWC view copies nothing' if nhwc else
              'not NHWC bf16: pool_levels copies each level once per batch'))
     launches = {'roi_align': roi_align_kernel.launch_count,
-                'clean': clean_kernel.launch_count}
+                'clean': clean_kernel.launch_count, 'nms': nms.launch_count}
     phase(f'main path launches: {launches}')
 
     found = check_chunk(out, launches)
@@ -3496,6 +3600,9 @@ def main() -> int:
          'faithful': {'launches': faithful['launches']['clean'],
                       'extract_launches': faithful['extract_launches']['clean']}},
     ]
+    kernels.append({'name': 'nms', 'route': 'cuda', 'source': f'{PKG}/csrc/nms.cu',
+                    'replaces': None, 'launches': launches['nms'], 'max_abs_err': 0,
+                    'library_ms': None, 'shapes': nms_rows})
     replaces = {'retile': 59, 'transpose': 92, 'dotswap': 114, 'noxpose': 133}
     for variant, line in replaces.items():
         row = stage2[variant]

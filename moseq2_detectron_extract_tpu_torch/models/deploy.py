@@ -6,8 +6,8 @@ model, cast to its compute dtype and on its device, is exported at a fixed
 batch of (B, 3, S, S) f32 normalized images and (B, 2) content sizes, so
 that deployment runs the recorded program rather than the model's Python.
 The ROIAlign launches are the registered op ``m2de::roi_align_bf16``
-(``ops/roi_align_kernel.py``) in the graph, and the NMS fixpoint runs its
-fixed number of rounds while exporting (``ops/nms.py``). An exported model
+(``ops/roi_align_kernel.py``) in the graph, and the NMS fixpoints the
+registered op ``m2de::nms_keep_mask`` (``ops/nms.py``). An exported model
 loads back as a :class:`Predictor` that runs the program.
 
 Deviation from the JAX package: the program is ``model.pt2``

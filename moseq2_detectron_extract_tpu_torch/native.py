@@ -40,7 +40,7 @@ from typing import Callable, List
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-SOURCES = ('roi_align.cu', 'clean.cu', 'roi_stage2_resident.cu')
+SOURCES = ('roi_align.cu', 'clean.cu', 'roi_stage2_resident.cu', 'nms.cu')
 # the stage-2 entries each source holds (0 retile, 1 transpose, 2 dotswap, 3 noxpose)
 _STAGE2_ENTRIES = {'roi_stage2_resident.cu': (0, 1, 2, 3)}
 # (source, extra nvcc flags), one nvcc -c each: the stage-2 sources once per entry
@@ -190,6 +190,12 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     for entry in (lib.m2de_roi_stage2_resident_cs, lib.m2de_roi_stage2_resident_smem_bytes):
         entry.argtypes = [i, i]                          # Hp, Wp
         entry.restype = i
+    lib.m2de_nms_keep_mask.argtypes = [p, p, p, p, p,          # boxes, scores, valid, keep, scratch
+                                       i, i, i, i, i,          # B, K, cluster, words/CTA, in smem
+                                       ctypes.c_float, i, p]   # threshold, max rounds, stream
+    lib.m2de_nms_keep_mask.restype = i
+    lib.m2de_nms_max_active_clusters.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.m2de_nms_max_active_clusters.restype = i
     lib.m2de_cuda_error_string.argtypes = [i]
     lib.m2de_cuda_error_string.restype = ctypes.c_char_p
     return lib

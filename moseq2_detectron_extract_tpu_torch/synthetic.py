@@ -19,6 +19,9 @@ with dropouts, a saturated patch and a patch of full-range noise, so that
 ``write_annotated_views`` writes a Label Studio export of the same mouse:
 ``_depth.png`` views (as ``dataset.py`` writes sampled frames) with an
 outline polygon and eight keypoints along the body axis per view.
+
+``proposal_pool`` makes an NMS candidate pool as the RPN's proposal
+selection hands it over: anchors decoded by deltas and clipped, per level.
 '''
 import json
 import os
@@ -223,3 +226,30 @@ def write_annotated_views(dirname: str, n: int, size: int = 150, seed: int = 0,
     with open(path, 'w', encoding='utf-8') as fh:
         json.dump(tasks, fh)
     return path
+
+
+def proposal_pool(b: int, level_k: Tuple[int, ...], canvas: int = 256, seed: int = 0):
+    """(B, K) NMS candidates as ``models/rpn.py:select_proposals`` makes
+    them, K the sum of ``level_k``: per level, anchors of size 32 x 2^l at
+    aspect ratios 0.5, 1 and 2 around random centres, decoded by random
+    deltas and clipped to the canvas; descending logits as scores. Returns
+    CPU tensors boxes (B, K, 4) f32, scores (B, K) f32, levels (B, K) int32
+    and valid (B, K) bool (the non-empty boxes)."""
+    import torch
+    from moseq2_detectron_extract_tpu_torch.ops.boxes import (clip_boxes, decode_boxes,
+                                                              nonempty_boxes)
+    rng = np.random.default_rng(seed)
+    parts = []
+    for level, k in enumerate(level_k):
+        centre = rng.uniform(0, canvas, (b, k, 2))
+        ratio = rng.choice([0.5, 1.0, 2.0], (b, k))
+        size = 32.0 * 2 ** level
+        wh = np.stack([size / np.sqrt(ratio), size * np.sqrt(ratio)], -1)
+        anchors = np.concatenate([centre - wh / 2, centre + wh / 2], -1).astype('float32')
+        deltas = rng.normal(0, 0.4, (b, k, 4)).astype('float32')
+        boxes = clip_boxes(decode_boxes(torch.from_numpy(deltas), torch.from_numpy(anchors)),
+                           torch.full((b, 2), float(canvas)))
+        scores = np.sort(rng.normal(0, 2, (b, k)), -1)[:, ::-1].astype('float32')
+        parts.append((boxes, torch.from_numpy(scores.copy()),
+                      torch.full((b, k), level, dtype=torch.int32), nonempty_boxes(boxes)))
+    return tuple(torch.cat(p, 1) for p in zip(*parts))

@@ -15,7 +15,8 @@ element of T may round to the other bf16 neighbour). The output ops on
 the card against the CPU: crop-and-rotate in f32 to 1e-3 (CUDA's ``cosf``
 and fused multiply-adds move a source coordinate by about 1e-6 px), the
 uint8 crops and the masks equal except at .5 (0.5) edges, the packed masks,
-z, pixel counts and heights equal.
+z, pixel counts and heights equal. The NMS kernel's keep mask equals the
+plain fixpoint's bit for bit, with no host sync.
 '''
 import numpy as np
 import pytest
@@ -37,8 +38,8 @@ from moseq2_detectron_extract_tpu_torch.pipeline.steps import (fetch_results,
 from moseq2_detectron_extract_tpu_torch.proc.keypoints import dispatch_z_lookup
 from moseq2_detectron_extract_tpu_torch.proc.scalars import dispatch_scalar_stats
 from moseq2_detectron_extract_tpu_torch.proc.roi import get_roi
-from moseq2_detectron_extract_tpu_torch.synthetic import (make_sentinel_chunk, rough_arena,
-                                                          write_raw_session)
+from moseq2_detectron_extract_tpu_torch.synthetic import (make_sentinel_chunk, proposal_pool,
+                                                          rough_arena, write_raw_session)
 
 BF16_TOL = 2.0 ** -6
 
@@ -150,8 +151,8 @@ def chain_of_boxes(rng, k: int, chain: int):
 @pytest.mark.parametrize('batched', [False, True])
 def test_cuda_nms_at_the_global_cap_matches_cpu(cuda_device, batched):
     '''The faithful model's proposal NMS shape, (2, 1024, 1024), with a
-    chain of suppressions past the 32-round cap: the card's keep mask
-    equals the CPU's, after 32 host syncs on each.'''
+    chain of suppressions past the 32-round cap: the card's keep mask (one
+    kernel launch, no host sync) equals the CPU's (32 host syncs).'''
     from moseq2_detectron_extract_tpu_torch.ops import nms
     rng = np.random.default_rng(21)
     parts = [torch.from_numpy(np.stack(p)) for p in zip(*(chain_of_boxes(rng, 1024, 100)
@@ -159,13 +160,188 @@ def test_cuda_nms_at_the_global_cap_matches_cpu(cuda_device, batched):
     keep = {}
     for dev in ('cpu', cuda_device):
         boxes, scores, levels, valid = (p.to(dev) for p in parts)
-        nms.sync_count = 0
+        nms.sync_count, nms.launch_count = 0, 0
         if batched:
             keep[str(dev)] = nms.batched_nms_keep_mask(boxes, scores, levels, 0.7, valid=valid)
         else:
             keep[str(dev)] = nms.nms_keep_mask(boxes, scores, 0.7, valid=valid)
-        assert nms.sync_count == nms.MAX_ITERS
+        on_card = dev != 'cpu'
+        assert (nms.sync_count, nms.launch_count) == ((0, 1) if on_card else (nms.MAX_ITERS, 0))
     assert torch.equal(keep[str(cuda_device)].cpu(), keep['cpu'])
+
+
+def exact_threshold_pairs(n: int):
+    '''(1, 2n) boxes in pairs whose float32 IoU is exactly float32(0.7):
+    [x, y, x + 10s, y + 10s] against [x, y, x + 7s, y + 10s] (inter 70 s^2,
+    union 100 s^2, all exact), then pairs whose narrow box's right edge is a
+    float32 step further or nearer; the pairs 50 apart, so that no two overlap.'''
+    rng = np.random.default_rng(7)
+    boxes = []
+    for i in range(n):
+        x, y = 50.0 * (i % 20), 50.0 * (i // 20)
+        step = 2.0 ** int(rng.integers(-2, 3))
+        right = np.float32(x + 7 * step)
+        right = (right, np.nextafter(right, np.float32(np.inf)),
+                 np.nextafter(right, np.float32(0)))[i % 3]
+        boxes += [[x, y, x + 10 * step, y + 10 * step], [x, y, float(right), y + 10 * step]]
+    boxes = np.asarray(boxes, 'float32')[None]
+    scores = np.tile([0.9, 0.8], n)[None].astype('float32')
+    return boxes, scores
+
+
+def near_threshold_pairs(n: int):
+    '''(n, 2, 4) boxes, a pair an image, at random float coordinates, whose
+    float32 IoU is within 2 float32 steps of float32(0.7): drawn from a
+    larger pool by that IoU computed in numpy, one operation at a time, so
+    that contracting two of them into an FMA would move some across.'''
+    rng = np.random.default_rng(8)
+    m = 400 * n
+    x, y = (rng.uniform(0, 5, m).astype('float32') for _ in range(2))
+    w, h = (rng.uniform(5, 60, m).astype('float32') for _ in range(2))
+    right = x + np.float32(0.7) * w
+    for _ in range(3):
+        step = rng.integers(-1, 2, m)
+        toward = np.where(step > 0, np.float32(np.inf), np.float32(0))
+        right = np.where(step == 0, right, np.nextafter(right, toward))
+    big = np.stack([x, y, x + w, y + h], -1)
+    narrow = np.stack([x, y, right, y + h], -1)
+    area = [(b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) for b in (big, narrow)]
+    inter = (np.minimum(big[:, 2], right) - x) * h
+    iou = inter / (area[0] + area[1] - inter)
+    at = np.float32(0.7)
+    near = np.abs(iou - at) <= 2 * np.spacing(at)
+    boxes = np.stack([big, narrow], 1)[near][:n]
+    assert len(boxes) == n
+    return boxes, np.tile([[0.9, 0.8]], (n, 1)).astype('float32')
+
+
+def assert_kernel_is_plain(cuda_device, boxes, scores, valid, thr=0.7, levels=None):
+    '''The kernel's keep mask against the plain fixpoint's on the same card
+    tensors, bit for bit: one launch, no host sync, ``sync_count`` unchanged.'''
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    boxes, scores, valid = (t.to(cuda_device) for t in (boxes, scores, valid))
+    args = (boxes, scores) if levels is None else (boxes, scores, levels.to(cuda_device))
+    entry = nms.nms_keep_mask if levels is None else nms.batched_nms_keep_mask
+    syncs, launches = nms.sync_count, nms.launch_count
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        keep = entry(*args, thr, valid=valid)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert (nms.sync_count, nms.launch_count) == (syncs, launches + 1)
+    kernel_op = nms.keep_mask_op
+    nms.keep_mask_op = lambda b, s, v, t: nms.nms_keep_mask_plain(b, s, t, v)
+    try:
+        plain = entry(*args, thr, valid=valid)
+    finally:
+        nms.keep_mask_op = kernel_op
+    torch.cuda.synchronize()
+    assert keep.dtype == torch.bool and keep.shape == scores.shape
+    assert torch.equal(keep, plain), int((keep != plain).sum())
+    return keep.cpu()
+
+
+@pytest.mark.parametrize('b,level_k,shifted', [
+    (50, (1000, 1000, 768, 192, 48), True),    # the proposal NMS at inference
+    (8, (2000, 2000, 768, 192, 48), True),     # the train proposal NMS
+    (50, (1000,), False)])                     # the box head's NMS
+def test_cuda_nms_kernel_at_the_main_path_shapes(cuda_device, b, level_k, shifted):
+    boxes, scores, levels, valid = proposal_pool(b, level_k, seed=sum(level_k))
+    keep = assert_kernel_is_plain(cuda_device, boxes, scores, valid,
+                                  levels=levels if shifted else None)
+    assert 0 < int(keep.sum()) < int(valid.sum())
+
+
+def test_cuda_nms_kernel_on_equal_scores(cuda_device):
+    '''Rounded scores: ties everywhere, broken by index.'''
+    boxes, scores, levels, valid = proposal_pool(4, (700, 300), seed=3)
+    scores = torch.round(scores)
+    boxes[:, 1::5] = boxes[:, ::5]               # identical boxes, tied scores
+    scores[:, 1::5] = scores[:, ::5]
+    assert_kernel_is_plain(cuda_device, boxes, scores, valid, levels=levels)
+
+
+def test_cuda_nms_kernel_at_exactly_the_threshold(cuda_device):
+    '''Pairs whose float32 IoU is float32(0.7): not suppressed, as in the
+    plain version; one step wider, suppressed. Then pairs at random float
+    coordinates within a few rounding steps of the threshold.'''
+    from moseq2_detectron_extract_tpu_torch.ops.boxes import pairwise_iou
+    boxes, scores = map(torch.from_numpy, exact_threshold_pairs(300))
+    iou = pairwise_iou(boxes, boxes)[0, ::2, 1::2].diagonal()
+    assert bool((iou[::3] == torch.tensor(0.7, dtype=torch.float32)).all())
+    assert bool((iou[1::3] > 0.7).all()) and bool((iou[2::3] < 0.7).all())
+    keep = assert_kernel_is_plain(cuda_device, boxes, scores,
+                                  torch.ones(scores.shape, dtype=torch.bool))
+    assert bool(keep[0, 1::6].all()) and not bool(keep[0, 3::6].any())
+    boxes, scores = map(torch.from_numpy, near_threshold_pairs(600))
+    iou = pairwise_iou(boxes, boxes)[:, 0, 1]
+    at = torch.tensor(0.7, dtype=torch.float32)
+    assert min(int((iou == at).sum()), int((iou > at).sum()), int((iou < at).sum())) >= 50
+    assert_kernel_is_plain(cuda_device, boxes, scores, torch.ones(scores.shape, dtype=torch.bool))
+
+
+@pytest.mark.parametrize('k', [1, 33, 100, 1000, 1023])
+def test_cuda_nms_kernel_on_invalid_boxes_and_odd_k(cuda_device, k):
+    '''Padding boxes, an image with none valid, and K of 1 or not a
+    multiple of 32 or 64.'''
+    boxes, scores, levels, valid = proposal_pool(3, (k,), canvas=64, seed=k)
+    valid &= torch.from_numpy(np.random.default_rng(k).random((3, k)) > 0.2)
+    valid[1] = False
+    keep = assert_kernel_is_plain(cuda_device, boxes, scores, valid, thr=0.5)
+    assert not bool(keep[1].any())
+
+
+def test_cuda_nms_kernel_on_nan_and_infinite_inputs(cuda_device):
+    '''NaN and infinite coordinates and NaN scores fall as torch's
+    maximum, minimum, clamp and comparisons take them.'''
+    boxes, scores, levels, valid = proposal_pool(2, (300,), canvas=64, seed=9)
+    boxes[0, ::7, 0] = float('nan')
+    boxes[0, 3::11, 2] = float('inf')
+    boxes[1, 5::13] = boxes[1, 4::13] * float('inf')
+    scores[1, ::9] = float('nan')
+    assert_kernel_is_plain(cuda_device, boxes, scores, valid, thr=0.3)
+
+
+@pytest.mark.parametrize('k', [5121, 9000])
+def test_cuda_nms_kernel_with_the_bits_in_device_memory(cuda_device, k):
+    '''K whose slice of bits does not fit in shared memory: the rounds read
+    them from the device-memory scratch (a cluster of 14 CTAs at 5,121).'''
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    assert not nms.launch_plan(k).bits_in_smem
+    boxes, scores, levels, valid = proposal_pool(2, (k - 1000, 1000), seed=k)
+    assert_kernel_is_plain(cuda_device, boxes, scores, valid, levels=levels)
+
+
+@pytest.mark.parametrize('k', [300, 3008, 6000])
+def test_cuda_nms_kernel_keeps_the_round_cap(cuda_device, k):
+    '''A ladder of 100 boxes that needs 50 rounds: the first 64 decided
+    (every other one kept), the rest undecided at the 32-round cap.'''
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    rng = np.random.default_rng(k)
+    boxes, scores, levels, valid = (torch.from_numpy(np.stack(p)) for p in zip(
+        *(chain_of_boxes(rng, k, 100) for _ in range(2))))
+    keep = assert_kernel_is_plain(cuda_device, boxes, scores, valid, levels=levels)
+    chain = keep[:, :100]
+    assert bool(chain[:, :2 * nms.MAX_ITERS:2].all())
+    assert not bool(chain[:, 1:2 * nms.MAX_ITERS:2].any())
+    assert not bool(chain[:, 2 * nms.MAX_ITERS:].any())
+
+
+def test_cuda_nms_kernel_plans_can_be_scheduled(cuda_device):
+    '''Each plan of the main path's K, and of the device-memory path,
+    fits on the card at least once.'''
+    import ctypes
+    from moseq2_detectron_extract_tpu_torch import native
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    lib = native.load_library()
+    for k in (64, 1000, 3008, 5008, 5121, 20000):
+        plan = nms.launch_plan(k)
+        out = ctypes.c_int(0)
+        native.check(lib.m2de_nms_max_active_clusters(k, plan.cluster, plan.words_per_cta,
+                                                       int(plan.bits_in_smem),
+                                                       ctypes.byref(out)), 'occupancy')
+        assert out.value >= 1, (k, plan)
 
 
 @pytest.mark.parametrize('shape', [(64, 160, 160), (3, 77, 101), (2, 424, 512),
@@ -280,6 +456,39 @@ def test_cuda_process_chunk_matches_cpu(cuda_device):
     np.testing.assert_array_equal(gpu['win_origins'], cpu['win_origins'])
     assert torch.equal(gpu['feat_dispatch']['cleaned_frames'].cpu(),
                        cpu['feat_dispatch']['cleaned_frames'])
+
+
+def test_cuda_process_chunk_with_the_nms_kernel_equals_the_plain_nms(cuda_device):
+    '''The small model with the faithful model's uncapped pool (1,000
+    proposals a level, about 1,000 candidates on its 64 canvas): the slice's
+    outputs with the NMS kernel equal those with the plain fixpoint on the
+    card bit for bit (cuDNN deterministic), two launches a batch.'''
+    from moseq2_detectron_extract_tpu_torch.ops import nms
+    cfg, state = small_model()
+    cfg = cfg.replace(rpn_pre_nms_topk_test=1000, rpn_post_nms_topk_test=100,
+                      rpn_nms_global_cap=None, test_score_thresh=0.0)
+    chunk = make_sentinel_chunk(6, 96, 128, seed=1)
+    config = {'min_height': 0, 'max_height': 100, 'feature_window': 64}
+    pred = Predictor(cfg, state, batch_size=2, score_threshold=0.0, device=cuda_device)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    kernel_op = nms.keep_mask_op
+    try:
+        nms.launch_count = 0
+        with_kernel = process_chunk(chunk, pred, config)['inference']
+        assert nms.launch_count == 2 * 3
+        nms.keep_mask_op = lambda b, s, v, t: nms.nms_keep_mask_plain(b, s, t, v)
+        with_plain = process_chunk(chunk, pred, config)['inference']
+    finally:
+        nms.keep_mask_op = kernel_op
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    assert set(with_kernel) == set(with_plain)
+    for key, value in with_kernel.items():
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(torch.nan_to_num(value, nan=-7.0),
+                               torch.nan_to_num(with_plain[key], nan=-7.0)), key
+        else:
+            np.testing.assert_array_equal(value, with_plain[key], err_msg=key)
 
 
 @pytest.fixture

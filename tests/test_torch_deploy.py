@@ -4,14 +4,22 @@ The ``compile-model`` command exports the tiny f32 model on the CPU once
 (``torch.export``, about 15 s) and evaluates the held-out views through the
 loaded program. The program must equal the live model bit for bit, the
 post-export AP must equal the live AP, and ``load_exported_model`` must run
-the program only at the batch it was exported at. The fixed-round NMS that
-export traces must equal the early-exit loop and the JAX package's bounded
+the program only at the batch it was exported at. The NMS is the
+registered op ``m2de::nms_keep_mask``: the program records it, its CPU
+implementation is the plain fixpoint and its fake implementation gives the
+(B, K) bool shape. The CUDA kernel's rounds (``csrc/nms.cu``) stop each
+image at its own convergence, where the plain version's loop tests the
+whole batch; a round after an image has converged changes nothing of its
+keep mask, so both give the same answer: here the kernel's rounds, written
+out in numpy, must equal the plain loop and the JAX package's bounded
 ``while_loop`` on random boxes, exact score ties and suppression chains,
-one of them cut at the round cap.
+one of them cut at the round cap. ``tests/test_torch_cuda.py`` holds the
+kernel itself to the plain version on the card.
 '''
 import logging
 import os
 import random
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -145,8 +153,30 @@ NMS_CASES = {'random': _random_boxes(0), 'ties': _random_boxes(1, ties=True),
              'chain_40': _chain(40), 'chain_80_cut_at_cap': _chain(80)}
 
 
+def kernel_rounds(dominates, valid):
+    '''The rounds of ``csrc/nms.cu`` over one image's (K, K) dominance: its
+    own convergence test before each round, at most ``MAX_ITERS`` rounds,
+    and a row already decided (kept, or suppressed) not scanned again.'''
+    keep = np.zeros_like(valid)
+    supp = np.zeros_like(valid)
+    for _ in range(nms.MAX_ITERS):
+        if not (valid & ~keep & ~supp).any():
+            break
+        new_keep = keep.copy()
+        for i in np.flatnonzero(valid & ~keep & ~supp):
+            new_keep[i] = not (dominates[i] & ~supp).any()
+        keep = new_keep
+        new_supp = supp.copy()
+        for i in np.flatnonzero(~supp):
+            new_supp[i] = (dominates[i] & keep).any()
+        supp = new_supp
+    return keep
+
+
 @pytest.mark.parametrize('case', list(NMS_CASES))
-def test_fixed_round_nms_equals_the_synced_loop(case, monkeypatch):
+def test_fixed_round_nms_equals_the_synced_loop(case):
+    '''The kernel's rounds, each image stopped at its own convergence or
+    cut at the cap, equal the plain version's batch-wide synced loop.'''
     boxes, scores = NMS_CASES[case]
     valid = np.ones(scores.shape, bool)
     if not case.startswith('chain'):
@@ -155,27 +185,117 @@ def test_fixed_round_nms_equals_the_synced_loop(case, monkeypatch):
     nms.sync_count = 0
     eager = nms.nms_keep_mask(tb, ts, 0.4, valid=tv)
     syncs = nms.sync_count
-    monkeypatch.setattr(torch.compiler, 'is_exporting', lambda: True)
-    fixed = nms.nms_keep_mask(tb, ts, 0.4, valid=tv)
-    assert nms.sync_count == syncs              # no host sync while exporting
-    assert torch.equal(fixed, eager)
-    np.testing.assert_array_equal(fixed.numpy(), _jax_keep(boxes, scores, 0.4, valid))
+    dominates = nms.dominance(tb, ts, 0.4, tv).numpy()
+    fixed = np.stack([kernel_rounds(d, v) for d, v in zip(dominates, valid)])
+    np.testing.assert_array_equal(fixed, eager.numpy())
+    np.testing.assert_array_equal(fixed, _jax_keep(boxes, scores, 0.4, valid))
     if case == 'chain_40':
         assert syncs == 21                      # 20 rounds, then the test that ends it
-        np.testing.assert_array_equal(fixed[0].numpy(), np.arange(40) % 2 == 0)
+        np.testing.assert_array_equal(fixed[0], np.arange(40) % 2 == 0)
     if case == 'chain_80_cut_at_cap':
         assert syncs == nms.MAX_ITERS
-        assert not bool(fixed[0, 2 * nms.MAX_ITERS:].any())   # undecided at the cap
+        assert not fixed[0, 2 * nms.MAX_ITERS:].any()   # undecided at the cap
 
 
 def test_nms_exports_without_a_host_sync():
-    '''``torch.export`` of the NMS alone: the program gives the eager keep
-    mask on other boxes of the same shape.'''
+    '''``torch.export`` of the NMS alone records the op, with no host sync:
+    the program gives the eager keep mask on other boxes of the same shape.'''
     class Keep(torch.nn.Module):
         def forward(self, boxes, scores):
             return nms.nms_keep_mask(boxes, scores, 0.4)
 
     boxes, scores = _random_boxes(2)
+    nms.sync_count = 0
     program = torch.export.export(Keep(), (torch.from_numpy(boxes), torch.from_numpy(scores)))
+    assert nms.sync_count == 0
+    assert [str(n.target) for n in program.graph.nodes if n.op == 'call_function'
+            and 'm2de' in str(n.target)] == ['m2de.nms_keep_mask.default']
     boxes, scores = map(torch.from_numpy, _random_boxes(3))
     assert torch.equal(program.module()(boxes, scores), nms.nms_keep_mask(boxes, scores, 0.4))
+
+
+@pytest.mark.parametrize('case', list(NMS_CASES))
+def test_nms_op_on_the_cpu_is_the_plain_version(case):
+    boxes, scores = map(torch.from_numpy, NMS_CASES[case])
+    valid = torch.rand(scores.shape, generator=torch.Generator().manual_seed(0)) > 0.1
+    plain = nms.nms_keep_mask_plain(boxes, scores, 0.4, valid)
+    assert torch.equal(nms.keep_mask_op(boxes, scores, valid, 0.4), plain)
+    assert torch.equal(nms.nms_keep_mask(boxes, scores, 0.4, valid=valid), plain)
+
+
+def test_nms_op_fake_gives_the_bool_shape():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        boxes, scores = torch.empty((5, 300, 4)), torch.empty((5, 300))
+        keep = nms.keep_mask_op(boxes, scores, torch.ones((5, 300), dtype=torch.bool), 0.7)
+    assert keep.shape == (5, 300) and keep.dtype == torch.bool
+
+
+def test_nms_takes_any_leading_shape_and_grad_inputs():
+    boxes, scores = map(torch.from_numpy, _random_boxes(4, b=6))
+    boxes.requires_grad_(True)
+    flat = nms.nms_keep_mask(boxes, scores, 0.4)
+    keep = nms.nms_keep_mask(boxes.reshape(2, 3, -1, 4), scores.reshape(2, 3, -1), 0.4)
+    assert keep.shape == (2, 3, scores.shape[-1]) and not keep.requires_grad
+    assert torch.equal(keep.reshape(flat.shape), flat)
+
+
+def test_export_records_the_nms_op(exported):
+    '''The exported inference forward holds the proposal NMS and the box
+    head's NMS as the op, not as unrolled rounds.'''
+    _, _, out, _ = exported
+    program = torch.export.load(os.path.join(out, 'model.pt2'))
+    calls = [str(n.target) for m in program.graph_module.modules()
+             if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
+             if n.op == 'call_function']
+    assert calls.count('m2de.nms_keep_mask.default') == 2
+    assert not any('any' in c for c in calls)
+
+
+@pytest.mark.parametrize('k', [1, 63, 64, 65, 1000, 1024, 3008, 5008, 5056, 5057, 20000,
+                               nms.MAX_K])
+def test_nms_launch_plan(k):
+    '''Every 64-box word owned by one CTA, no CTA empty, at most 16 a
+    cluster, the shared memory within the card's limit, the bits in it
+    where the slice fits (the main path's K = 1,000, 3,008 and 5,008 all
+    do).'''
+    plan = nms.launch_plan(k)
+    assert plan.words == -(-k // 64) and plan.row_words % 2 == 1
+    assert plan.row_words in (plan.words, plan.words + 1)
+    assert 1 <= plan.cluster <= nms.MAX_CLUSTER
+    assert plan.cluster * plan.words_per_cta >= plan.words
+    assert (plan.cluster - 1) * plan.words_per_cta < plan.words
+    bits = 8 * 64 * plan.words_per_cta * plan.row_words
+    vectors = 48 * plan.row_words + nms.STAGE_BYTES
+    assert plan.bits_in_smem == (vectors + bits <= nms.MAX_SMEM)
+    assert plan.smem_bytes == vectors + bits * plan.bits_in_smem <= nms.MAX_SMEM
+    assert plan.bits_in_smem == (k <= 5056)
+
+
+@pytest.mark.parametrize('words', [1, 2, 3, 4, 5, 16, 47, 79, 80, 81])
+def test_nms_kernel_tiles_cover_each_pair_of_blocks_once(words):
+    '''``csrc/nms.cu``'s tiles: block I takes J = I + d (mod W) for d = 0 ..
+    (W - 1) / 2, and d = W / 2 when W is even and I < W / 2, and writes its
+    rows' word J and, off the diagonal, block J's rows' word I: each word of
+    each row once, so each pair's IoU is computed once.'''
+    d_max = 1 + (words - 1) // 2 + (words % 2 == 0)
+    written = Counter()
+    for block in range(words):
+        for d in range(d_max):
+            if 2 * d == words and 2 * block >= words:
+                continue
+            other = (block + d) % words
+            written[block, other] += 1
+            if d:
+                written[other, block] += 1
+    assert written == Counter({(i, j): 1 for i in range(words) for j in range(words)})
+
+
+def test_nms_launch_plan_refuses_what_it_cannot_hold():
+    with pytest.raises(ValueError, match='no boxes'):
+        nms.launch_plan(0)
+    with pytest.raises(ValueError, match='at most'):
+        nms.launch_plan(nms.MAX_K + 1)
+    with pytest.raises(ValueError, match='CUDA'):
+        nms.nms_keep_mask_cuda(torch.zeros((1, 3, 4)), torch.zeros((1, 3)),
+                               torch.ones((1, 3), dtype=torch.bool), 0.5)

@@ -336,7 +336,8 @@ def test_two_sessions_agree_with_the_jax_sharded_run(sharded):
 @pytest.mark.parametrize('module,name,add', [
     (clean_kernel, 'launch_count', '_add_launch'),
     (roi_align_kernel, 'launch_count', '_add_launch'),
-    (nms, 'sync_count', '_add_sync')])
+    (nms, 'sync_count', '_add_sync'),
+    (nms, 'launch_count', '_add_launch')])
 def test_counters_are_exact_from_two_threads(module, name, add):
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
